@@ -15,3 +15,9 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 assert jax.default_backend() == "cpu", jax.default_backend()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with torch CUDA (the test "
+        "skips itself where torch.cuda.is_available() is false)")
