@@ -1,10 +1,12 @@
 """Signature-k-mer annotation engine on PyTorch and CUDA.
 
 The port of the JAX package ``kmergutsjava_tpu`` (which stays the reference
-it is tested against) to one NVIDIA GPU: FASTA -> amino-acid 8-mer encoding
--> signature-table lookup through a hand-written CUDA tile-join kernel ->
-per-sequence function CALLs and OTU counts, bit-identical to the reference's
-text report. Importing this package imports neither jax nor the JAX package.
+it is tested against) to one NVIDIA GPU: FASTA (proteins, or DNA through
+6-frame translation) -> amino-acid 8-mer encoding -> signature-table lookup
+through hand-written CUDA kernels (a sparse tile-join probe, a dense stream
+probe) -> per-sequence function CALLs and OTU counts, bit-identical to the
+reference's text report. Importing this package imports neither jax nor the
+JAX package.
 """
 __version__ = "0.1.0"
 

@@ -6,7 +6,7 @@ work (the reference's switch falls through, ref :605-610) and omitting -q
 really reads stdin (the reference NPEs, ref :647). Port extensions use long
 flags.
 
-Usage: python -m kmergutsjava_tpu_torch.cli [options] -a -D DataDir
+Usage: python -m kmergutsjava_tpu_torch.cli [options] -D DataDir
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from .config import EngineConfig, not_ported
 
 USAGE = """Usage: kmer_guts [options] -D DataDir
 Arguments:
- -a - (required for now) amino acids in input FASTA (DNA mode is not ported yet)
+ -a - (optional) amino acids in input FASTA (default is DNA)
  -d - (optional) print debug messages
  -m - (optional) min. number of hits in result (integer, default = 5)
  -M - (optional) min. sum of hit weights (integer, default = 0)
@@ -29,7 +29,7 @@ Arguments:
  -t - (optional) temporary directory (system one is used by default)
  -l - (optional) limit for input Kmer array (long, default = 20,000,000)
  --device NAME - (optional) torch device of the probe: cuda (default; the CUDA kernel) or cpu (its PyTorch twin)
- --backend NAME - (optional) lookup backend: auto (default), xla (the sparse device probe), parity
+ --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, parity
  --probe-window N - (optional) override table-derived probe window
  --chunk N - (optional) queries per device dispatch (default 524288)
  --prepare IMPL - (optional) encode impl: native (default), numpy
@@ -111,8 +111,6 @@ def parse_args(argv: List[str]):
             raise ValueError("Unknown parameter: -" + name)
     if data_dir is None:
         raise ValueError("-D parameter is required")
-    if not cfg.aa:
-        raise not_ported("DNA mode (a run without -a)")
     cfg.__post_init__()  # validate what the flags set
     return cfg, data_dir, query, output, n_threads
 

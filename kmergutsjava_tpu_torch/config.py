@@ -12,11 +12,11 @@ import tempfile
 from dataclasses import dataclass
 from typing import Optional
 
-# lookup backends: "auto" (the sparse tile-join path at every density until
-# the dense stream kernel is ported — both are exact, so the choice only
-# costs speed), "xla" (the sparse tile-join path; the JAX package's name, so
-# its command lines run unchanged) and "parity" (the exact streaming scan)
-BACKENDS = ("auto", "xla", "parity")
+# lookup backends: "auto" (stream vs xla by query density — both are exact,
+# so the choice only costs speed), "xla" (the sparse tile-join probe; the
+# JAX package's name, so its command lines run unchanged), "stream" (the
+# dense stream probe) and "parity" (the exact streaming scan)
+BACKENDS = ("auto", "xla", "stream", "parity")
 PREPARE_IMPLS = ("native", "numpy")
 GROUPING_IMPLS = ("host",)
 

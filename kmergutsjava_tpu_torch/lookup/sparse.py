@@ -94,7 +94,7 @@ def _check_int32_homes(num_sigs: int) -> None:
 
 
 @contextlib.contextmanager
-def _device_fault(step: str):
+def _device_fault(step: str, probe: str = "tile-join probe"):
     """Turn a torch RuntimeError from the probe's device work into a
     KernelError, which the engine never reports as a lookup error."""
     try:
@@ -103,11 +103,79 @@ def _device_fault(step: str):
         raise
     except RuntimeError as ex:
         raise tilejoin.KernelError(
-            f"tile-join probe {step} failed on the device: {ex}") from ex
+            f"{probe} {step} failed on the device: {ex}") from ex
 
 
-class SparseLookup:
-    """Owns the device-resident fingerprint plane and the host k-mer column.
+def owned_stream(device: torch.device):
+    """A CUDA stream for one lookup's device work (None on the CPU)."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def on_stream(stream):
+    """Issue the enclosed torch work on ``stream`` (a no-op for None)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
+class HostWindow:
+    """The host half of a lookup: the padded host k-mer column, the exact
+    window ``full_window >= max_probe``, the exact full-window pass over it
+    and contiguous copies of the table's value columns. Allocates nothing
+    on a device: the stream lookup's exact fallback uses it alone (the JAX
+    package's ``XlaLookup(host_only=True)``)."""
+
+    def __init__(self, table: KmerTable, probe_window: Optional[int] = None):
+        if table.max_probe is None:
+            table.compute_max_probe()
+        full_window = probe_window or max(8, _round_up_pow2(table.max_probe))
+        if full_window > 256:
+            raise ValueError("probe window > 256 unsupported (uint8 offsets); "
+                             "rebuild the table at a lower load factor")
+        s = table.num_sigs
+        host_kmer = np.full(s + full_window, EMPTY_KMER, np.int64)
+        host_kmer[:s] = table.slots["kmer"]
+        self._set_host(table, host_kmer, full_window)
+
+    def _set_host(self, table, host_kmer, full_window) -> None:
+        self.table = table
+        self.num_sigs = table.num_sigs
+        self.full_window = full_window
+        self.host_kmer = host_kmer
+
+    def _table_cols(self):
+        """Contiguous copies of the table value columns (the structured
+        slot array strides at 24 bytes, which the C ABI can't take)."""
+        cols = getattr(self, "_cols", None)
+        if cols is None:
+            t = self.table.slots
+            cols = (np.ascontiguousarray(t["otu"]),
+                    np.ascontiguousarray(t["avg_from_end"]),
+                    np.ascontiguousarray(t["fi"]),
+                    np.ascontiguousarray(t["wt"]))
+            self._cols = cols
+        return cols
+
+    def _host_full_window(self, values, homes, todo):
+        """Exact full-window probe on the host k-mer array (for unresolved
+        queries). W flat gathers instead of one [N, W] advanced-index
+        gather: the latter materializes N*W int64 temporaries."""
+        idx = homes[todo].astype(np.int64)
+        v = values[todo]
+        found = np.zeros(len(idx), dtype=bool)
+        off = np.zeros(len(idx), dtype=np.uint8)
+        hk = self.host_kmer
+        # reverse order + overwrite == first-match offset
+        for l in range(self.full_window - 1, -1, -1):
+            m = hk[idx + l] == v
+            off[m] = l
+            found |= m
+        return found, np.where(found, off, 0)
+
+
+class SparseLookup(HostWindow):
+    """Owns the device-resident fingerprint plane; the host half (k-mer
+    column, exact pass) comes from ``HostWindow``.
 
     ``dispatch_probe`` starts one pass-1 probe on the device and
     ``resolve_probe`` copies its answer back; ``_verify_emit`` resolves an
@@ -121,21 +189,13 @@ class SparseLookup:
     def __init__(self, table: KmerTable, probe_window: Optional[int] = None,
                  chunk: Optional[int] = None, device: str = "cuda",
                  first_pass_window: int = FIRST_PASS_WINDOW):
-        if table.max_probe is None:
-            table.compute_max_probe()
-        full_window = probe_window or max(8, _round_up_pow2(table.max_probe))
-        if full_window > 256:
-            raise ValueError("probe window > 256 unsupported (uint8 offsets); "
-                             "rebuild the table at a lower load factor")
         _check_int32_homes(table.num_sigs)
-        w1 = min(adaptive_w1(table, first_pass_window), full_window)
-        s = table.num_sigs
-        host_kmer = np.full(s + max(full_window, w1), EMPTY_KMER, np.int64)
-        host_kmer[:s] = table.slots["kmer"]
-        fp = np.full(s, FP_EMPTY, dtype=np.uint16)
+        super().__init__(table, probe_window)
+        w1 = min(adaptive_w1(table, first_pass_window), self.full_window)
+        fp = np.full(table.num_sigs, FP_EMPTY, dtype=np.uint16)
         occ = table.occupied
         fp[occ] = (table.slots["kmer"][occ] % FP_MOD).astype(np.uint16)
-        self._setup(table, fp, host_kmer, w1, full_window, chunk, device)
+        self._setup(fp, w1, chunk, device)
 
     @classmethod
     def from_numpy(cls, table: KmerTable, fp_flat: np.ndarray,
@@ -155,31 +215,20 @@ class SparseLookup:
         if len(host_kmer) < table.num_sigs + full_window:
             raise ValueError("host_kmer needs full_window slots of padding")
         self = cls.__new__(cls)
-        self._setup(table, np.asarray(fp_flat, np.uint16),
-                    np.ascontiguousarray(host_kmer, np.int64), w1,
-                    full_window, chunk, device)
+        self._set_host(table, np.ascontiguousarray(host_kmer, np.int64),
+                       full_window)
+        self._setup(np.asarray(fp_flat, np.uint16), w1, chunk, device)
         return self
 
-    def _setup(self, table, fp_flat, host_kmer, w1, full_window, chunk,
-               device) -> None:
-        self.table = table
-        self.num_sigs = table.num_sigs
+    def _setup(self, fp_flat, w1, chunk, device) -> None:
         self.w1 = w1
-        self.full_window = full_window
-        self.host_kmer = host_kmer
         self.chunk = chunk if chunk is not None else self.DEFAULT_CHUNK
         self.device = torch_device(device)
         # w1 slots of FP_EMPTY past the end: every home's window is in range
         plane = np.concatenate([fp_flat, np.full(w1, FP_EMPTY, np.uint16)])
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        with self._on_stream():
+        self._stream = owned_stream(self.device)
+        with on_stream(self._stream):
             self.fp = torch.from_numpy(plane).to(self.device)
-
-    def _on_stream(self):
-        if self._stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
 
     def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray):
         """Upload one chunk and start its pass-1 probe; returns the pending
@@ -188,7 +237,7 @@ class SparseLookup:
         next CUDA call, such as this chunk's upload) is a KernelError."""
         q = torch.from_numpy(np.ascontiguousarray(q_fp, np.uint16))
         h = torch.from_numpy(np.ascontiguousarray(homes, np.int32))
-        with self._on_stream(), _device_fault("dispatch"):
+        with on_stream(self._stream), _device_fault("dispatch"):
             return tilejoin.tilejoin_probe(self.fp, q.to(self.device),
                                            h.to(self.device), self.w1)
 
@@ -197,21 +246,37 @@ class SparseLookup:
         arrays in the caller's query order (state 0 = exact host pass).
         A device fault surfacing here is a KernelError."""
         off, state = pending
-        with self._on_stream(), _device_fault("read-back"):
+        with on_stream(self._stream), _device_fault("read-back"):
             return off.cpu().numpy(), state.cpu().numpy()
 
-    def _table_cols(self):
-        """Contiguous copies of the table value columns (the structured
-        slot array strides at 24 bytes, which the C ABI can't take)."""
-        cols = getattr(self, "_cols", None)
-        if cols is None:
-            t = self.table.slots
-            cols = (np.ascontiguousarray(t["otu"]),
-                    np.ascontiguousarray(t["avg_from_end"]),
-                    np.ascontiguousarray(t["fi"]),
-                    np.ascontiguousarray(t["wt"]))
-            self._cols = cols
-        return cols
+    def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,
+               progress=None, compute_kmers_found: bool = True
+               ) -> LookupHits:
+        """One-shot lookup of a buffered query batch (the engine's xla
+        backend when prepare did not stream into it): every chunk is
+        dispatched before any is read back, then one verification pass."""
+        values = np.ascontiguousarray(values, dtype=np.int64)
+        n = len(values)
+        if n == 0:
+            z = np.zeros(0)
+            return LookupHits.from_lists(z, z, z, z, z, z, 0)
+        homes = (values % np.int64(self.num_sigs)).astype(np.int32)
+        q_fp = (values % FP_MOD).astype(np.uint16)
+        pending = [(s, min(s + self.chunk, n),
+                    self.dispatch_probe(q_fp[s:s + self.chunk],
+                                        homes[s:s + self.chunk]))
+                   for s in range(0, n, self.chunk)]
+        off = np.empty(n, dtype=np.uint8)
+        state = np.empty(n, dtype=np.uint8)
+        for s, e, p in pending:
+            off[s:e], state[s:e] = self.resolve_probe(p)
+            if progress is not None:
+                progress.update(e, int((state[s:e] & 1).sum()))
+        (c, p_, otu, avg, fi, wt), mv = self._verify_emit(
+            values, homes, off, state, cnt_id, pos, compute_kmers_found)
+        return LookupHits(c, p_, otu, avg, fi, wt,
+                          int(np.unique(mv).size) if compute_kmers_found
+                          else -1)
 
     def _verify_emit(self, values, homes, off, state, cnt, pos,
                      want_values: bool):
@@ -276,23 +341,6 @@ class SparseLookup:
                  t["otu"][slots].copy(), t["avg_from_end"][slots].copy(),
                  t["fi"][slots].copy(), t["wt"][slots].copy())
         return piece, (values[mask].copy() if want_values else None)
-
-    def _host_full_window(self, values, homes, todo):
-        """Exact full-window probe on the host k-mer array (for unresolved
-        queries). W flat gathers instead of one [N, W] advanced-index
-        gather: the latter materializes N*W int64 temporaries."""
-        idx = homes[todo].astype(np.int64)
-        v = values[todo]
-        found = np.zeros(len(idx), dtype=bool)
-        off = np.zeros(len(idx), dtype=np.uint8)
-        hk = self.host_kmer
-        # reverse order + overwrite == first-match offset
-        for l in range(self.full_window - 1, -1, -1):
-            m = hk[idx + l] == v
-            off[m] = l
-            found |= m
-        return found, np.where(found, off, 0)
-
 
 class StreamingLookup:
     """Overlap the prepare phase with device probing.

@@ -67,6 +67,26 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def build_cuda_library(source: str) -> ctypes.CDLL:
+    """Compile ``source`` with nvcc for sm_90a into ``build/lib<name>.so``
+    (only when the source is newer than the library) and load it. Raises
+    KernelError. Callers hold their own lock and cache the result."""
+    from ..utils.native import BUILD_DIR, compile_to, stale
+
+    name = os.path.splitext(os.path.basename(source))[0]
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    try:
+        if stale(so, (source,)):
+            compile_to([_nvcc(), *NVCC_FLAGS, source, "-o"], so)
+        return ctypes.CDLL(so)
+    except OSError as ex:
+        raise KernelError(f"cannot build or load {so}: {ex}") from ex
+    except Exception as ex:  # CalledProcessError: show nvcc's stderr
+        detail = getattr(ex, "stderr", "") or ""
+        raise KernelError(f"nvcc failed on {source}: {ex}\n{detail}") \
+            from ex
+
+
 def load_kernel() -> ctypes.CDLL:
     """Build (once per process, and only when the source is newer than the
     library) and load the kernel library. Raises KernelError."""
@@ -74,19 +94,7 @@ def load_kernel() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        from ..utils.native import BUILD_DIR, compile_to, stale
-
-        so = os.path.join(BUILD_DIR, "libtilejoin.so")
-        try:
-            if stale(so, (SOURCE,)):
-                compile_to([_nvcc(), *NVCC_FLAGS, SOURCE, "-o"], so)
-            lib = ctypes.CDLL(so)
-        except OSError as ex:
-            raise KernelError(f"cannot build or load {so}: {ex}") from ex
-        except Exception as ex:  # CalledProcessError: show nvcc's stderr
-            detail = getattr(ex, "stderr", "") or ""
-            raise KernelError(f"nvcc failed on {SOURCE}: {ex}\n{detail}") \
-                from ex
+        lib = build_cuda_library(SOURCE)
         fn = lib.tilejoin_first_event
         fn.restype = ctypes.c_int
         p = ctypes.c_void_p

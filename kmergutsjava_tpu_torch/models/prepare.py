@@ -1,11 +1,13 @@
-"""Prepare phase: FASTA records -> query k-mer stream (protein mode).
+"""Prepare phase: FASTA records -> query k-mer stream.
 
 Counterpart of the reference's prepareQuery/addKmers
 (KmerGutsJava.java:1051-1074, :900-922) and of the JAX package's
 ``models/prepare.py`` host paths: the native C++ feeder (bulk or per
-record) and its numpy twin encode 8-mers on the host and feed
-(value, container, pos) records to the lookup front end. One '+/0'
-container per protein (ref :1059) defines the hit container ids.
+record) and its numpy twins encode 8-mers on the host (after 6-frame
+translation in DNA mode) and feed (value, container, pos) records to the
+lookup front end. Container creation order defines the hit container ids:
+per DNA contig +0, +1, +2, -0, -1, -2 (ref :1064-1072); one '+/0'
+container per protein (ref :1059).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
-from ..constants import AA_OFF_LUT, K
+from ..constants import (AA_OFF_LUT, CODON_AA_OFF, COMPL_DNA_CODE_LUT,
+                         DNA_CODE_LUT, INVALID_AA, K)
 from ..formats.fasta import FastaRecord
 from ..lookup.store import QueryKmerStore
 
@@ -138,8 +141,86 @@ def prepare_aa_numpy(records: Iterable[FastaRecord],
     flush()
     return prep
 
-def prepare_aa_native(records: Iterable[FastaRecord], store: QueryKmerStore,
-                      flush_chars: int = 8_000_000):
+def prepare_dna_numpy(records: Iterable[FastaRecord],
+                      store: QueryKmerStore,
+                      flush_chars: int = 8_000_000) -> Prepared:
+    """Host-numpy DNA prepare (feeder fast path).
+
+    All six translated frame rows of a batch of contigs are concatenated
+    with K-1 terminator sentinels and k-merized in one sliding pass, the
+    right shape for metagenome read streams (millions of short contigs).
+    Unlike aa mode there is no skip-last-window quirk: every full window of
+    a frame row is a valid start (the reference's bound ``i < L - K`` over
+    its len/3+1 buffer equals the row's full window count)."""
+    prep = Prepared()
+    seqs: List[np.ndarray] = []
+    cid_rows: List[List[int]] = []  # [6] container ids per record
+    pending_chars = 0
+    # separator: >= K-1 invalid codons (21 bases) between records, padded so
+    # every record block stays 3-aligned and global stride-3 slicing lines
+    # up with per-record frames
+    BASE_SEP = 3 * (K - 1)
+
+    def flush():
+        nonlocal seqs, cid_rows, pending_chars
+        if not seqs:
+            return
+        nrec = len(seqs)
+        lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=nrec)
+        pads = BASE_SEP + ((3 - lens % 3) % 3)
+        block_starts = np.concatenate([[0], np.cumsum(lens + pads)])[:-1]
+        start_cod = block_starts // 3
+        total = int((lens + pads).sum())
+        fwd = np.full(total + 3, 4, dtype=np.uint8)  # invalid base everywhere
+        rc = np.full(total + 3, 4, dtype=np.uint8)
+        for i, s in enumerate(seqs):
+            b = int(block_starts[i])
+            fwd[b: b + len(s)] = DNA_CODE_LUT[s]
+            rc[b: b + len(s)] = COMPL_DNA_CODE_LUT[s][::-1]
+        cid_arr = np.asarray(cid_rows, dtype=np.int64)  # [nrec, 6]
+        ncod = total // 3
+        for strand, codes in ((0, fwd), (1, rc)):
+            c32 = codes.astype(np.int32)
+            for f in range(3):
+                c1 = c32[f: f + 3 * ncod: 3]
+                c2 = c32[f + 1: f + 1 + 3 * ncod: 3]
+                c3 = c32[f + 2: f + 2 + 3 * ncod: 3]
+                ok = (c1 < 4) & (c2 < 4) & (c3 < 4)
+                offs = np.where(
+                    ok, CODON_AA_OFF[np.where(ok, c1 * 16 + c2 * 4 + c3, 0)],
+                    INVALID_AA).astype(np.uint8)
+                w = ncod - K + 1
+                if w <= 0:
+                    continue
+                o64 = offs.astype(np.int64)
+                values = o64[:w].copy()
+                valid = offs[:w] < 20
+                for k in range(1, K):
+                    values *= 20
+                    values += o64[k: k + w]
+                    valid &= offs[k: k + w] < 20
+                gstarts = np.nonzero(valid)[0]
+                row_of = np.searchsorted(start_cod, gstarts, side="right") - 1
+                local = gstarts - start_cod[row_of]
+                store.add_batch(values[gstarts],
+                                cid_arr[row_of, strand * 3 + f], local)
+        seqs, cid_rows, pending_chars = [], [], 0
+
+    for rec in records:
+        cids = [prep.new_container((rec.id, s, f))
+                for s in ("+", "-") for f in range(3)]
+        prep.id_len[rec.id] = len(rec.seq)
+        seqs.append(_seq_to_ascii(rec.seq))
+        cid_rows.append(cids)
+        pending_chars += 2 * len(rec.seq)
+        if pending_chars >= flush_chars:
+            flush()
+    flush()
+    return prep
+
+
+def _prepare_native(records: Iterable[FastaRecord], store: QueryKmerStore,
+                    aa: bool, flush_chars: int = 8_000_000):
     """C++ feeder path (kmergutsjava_tpu/native/feeder.cpp via ctypes).
     Returns None when the native library is unavailable (caller falls back
     to numpy)."""
@@ -162,20 +243,33 @@ def prepare_aa_native(records: Iterable[FastaRecord], store: QueryKmerStore,
         starts = np.concatenate([[0], np.cumsum(lens)])[:-1]
         blob = np.concatenate(seqs) if nrec > 1 else seqs[0]
         blob = np.ascontiguousarray(blob)
-        cap = max(int(lens.sum()), 1)
-        scratch = np.empty(max(int(lens.max()), 1), dtype=np.uint8)
-        out_v = np.empty(cap, dtype=np.int64)
-        out_c = np.empty(cap, dtype=np.int32)
-        out_p = np.empty(cap, dtype=np.int32)
-        n = int(lib.feeder_aa(blob, np.ascontiguousarray(starts),
-                              np.ascontiguousarray(lens), nrec,
-                              np.asarray(cid0, dtype=np.int64), scratch,
-                              out_v, out_c, out_p))
+        total = int(lens.sum())
+        max_len = int(lens.max())
+        if aa:
+            cnt_ids = np.asarray(cid0, dtype=np.int64)
+            cap = total
+            scratch = np.empty(max(max_len, 1), dtype=np.uint8)
+            fn = lib.feeder_aa
+        else:
+            cnt_ids = (np.asarray(cid0, dtype=np.int64)[:, None]
+                       + np.arange(6, dtype=np.int64)).reshape(-1)
+            cap = 2 * total + 6 * nrec
+            scratch = np.empty(max(2 * max_len, 2), dtype=np.uint8)
+            fn = lib.feeder_dna
+        out_v = np.empty(max(cap, 1), dtype=np.int64)
+        out_c = np.empty(max(cap, 1), dtype=np.int32)
+        out_p = np.empty(max(cap, 1), dtype=np.int32)
+        n = int(fn(blob, np.ascontiguousarray(starts),
+                   np.ascontiguousarray(lens), nrec, cnt_ids, scratch, out_v,
+                   out_c, out_p))
         store.add_batch(out_v[:n], out_c[:n].astype(np.int64), out_p[:n])
         seqs, cid0, pending = [], [], 0
 
+    keys = ([("+", 0)] if aa else
+            [(s, f) for s in ("+", "-") for f in range(3)])
     for rec in records:
-        cid0.append(prep.new_container((rec.id, "+", 0)))
+        cids = [prep.new_container((rec.id, s, f)) for s, f in keys]
+        cid0.append(cids[0])
         prep.id_len[rec.id] = len(rec.seq)
         seqs.append(_seq_to_ascii(rec.seq))
         pending += len(rec.seq)
@@ -185,19 +279,28 @@ def prepare_aa_native(records: Iterable[FastaRecord], store: QueryKmerStore,
     return prep
 
 
-def try_prepare_bulk(query, query_stream, store,
+def prepare_aa_native(records, store):
+    return _prepare_native(records, store, aa=True)
+
+
+def prepare_dna_native(records, store):
+    return _prepare_native(records, store, aa=False)
+
+
+def try_prepare_bulk(query, query_stream, store, aa: bool,
                      flush_chars: int = 8_000_000):
-    """Fully-native protein prepare: the bulk FASTA parse result feeds the
-    native feeder DIRECTLY — sequence bytes stay in the parser's single
-    output buffer (the feeder takes absolute offsets into it), so no
-    per-record Python runs at all. Ids are materialized once from the
-    buffer (the report needs them); container keys synthesize lazily
+    """Fully-native prepare: the bulk FASTA parse result feeds the native
+    feeder DIRECTLY — sequence bytes stay in the parser's single output
+    buffer (the feeder takes absolute offsets into it), so no per-record
+    Python runs at all. Ids are materialized once from the buffer (the
+    report needs them); container keys synthesize lazily
     (Prepared.add_record). Returns None — with ``query_stream`` left
     unconsumed — when any native piece is missing or the input isn't
     bulk-capable, so the caller falls back to the record-iterator paths.
 
-    Byte-equivalent to prepare_aa_native over read_fasta: same feeder, same
-    container order, same chunk boundaries measured in sequence chars."""
+    Byte-equivalent to prepare_{aa,dna}_native over read_fasta: same
+    feeder, same container order, same chunk boundaries measured in
+    sequence chars."""
     from ..formats.fasta import read_fasta_bulk_arrays
     from ..utils.native import load_feeder
 
@@ -207,7 +310,8 @@ def try_prepare_bulk(query, query_stream, store,
     bulk = read_fasta_bulk_arrays(query if query is not None else query_stream)
     if bulk is None:
         return None
-    prep = Prepared(frames=1)
+    frames = 1 if aa else 6
+    prep = Prepared(frames=frames)
     nrec = bulk.nrec
     if nrec == 0:
         return prep
@@ -220,21 +324,32 @@ def try_prepare_bulk(query, query_stream, store,
         o = int(id_off[i])
         prep.add_record(text[o:o + int(id_len[i])], int(s_len[i]))
     blob = np.ascontiguousarray(bulk.buf)
-    # chunk by cumulative sequence chars (same budget as prepare_aa_native)
+    # chunk by cumulative sequence chars (same budget as _prepare_native)
     cum = np.cumsum(s_len)
-    scratch = np.empty(max(int(s_len.max()), 2), dtype=np.uint8)
+    max_all = int(s_len.max())
+    scratch = np.empty(max(max_all if aa else 2 * max_all, 2), dtype=np.uint8)
     a = 0
     while a < nrec:
         base = cum[a - 1] if a else 0
         b = int(np.searchsorted(cum, base + flush_chars)) + 1
         b = min(b, nrec)
-        cap = max(int(cum[b - 1] - base), 1)
-        out_v = np.empty(cap, dtype=np.int64)
-        out_c = np.empty(cap, dtype=np.int32)
-        out_p = np.empty(cap, dtype=np.int32)
-        n = int(lib.feeder_aa(blob, s_off[a:b], s_len[a:b], b - a,
-                              np.arange(a, b, dtype=np.int64), scratch,
-                              out_v, out_c, out_p))
+        total = int(cum[b - 1] - base)
+        ridx = np.arange(a, b, dtype=np.int64)
+        if aa:
+            cnt_ids = ridx
+            cap = total
+            fn = lib.feeder_aa
+        else:
+            cnt_ids = (6 * ridx[:, None]
+                       + np.arange(6, dtype=np.int64)).reshape(-1)
+            cap = 2 * total + 6 * (b - a)
+            fn = lib.feeder_dna
+        out_v = np.empty(max(cap, 1), dtype=np.int64)
+        out_c = np.empty(max(cap, 1), dtype=np.int32)
+        out_p = np.empty(max(cap, 1), dtype=np.int32)
+        n = int(fn(blob, s_off[a:b], s_len[a:b], b - a,
+                   np.ascontiguousarray(cnt_ids), scratch, out_v, out_c,
+                   out_p))
         store.add_batch(out_v[:n], out_c[:n].astype(np.int64), out_p[:n])
         a = b
     return prep

@@ -27,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_U16P = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 _F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 
@@ -122,11 +123,32 @@ def _bind_scatter(lib) -> None:
         _I64P, ctypes.c_int64, ctypes.c_int64,        # hk, hk_len, full_w
         _I64P,                                        # slots out
     ]
+    fn = lib.scatter_chunk
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [
+        _I64P, ctypes.c_int64,                        # values, n
+        ctypes.c_int64, ctypes.c_int64,               # num_sigs, channels
+        ctypes.c_int64, ctypes.c_int64,               # block, rows
+        ctypes.c_int64,                               # fp_mod
+        _U16P, _U8P,                                  # tiles, occ (mutated)
+        _I64P, _I64P, _I32P,                          # homes, flat, shift out
+    ]
+    fn = lib.resolve_slots
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [
+        _I64P, _I64P, _I64P, _I32P,                   # v, homes, flat, shift
+        ctypes.c_int64,                               # n
+        _I32P, _U8P,                                  # kernel output, fe
+        _I64P, ctypes.c_int64,                        # hk, hk_len
+        ctypes.c_int64, ctypes.c_int64,               # w, full_w
+        _I64P,                                        # slots out
+    ]
 
 
 def load_scatter() -> Optional[ctypes.CDLL]:
-    """Native table builder (table_place/table_fill) and the sparse
-    lookup's verify/compact pass (gather_resolve_slots/emit_hits)."""
+    """Native table builder (table_place/table_fill), the sparse lookup's
+    verify/compact pass (gather_resolve_slots/emit_hits) and the stream
+    lookup's tile scatter and decode (scatter_chunk/resolve_slots)."""
     return _load("scatter", "KMER_NO_NATIVE_SCATTER", _bind_scatter)
 
 

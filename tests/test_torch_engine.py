@@ -1,8 +1,13 @@
 """The PyTorch package's Engine and CLI, on the CPU, against the JAX
 package: the 800-protein corpus report must equal golden_aa_800 and the JAX
-Engine's report byte for byte, through the sparse path, the parity backend,
-a truncated table and the debug info lines. Also: the port imports neither
-jax nor the JAX package, and a CUDA device without CUDA raises."""
+Engine's report byte for byte, through the sparse path, the stream path,
+the parity backend, a truncated table and the debug info lines; in DNA mode
+the 300 kbp contig's report must equal golden_dna_800 and the JAX Engine's
+through every backend, with `auto` deciding from a stream (upgrading
+mid-prepare), from a file's size, and below the density crossover (the
+sparse one-shot lookup). Also: the port imports neither jax nor the JAX
+package, a kernel fault propagates, and a CUDA device without CUDA
+raises."""
 import gzip
 import io
 import os
@@ -20,7 +25,8 @@ from kmergutsjava_tpu.models.pipeline import Engine as JaxEngine
 from kmergutsjava_tpu_torch import cli
 from kmergutsjava_tpu_torch.config import EngineConfig
 from kmergutsjava_tpu_torch.formats.kmer_table import TABLE_FILE
-from kmergutsjava_tpu_torch.lookup import tilejoin
+from kmergutsjava_tpu_torch.lookup import stream, tilejoin
+from kmergutsjava_tpu_torch.models import pipeline
 from kmergutsjava_tpu_torch.models.pipeline import Engine
 
 from corpus_util import build_corpus_data_dir, corpus_path, load_corpus
@@ -41,27 +47,188 @@ def corpus(tmp_path_factory):
     return str(d), fasta, str(faa), golden
 
 
-def _port(data_dir, fasta, **kw):
+def _port(data_dir, fasta, aa=True, **kw):
     out = io.StringIO()
-    Engine(EngineConfig(aa=True, device="cpu", **kw)).run(
+    Engine(EngineConfig(aa=aa, device="cpu", **kw)).run(
         data_dir, None, out, stdout=True, query_stream=io.StringIO(fasta))
     return out.getvalue()
 
 
-def _jax(data_dir, fasta, **kw):
+def _jax(data_dir, fasta, aa=True, **kw):
     out = io.StringIO()
-    JaxEngine(JaxConfig(aa=True, **kw)).run(
+    JaxEngine(JaxConfig(aa=aa, **kw)).run(
         data_dir, None, out, stdout=True, query_stream=io.StringIO(fasta))
     return out.getvalue()
 
 
-@pytest.mark.parametrize("backend", ["auto", "xla", "parity"])
+@pytest.fixture(scope="module")
+def dna(corpus):
+    """The 300 kbp contig of golden_dna_800 (against the same 800-protein
+    table), as text, as a file, its golden and the JAX Engine's auto
+    report."""
+    d, _, _, _ = corpus
+    _, contig = load_corpus(0, 300_000)
+    fasta = f">{contig.id} {contig.descr}\n{contig.seq}\n"
+    fna = os.path.join(d, "contig.fna")
+    with open(fna, "w") as fh:
+        fh.write(fasta)
+    with gzip.open(corpus_path("golden_dna_800.txt.gz"), "rt") as fh:
+        golden = fh.read()
+    return d, fasta, fna, golden, _jax(d, fasta, aa=False)
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    """Counts the one-shot and streaming lookups' calls by kind."""
+    from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
+    from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
+
+    calls = {"stream_pass": 0, "sparse_lookup": 0, "parity": 0}
+
+    def wrap(owner, name, key):
+        orig = getattr(owner, name)
+
+        def counted(*a, **kw):
+            calls[key] += 1
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(owner, name, counted)
+
+    wrap(StreamLookup, "_probe", "stream_pass")
+    wrap(SparseLookup, "lookup", "sparse_lookup")
+    wrap(pipeline, "lookup_stream", "parity")
+    return calls
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "stream", "parity"])
 def test_engine_matches_golden_and_jax(corpus, backend):
     d, fasta, _, golden = corpus
     got = _port(d, fasta, backend=backend)
     assert got == golden
     if backend == "xla":
         assert got == _jax(d, fasta, backend="xla")
+
+
+@pytest.mark.parametrize("backend", ["auto", "stream", "xla", "parity"])
+def test_dna_engine_matches_golden_and_jax(dna, spy, backend):
+    """A stream input: `auto` buffers, crosses numSigs/2.5 mid-prepare and
+    upgrades to the stream path, as the JAX Engine does."""
+    d, fasta, _, golden, jax_report = dna
+    got = _port(d, fasta, aa=False, backend=backend)
+    assert got == golden
+    assert got == jax_report
+    assert (spy["stream_pass"] > 0) == (backend in ("auto", "stream"))
+    assert spy["sparse_lookup"] == 0
+
+
+@pytest.mark.parametrize("backend,prepare", [("auto", "native"),
+                                             ("auto", "numpy"),
+                                             ("stream", "numpy"),
+                                             ("xla", "numpy")])
+def test_dna_cli_matches_golden(dna, spy, tmp_path, backend, prepare):
+    """A file input: `auto` decides from its size (stream for this contig),
+    through both prepare implementations."""
+    d, _, fna, golden, _ = dna
+    out = tmp_path / "report.txt"
+    before = stream.launches
+    assert cli.main(["-D", d, "-q", fna, "-o", str(out), "--device", "cpu",
+                     "--backend", backend, "--prepare", prepare]) == 0
+    assert out.read_text() == golden
+    assert stream.launches == before  # the CPU runs the twin
+    assert (spy["stream_pass"] > 0) == (backend != "xla")
+
+
+def test_dna_stream_multipass_matches_golden(dna, spy):
+    """A small input_size_limit (-l) makes the stream path run a plane pass
+    per 50,000 queries (at the numpy prepare's per-frame batches): the
+    report does not change."""
+    d, fasta, _, golden, _ = dna
+    got = _port(d, fasta, aa=False, backend="stream", prepare_impl="numpy",
+                input_size_limit=50_000)
+    assert spy["stream_pass"] >= 3
+    assert got == golden
+
+
+def test_dna_debug_report_matches_jax(dna):
+    """Debug mode through `auto`'s upgrade to the stream path: info lines,
+    table info and the kmers-found count equal the JAX Engine's."""
+    d, fasta, _, _, _ = dna
+
+    def masked(text):
+        return re.sub(r"time=\d+ ms|: \d+ ms\.", "<t>", text)
+
+    got = _port(d, fasta, aa=False, debug=True)
+    assert "Kmers found: " in got and "TRANSLATION\t" in got
+    assert masked(got) == masked(_jax(d, fasta, aa=False, debug=True))
+
+
+def test_dna_stdin_below_crossover_finishes_sparse(dna, spy):
+    """A stream input that stays under numSigs/2.5 queries finishes on the
+    sparse one-shot lookup, not the parity scan (the JAX Engine's
+    _DeferredAutoFeed.finish -> _lookup with backend xla)."""
+    d, fasta, _, _, _ = dna
+    head, seq = fasta.split("\n", 1)
+    small = head + "\n" + seq[:20_000] + "\n"
+    got = _port(d, small, aa=False)
+    assert spy == {"stream_pass": 0, "sparse_lookup": 1, "parity": 0}
+    assert got == _jax(d, small, aa=False)
+    assert "CALL" in got
+
+
+@pytest.mark.parametrize("backend", ["stream", "auto"])
+def test_stream_kernel_error_is_not_turned_into_a_report(dna, monkeypatch,
+                                                         backend):
+    """A stream kernel fault (or a device fault surfacing as a torch
+    RuntimeError at a pass) propagates as a KernelError instead of becoming
+    an 'Error:' line; `auto` never retries on the sparse path."""
+    from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
+
+    d, fasta, _, _, _ = dna
+
+    def broken(*a, **kw):
+        raise tilejoin.KernelError("launch refused")
+
+    monkeypatch.setattr(StreamLookup, "_probe", broken)
+    with pytest.raises(tilejoin.KernelError, match="launch refused"):
+        _port(d, fasta, aa=False, backend=backend)
+    monkeypatch.undo()
+
+    def faulty(*a, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    monkeypatch.setattr(stream, "stream_probe", faulty)
+    with pytest.raises(tilejoin.KernelError, match="pass failed"):
+        _port(d, fasta, aa=False, backend=backend)
+
+
+def test_stream_backend_falls_back_to_parity_past_window_64(tmp_path):
+    """max_probe over 64 is a table the stream path cannot serve: a
+    ValueError, so the run degrades to the parity scan with a warning, as
+    in the JAX package."""
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.constants import EMPTY_KMER
+    from kmergutsjava_tpu_torch.formats.function_index import \
+        write_function_index
+    from kmergutsjava_tpu_torch.formats.kmer_table import (KmerTable,
+                                                           SLOT_DTYPE,
+                                                           write_table)
+
+    num_sigs = 600
+    slots = np.zeros(num_sigs, dtype=SLOT_DTYPE)
+    slots["kmer"] = EMPTY_KMER
+    for i in range(100):
+        slots["kmer"][i] = i * num_sigs  # one 100-slot probe chain
+    write_table(str(tmp_path / TABLE_FILE),
+                KmerTable(slots=slots, num_sigs=num_sigs))
+    write_function_index(str(tmp_path / "function.index"), ["f0"])
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = _port(str(tmp_path), ">P1\nACDEFGHIKLMNPQRSTVWY\n",
+                    backend="stream")
+    assert any("stream backend unavailable" in str(x.message) for x in w)
+    assert "PROTEIN-ID\tP1\t20" in got
 
 
 @pytest.mark.parametrize("prepare", ["native", "numpy"])
@@ -102,8 +269,10 @@ def test_debug_report_matches_jax(corpus):
     got = _port(d, fasta, debug=True, min_hits=1)
     assert "Kmer-table info: numSigs=" in got
     assert "Kmers found: " in got
-    assert masked(got) == masked(_jax(d, fasta, debug=True, min_hits=1,
-                                      backend="xla"))
+    # auto on a small stream input finishes on the sparse one-shot lookup,
+    # which reports its progress, as the JAX Engine's does
+    assert "Processed: 100%" in got
+    assert masked(got) == masked(_jax(d, fasta, debug=True, min_hits=1))
 
 
 def test_truncated_table_partial_report_matches_jax(tmp_path, corpus):
@@ -205,8 +374,8 @@ def test_cuda_device_without_cuda_raises(corpus):
         cli.main(["-a", "-D", d, "-q", faa, "--device", "cuda"])
 
 
-@pytest.mark.parametrize("argv", [["-D", "x"], ["-a", "-D", "x", "--backend",
-                                                "stream"],
+@pytest.mark.parametrize("argv", [["-D", "x", "--backend", "pallas"],
+                                  ["-a", "-D", "x", "--backend", "spmd"],
                                   ["-a", "-D", "x", "--mesh", "2x2"],
                                   ["-a", "-D", "x", "--prepare", "jax"]])
 def test_cli_rejects_unported_options(argv, capsys):

@@ -1,16 +1,17 @@
-"""The PyTorch package's tile-join kernel wrapper and its plain twin
-(kmergutsjava_tpu_torch/lookup/tilejoin.py), without JAX, so the file also
-runs on a GPU machine that has no JAX: there, from the repository root,
+"""The PyTorch package's kernel wrappers and their plain twins (the
+tile-join probe, kmergutsjava_tpu_torch/lookup/tilejoin.py, and the stream
+probe, lookup/stream.py), without JAX, so the file also runs on a GPU
+machine that has no JAX: there, from the repository root,
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-runs the ``cuda`` tests too, which compare the CUDA kernel with the twin on
+runs the ``cuda`` tests too, which compare each CUDA kernel with its twin on
 the card (exact: the codes are integers). Elsewhere they skip."""
 import numpy as np
 import pytest
 import torch
 
-from kmergutsjava_tpu_torch.lookup import tilejoin
+from kmergutsjava_tpu_torch.lookup import stream, tilejoin
 
 FP_EMPTY = 65535
 
@@ -139,6 +140,120 @@ def test_cuda_streaming_lookup_matches_cpu(cuda_device):
             st.add_batch(values[s:s + 50_000], s // 50_000, pos[s:s + 50_000])
         hits[dev] = st.finish()
     a, b = hits["cpu"], hits[str(cuda_device)]
+    assert len(a) > 0 and a.kmers_found == b.kmers_found
+    for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
+        np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
+
+
+def _stream_inputs(n_slots, w, channels, seed):
+    """A plane of ``n_slots`` (+ w FP_EMPTY slots) at load ~0.65 and tiles
+    ``[channels, n_slots]``: half the cells hold the fingerprint found a
+    random offset into their window, a fifth the unused-cell 0, the rest a
+    random one."""
+    rng = np.random.default_rng(seed)
+    fp = np.concatenate([_plane(n_slots, seed),
+                         np.full(w, FP_EMPTY, np.uint16)])
+    tiles = rng.integers(0, 60000, (channels, n_slots)).astype(np.uint16)
+    at = np.arange(n_slots) + rng.integers(0, w, (channels, n_slots))
+    planted = rng.random((channels, n_slots)) < 0.5
+    tiles[planted] = fp[at[planted]]
+    tiles[rng.random((channels, n_slots)) < 0.2] = 0
+    return torch.from_numpy(fp), torch.from_numpy(tiles)
+
+
+def _unpack(out, channels):
+    """Packed int32 [C/4, S] -> per-channel offsets [C, S]."""
+    o = out.numpy().view(np.uint8).reshape(channels // 4, -1, 4)
+    return o.transpose(0, 2, 1).reshape(channels, -1)
+
+
+def test_stream_twin_chunking_and_contract():
+    """Slot chunks change nothing, and every cell holds the first offset of
+    its fingerprint in the window, or w."""
+    w, c = 24, 8
+    fp, tiles = _stream_inputs(3001, w, c, seed=31)
+    a = stream.stream_probe_reference(fp, tiles, w, c)
+    b = stream.stream_probe_reference(fp, tiles, w, c, chunk=700)
+    assert torch.equal(a, b)
+    off = _unpack(a, c)
+    f, t = fp.numpy(), tiles.numpy()
+    for ch, s in [(0, 0), (3, 1500), (7, 3000), (5, 2999)]:
+        hits = np.nonzero(f[s:s + w] == t[ch, s])[0]
+        assert off[ch, s] == (hits[0] if len(hits) else w)
+    assert (off < w).mean() > 0.4 and (off == w).any()
+
+
+def test_stream_cpu_wrapper_runs_twin_and_counts_no_launch():
+    fp, tiles = _stream_inputs(2000, 16, 4, seed=32)
+    before = stream.launches
+    got = stream.stream_probe(fp, tiles, 16, 4)
+    assert stream.launches == before
+    assert torch.equal(got, stream.stream_probe_reference(fp, tiles, 16, 4))
+
+
+@pytest.mark.parametrize("bad", ["w0", "w65", "c6", "c_mismatch", "short",
+                                 "tiles_i32", "strided"])
+def test_stream_wrapper_rejects_bad_inputs(bad):
+    fp = torch.zeros(140, dtype=torch.uint16)
+    tiles = torch.zeros((4, 100), dtype=torch.uint16)
+    w = {"w0": 0, "w65": 65}.get(bad, 16)
+    c = {"c6": 6, "c_mismatch": 8}.get(bad, 4)
+    if bad == "short":
+        fp = fp[:115]
+    elif bad == "tiles_i32":
+        tiles = tiles.to(torch.int32)
+    elif bad == "strided":
+        tiles = torch.zeros((4, 200), dtype=torch.uint16)[:, ::2]
+    with pytest.raises(tilejoin.KernelError):
+        stream.stream_probe(fp, tiles, w, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,channels", [(8, 4), (24, 4), (64, 4), (24, 8),
+                                        (64, 8)])
+def test_cuda_stream_kernel_matches_twin(cuda_device, w, channels):
+    """B2 against its twin on the card, every int32 equal; the slot count is
+    not a multiple of the kernel's block, so the ragged tail is covered."""
+    fp, tiles = _stream_inputs(300_001, w, channels, seed=w + channels)
+    want = stream.stream_probe_reference(fp, tiles, w, channels)
+    before = stream.launches
+    got = stream.stream_probe(fp.to(cuda_device), tiles.to(cuda_device), w,
+                              channels)
+    torch.cuda.synchronize()
+    assert stream.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_stream_lookup_matches_cpu(cuda_device):
+    """The stream lookup's front end on the card (scatter worker, several
+    plane passes on the lookup's own stream) gives the CPU twin's hits."""
+    from kmergutsjava_tpu_torch.constants import MAX_ENCODED
+    from kmergutsjava_tpu_torch.formats.kmer_table import build_table
+    from kmergutsjava_tpu_torch.lookup.stream import (StreamingStreamLookup,
+                                                      StreamLookup)
+
+    rng = np.random.default_rng(22)
+    kmers = rng.choice(MAX_ENCODED, 300_000, replace=False).astype(np.int64)
+    n = len(kmers)
+    table = build_table(kmers, rng.integers(0, 20, n).astype(np.int32),
+                        rng.integers(0, 500, n).astype(np.int32),
+                        rng.integers(0, 97, n).astype(np.int32),
+                        rng.random(n).astype(np.float32), load_factor=0.6)
+    values = np.concatenate([rng.choice(kmers, 300_000),
+                             rng.integers(0, MAX_ENCODED, 100_000)])
+    pos = np.arange(len(values), dtype=np.int64)
+    hits, passes = {}, {}
+    for dev in ("cpu", str(cuda_device)):
+        st = StreamingStreamLookup(StreamLookup(table, device=dev),
+                                   compute_kmers_found=True,
+                                   flush_limit=150_000)
+        for s in range(0, len(values), 50_000):
+            st.add_batch(values[s:s + 50_000], s // 50_000, pos[s:s + 50_000])
+        hits[dev] = st.finish()
+        passes[dev] = st.passes
+    a, b = hits["cpu"], hits[str(cuda_device)]
+    assert passes["cpu"] == passes[str(cuda_device)] == 3
     assert len(a) > 0 and a.kmers_found == b.kmers_found
     for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))

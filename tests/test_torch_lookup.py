@@ -135,6 +135,37 @@ def test_from_numpy_takes_a_jax_lookups_arrays():
                  jlk.lookup(values, cnt, pos))
 
 
+def test_oneshot_lookup_and_progress_match_jax():
+    """SparseLookup.lookup (the engine's xla backend on buffered queries),
+    in several dispatches, gives XlaLookup.lookup's hits and progress
+    lines; the host half alone builds the same k-mer column and window and
+    holds no device plane."""
+    from kmergutsjava_tpu.utils.timing import ProgressReporter as JaxProgress
+    from kmergutsjava_tpu_torch.lookup.sparse import HostWindow
+    from kmergutsjava_tpu_torch.utils.timing import ProgressReporter
+
+    jax_t, port_t, kmers = _tables(5000, seed=19, load_factor=0.75)
+    values, cnt, pos = _queries(kmers, 6000, seed=20)
+    lk = SparseLookup(port_t, chunk=1000, device="cpu")
+    jlk = XlaLookup(jax_t, chunk=1000)
+    lines, jlines = [], []
+    got = lk.lookup(values, cnt, pos, ProgressReporter(6000, lines.append))
+    want = jlk.lookup(values, cnt, pos, JaxProgress(6000, jlines.append))
+    _assert_same(got, want)
+    _assert_same(got, lookup_stream(jax_t, values, cnt, pos))
+
+    def masked(ls):
+        return [l.split(", time=")[0] + l.split(" ms.")[1] for l in ls]
+
+    assert len(lines) == 6 and masked(lines) == masked(jlines)
+    host = HostWindow(port_t)
+    assert host.full_window == lk.full_window
+    np.testing.assert_array_equal(host.host_kmer, lk.host_kmer)
+    assert not hasattr(host, "fp")
+    z = np.zeros(0, np.int64)
+    assert len(lk.lookup(z, z, z)) == 0
+
+
 def test_verify_emit_matches_jax_native_and_numpy(monkeypatch):
     """The verify/compact stage on an adversarial (off, state) mix: the
     port's native and numpy paths and the JAX package's agree."""
