@@ -8,8 +8,8 @@ Phases (one line each; the run stops with a non-zero exit at the first
 failure and then prints no result):
 
 1. the card's name and power limit (nvidia-smi); build of the CUDA kernels
-   (csrc/tilejoin.cu and csrc/stream_probe.cu, one nvcc each, started
-   together) for sm_90a;
+   (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu and
+   csrc/tjgather.cu, one nvcc each, started together) for sm_90a;
 2. the tile-join kernel against its plain PyTorch twin on the card: a
    seeded 40M-slot fingerprint plane at load 0.6 with planted empties,
    queried (half planted hits) at the main path's launch shape (2^19
@@ -19,8 +19,10 @@ failure and then prints no result):
 3. golden: the CLI (``-a -D -q -o --device cuda``) on the E. coli K-12
    proteome (13,645 proteins) against the corpus table must reproduce
    tests/data/golden_aa_full.txt.gz byte for byte, with ``auto`` (dense
-   against this table, so through the stream kernel) and with
-   ``--backend xla`` (through the tile-join kernel);
+   against this table, so through the stream kernel), with
+   ``--backend xla`` (through the tile-join kernel) and with ``--backend
+   pallas`` (through the block probe, its exact rest through the tile
+   join);
 4. realistic size: the corpus signatures plus seeded random filler, 24M
    signatures at load 0.6 (a 0.96 GB table, an 80 MB plane on the card),
    queried with the whole proteome on cuda and then on cpu; the two reports
@@ -36,21 +38,40 @@ failure and then prints no result):
    cuda``) with ``auto`` deciding from the file size must reproduce
    tests/data/golden_dna_full.txt.gz byte for byte through the stream
    kernel (and no tile-join launch); the same run on ``--device cpu``
-   (the twin) too;
+   (the twin) too, and ``--backend pallas`` on cuda (the block probe);
 7. realistic dense size: phase 4's table queried with a seeded read set
    (120,000 reads of 150 bp from the genome: uniform starts, either strand,
    1% substitutions; 22.5M query 8-mers once stop codons end their
    windows, past numSigs/2.5 and past the 20M input_size_limit), so
-   ``auto`` takes the stream path in two plane passes; its report must equal the ``--backend xla`` report byte for
-   byte. Phase times, query rates and passes are printed; then the kernel
-   is held against the twin on one pass's real tiles, with the tiles'
-   upload and the answer's read-back timed.
+   ``auto`` takes the stream path in two plane passes, and ``--backend
+   pallas`` spills once and runs one block-probe launch; both reports must
+   equal the ``--backend xla`` report byte for byte. Phase times, query
+   rates and launches are printed; then the stream kernel is held against
+   the twin on one pass's real tiles, with the tiles' upload and the
+   answer's read-back timed;
+8. the block probe against its plain PyTorch twin on that table's plane,
+   with the read set's queries sorted by home on the card, fed in
+   prepare's order and in the store's (home, value) order (the engine's);
+   every (off, state) must be equal; both times are printed;
+9. the stream kernel's repetition launch (4 reps) against the twin on phase
+   5's w=24 operands, every int32 equal; then the ported microbenchmark
+   (kmergutsjava_tpu_torch/scripts/microbench_probe.py): its real-table
+   check and its stream rows (4M, 64M, 128M slots at 64, 16, 8 reps, w=16),
+   each row's timed launch equal to the twin on the row's operands;
+10. the ported sweep's lane-gather section
+   (kmergutsjava_tpu_torch/scripts/sweep.py, a 512 MB plane, caps 256 and
+   512), then the lane-gather kernel against its twin at that shape with
+   planted matches and empties, every key equal; both times are printed.
 
-The line before the last is a JSON object with each kernel's name, source,
-the TPU kernel it replaces, its launches on the main path (phase 4's cuda
-run for the tile join, phase 6's cuda run for the stream kernel), its
-largest disagreement with the twin, and both times at the real shapes
-(phase 4's first dispatch, phase 7's pass); the last line is
+Every run that drives a path (the CLI runs, the microbenchmark's rows, the
+sweep) starts with every launch count at 0 and must launch its kernels and
+no others. The line before the last is a JSON object with each kernel's
+name, source, the TPU kernel it replaces, its launches on its path (phase
+4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
+kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
+the repetition launch, phase 10's sweep for the lane gather), its largest
+disagreement with the twin, and both times at the real shapes (phase 4's
+first dispatch, phase 7's pass, phases 8, 9 and 10); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import contextlib
@@ -76,6 +97,41 @@ INPUT_SIZE_LIMIT = 20_000_000  # the engine's default -l: queries a pass
 def fail(msg: str) -> int:
     print("FAIL: " + msg, flush=True)
     return 1
+
+
+def kernel_modules():
+    """The kernel wrappers' modules, by the name their counts print under."""
+    from kmergutsjava_tpu_torch.lookup import (blockprobe, stream, tilejoin,
+                                               tjgather)
+
+    return dict(tilejoin=tilejoin, stream=stream, blockprobe=blockprobe,
+                tjgather=tjgather)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0 (the repetition launch's too)."""
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    mods["stream"].reps_launches = 0
+
+
+def read_counts():
+    mods = kernel_modules()
+    got = {name: m.launches for name, m in mods.items()}
+    got["stream_reps"] = mods["stream"].reps_launches
+    return got
+
+
+def check_launches(label, counts, must, may=()):
+    """Each kernel in ``must`` launched, and none outside ``must`` and
+    ``may``."""
+    missing = [k for k in must if counts[k] <= 0]
+    extra = [k for k, n in counts.items()
+             if n and k not in must and k not in may]
+    if missing or extra:
+        raise RuntimeError(f"{label} launched {counts}: missing {missing}, "
+                           f"unexpected {extra}")
 
 
 def to_u16(x):
@@ -246,12 +302,18 @@ def write_proteome(prots, path):
         fh.write("".join(f">{p.id} {p.descr}\n{p.seq}\n" for p in prots))
 
 
+# the kernels each backend's cuda run must launch, and those it may launch
+# (the block probe's exact rest runs the tile join)
+BACKEND_KERNELS = {"auto": (("stream",), ()), "xla": (("tilejoin",), ()),
+                   "pallas": (("blockprobe",), ("tilejoin",))}
+
+
 def golden_run(dev, work, prots, sig):
     """Phase 3: the proteome through ``auto`` (the stream kernel: the
-    proteome is dense against the corpus table) and ``--backend xla`` (the
-    tile-join kernel). Returns (data dir, proteome path)."""
+    proteome is dense against the corpus table), ``--backend xla`` (the
+    tile-join kernel) and ``--backend pallas`` (the block probe). Returns
+    (data dir, proteome path)."""
     from kmergutsjava_tpu_torch.formats.table_tools import write_data_dir
-    from kmergutsjava_tpu_torch.lookup import stream, tilejoin
 
     d = os.path.join(work, "corpus")
     write_data_dir(d, sig, FUNCS, load_factor=0.7)
@@ -260,11 +322,11 @@ def golden_run(dev, work, prots, sig):
     with gzip.open(os.path.join(HERE, "tests", "data",
                                 "golden_aa_full.txt.gz"), "rb") as fh:
         want = fh.read()
-    for backend, kernel in (("auto", stream), ("xla", tilejoin)):
+    for backend in ("auto", "xla", "pallas"):
         out = os.path.join(work, f"golden_aa_{backend}.txt")
-        tilejoin.launches = stream.launches = 0
+        reset_counts()
         info, secs = run_cli(d, faa, out, dev.type, ("--backend", backend))
-        counts = dict(tilejoin=tilejoin.launches, stream=stream.launches)
+        counts = read_counts()
         with open(out, "rb") as fh:
             got = fh.read()
         print(f"phase 3: golden_aa_full backend={backend} proteins="
@@ -273,8 +335,7 @@ def golden_run(dev, work, prots, sig):
               flush=True)
         if got != want:
             raise RuntimeError(f"{backend} report differs from golden_aa_full")
-        if kernel.launches <= 0 or sum(counts.values()) != kernel.launches:
-            raise RuntimeError(f"{backend} run launched {counts}")
+        check_launches(f"phase 3 {backend}", counts, *BACKEND_KERNELS[backend])
     return d, faa
 
 
@@ -309,8 +370,6 @@ def big_table(work, sig, total_sigs=TOTAL_SIGS):
 def realistic_run(dev, work, sig, faa):
     """Phase 4: the proteome against a large table, cuda then cpu. Returns
     (dir, table, B1 launches of the cuda run, real_chunk_check's result)."""
-    from kmergutsjava_tpu_torch.lookup import stream, tilejoin
-
     t0 = time.time()
     d, table, m = big_table(work, sig)
     values = query_values(faa)
@@ -323,8 +382,9 @@ def realistic_run(dev, work, sig, faa):
     reports, launches = {}, 0
     for device in ("cuda", "cpu"):
         out = os.path.join(work, f"big_{device}.txt")
-        tilejoin.launches = stream.launches = 0
+        reset_counts()
         info, secs = run_cli(d, faa, out, device)
+        counts = read_counts()
         ms = phase_ms(info)
         with open(out, "rb") as fh:
             reports[device] = fh.read()
@@ -334,13 +394,11 @@ def realistic_run(dev, work, sig, faa):
               f"grouping_ms={ms['Grouping']} "
               f"queries_per_s_prepare_plus_lookup={n_q / max(pl, 1e-9):.1f} "
               f"queries_per_s_wall={n_q / secs:.1f} "
-              f"launches={tilejoin.launches}", flush=True)
-        if (tilejoin.launches > 0) != (device == "cuda") or stream.launches:
-            raise RuntimeError(f"{device} run made {tilejoin.launches} "
-                               f"tile-join and {stream.launches} stream "
-                               "kernel launches")
+              f"launches={counts['tilejoin']}", flush=True)
+        check_launches(f"phase 4 {device}", counts,
+                       ("tilejoin",) if device == "cuda" else ())
         if device == "cuda":
-            launches = tilejoin.launches
+            launches = counts["tilejoin"]
     same = reports["cuda"] == reports["cpu"]
     print(f"phase 4: cuda_report_bytes={len(reports['cuda'])} "
           f"cpu_report_bytes={len(reports['cpu'])} identical={same}",
@@ -429,28 +487,32 @@ def write_genome(path):
 
 def golden_dna_run(work, d, fna):
     """Phase 6: the genome through ``auto`` (the stream kernel), cuda then
-    cpu. Returns the stream kernel's launches of the cuda run."""
-    from kmergutsjava_tpu_torch.lookup import stream, tilejoin
-
+    cpu, and through ``--backend pallas`` (the block probe) on cuda.
+    Returns the stream kernel's launches of the cuda ``auto`` run."""
     with gzip.open(os.path.join(HERE, "tests", "data",
                                 "golden_dna_full.txt.gz"), "rb") as fh:
         want = fh.read()
     launches = 0
-    for device in ("cuda", "cpu"):
-        out = os.path.join(work, f"golden_dna_{device}.txt")
-        tilejoin.launches = stream.launches = 0
-        info, secs = run_cli(d, fna, out, device, aa=False)
-        counts = dict(tilejoin=tilejoin.launches, stream=stream.launches)
+    for device, backend in (("cuda", "auto"), ("cpu", "auto"),
+                            ("cuda", "pallas")):
+        out = os.path.join(work, f"golden_dna_{device}_{backend}.txt")
+        reset_counts()
+        info, secs = run_cli(d, fna, out, device, ("--backend", backend),
+                             aa=False)
+        counts = read_counts()
         with open(out, "rb") as fh:
             got = fh.read()
-        print(f"phase 6: golden_dna_full device={device} report_bytes="
-              f"{len(got)} identical={got == want} launches={counts} "
-              f"wall_s={secs:.3f} {phase_ms(info)}", flush=True)
+        print(f"phase 6: golden_dna_full device={device} backend={backend} "
+              f"report_bytes={len(got)} identical={got == want} "
+              f"launches={counts} wall_s={secs:.3f} {phase_ms(info)}",
+              flush=True)
         if got != want:
-            raise RuntimeError(f"{device} report differs from golden_dna_full")
-        if counts["tilejoin"] or (counts["stream"] > 0) != (device == "cuda"):
-            raise RuntimeError(f"{device} run launched {counts}")
-        if device == "cuda":
+            raise RuntimeError(f"{device} {backend} report differs from "
+                               "golden_dna_full")
+        check_launches(f"phase 6 {device} {backend}", counts,
+                       *(BACKEND_KERNELS[backend] if device == "cuda"
+                         else ((), ())))
+        if device == "cuda" and backend == "auto":
             launches = counts["stream"]
     return launches
 
@@ -481,13 +543,14 @@ def write_reads(path, genome, n_reads=N_READS, read_len=READ_LEN,
 
 def dense_run(dev, work, d, table, genome):
     """Phase 7: the read set against phase 4's table, ``auto`` (the stream
-    kernel, two plane passes) against ``--backend xla`` on the card, then
-    the kernel against the twin on the tiles of one pass's worth of the
-    real queries (the first input_size_limit). Returns
-    (max_abs_err, kernel_ms, twin_ms)."""
+    kernel, two plane passes) and ``--backend pallas`` (the block probe)
+    against ``--backend xla`` on the card, then the stream kernel against
+    the twin on the tiles of one pass's worth of the real queries (the
+    first input_size_limit). Returns ((max_abs_err, kernel_ms, twin_ms),
+    the block probe's launches, the query values)."""
     import torch
 
-    from kmergutsjava_tpu_torch.lookup import stream, tilejoin
+    from kmergutsjava_tpu_torch.lookup import stream
     from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
 
     t0 = time.time()
@@ -499,13 +562,13 @@ def dense_run(dev, work, d, table, genome):
           f"slots={table.num_sigs} crossover={table.num_sigs / 2.5:.0f} "
           f"fasta_bytes={os.path.getsize(fna)} setup_s={time.time() - t0:.3f}",
           flush=True)
-    reports = {}
-    for backend, kernel in (("auto", stream), ("xla", tilejoin)):
+    reports, block_launches = {}, 0
+    for backend in ("auto", "xla", "pallas"):
         out = os.path.join(work, f"reads_{backend}.txt")
-        tilejoin.launches = stream.launches = 0
+        reset_counts()
         info, secs = run_cli(d, fna, out, "cuda", ("--backend", backend),
                              aa=False)
-        counts = dict(tilejoin=tilejoin.launches, stream=stream.launches)
+        counts = read_counts()
         ms = phase_ms(info)
         with open(out, "rb") as fh:
             reports[backend] = fh.read()
@@ -516,17 +579,24 @@ def dense_run(dev, work, d, table, genome):
               f"queries_per_s_prepare_plus_lookup={n_q / max(pl, 1e-9):.1f} "
               f"queries_per_s_wall={n_q / secs:.1f} launches={counts}",
               flush=True)
-        if kernel.launches <= 0 or sum(counts.values()) != kernel.launches:
-            raise RuntimeError(f"{backend} run launched {counts}")
+        check_launches(f"phase 7 {backend}", counts,
+                       *BACKEND_KERNELS[backend])
         if backend == "auto" and counts["stream"] < 2:
             # one launch a plane pass; past input_size_limit queries, two
             raise RuntimeError(f"auto made {counts['stream']} plane passes "
                                f"for {n_q} queries")
-    same = reports["auto"] == reports["xla"]
+        if backend == "pallas":
+            block_launches = counts["blockprobe"]
+            print(f"phase 7: pallas block_probe_launches={block_launches} "
+                  f"exact_rest_tilejoin_launches={counts['tilejoin']}",
+                  flush=True)
+    same = reports["auto"] == reports["xla"] == reports["pallas"]
     print(f"phase 7: report_bytes={len(reports['auto'])} "
-          f"auto_equals_xla={same}", flush=True)
+          f"auto_equals_xla={reports['auto'] == reports['xla']} "
+          f"pallas_equals_xla={reports['pallas'] == reports['xla']}",
+          flush=True)
     if not same:
-        raise RuntimeError("the stream and xla reports differ")
+        raise RuntimeError("the stream, xla and pallas reports differ")
 
     lk = StreamLookup(table, device=str(dev))
     tiles, *_ = lk._scatter(values[:INPUT_SIZE_LIMIT])  # one pass's worth
@@ -547,13 +617,160 @@ def dense_run(dev, work, d, table, genome):
           f"upload_ms={up_ms:.3f} out_mb={out.numel() * 4 / 2**20:.1f} "
           f"readback_ms={down_ms:.3f} cells_used="
           f"{int((tiles != 0).sum())}", flush=True)
-    return res
+    return res, block_launches, values
+
+
+def block_probe_vs_twin(dev, table, values):
+    """Phase 8: the block probe against its twin on the table's plane with
+    the read set's queries, sorted by home on the card as BlockProbeLookup
+    sorts them: first in prepare's order (each answer lands at a random
+    position), then in the bounded-RAM store's (home, value) order, which
+    is how the engine feeds them (the answers land in order). Returns
+    (max_abs_err, kernel_ms, twin_ms), the times of the store's order."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import blockprobe
+    from kmergutsjava_tpu_torch.lookup.blockprobe import BlockProbeLookup
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+
+    lk = BlockProbeLookup(table, device=str(dev))
+    homes = values % lk.num_sigs
+    err = 0
+    for label, vals in (("prepare", values),
+                        ("store", values[np.lexsort((values, homes))])):
+        q = torch.from_numpy((vals % FP_MOD).astype(np.uint16)).to(dev)
+        h = torch.from_numpy((vals % lk.num_sigs).astype(np.int32)).to(dev)
+        args = (lk.fp, *blockprobe.sorted_args(q, h, lk.nblocks), lk.w)
+        off_k, st_k = blockprobe.block_probe(*args)
+        off_t, st_t = blockprobe.block_probe_reference(*args)
+        torch.cuda.synchronize(dev)
+        err = max(err, int((off_k.int() - off_t.int()).abs().max()),
+                  int((st_k.int() - st_t.int()).abs().max()))
+        states = torch.bincount(st_k.long(), minlength=4).tolist()
+        k_ms = timed(lambda: blockprobe.block_probe(*args), dev)
+        t_ms = timed(lambda: blockprobe.block_probe_reference(*args), dev)
+        print(f"phase 8: {label} order w={lk.w} slots={lk.num_sigs} "
+              f"blocks={lk.nblocks} queries={len(vals)} "
+              f"states(0/1/2/3)={states} max_abs_err={err} "
+              f"kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f}", flush=True)
+        del q, h, args, off_k, st_k, off_t, st_t
+    return err, k_ms, t_ms
+
+
+def stream_reps_phase(dev):
+    """Phase 9: the repetition launch against the twin on phase 5's w=24
+    operands, then the ported microbenchmark's real-table check and stream
+    rows, each row's timed launch held against the twin on its operands.
+    Returns (max_abs_err over all of them, kernel_ms and twin_ms at w=24,
+    the rows' launches)."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import stream
+    from kmergutsjava_tpu_torch.scripts import microbench_probe as mb
+
+    w, reps = 24, 4
+    fp, tiles, _ = dense_tiles(dev, w)
+    got = stream.stream_probe_reps(fp, tiles, w, tiles.shape[0], reps)
+    want = stream.stream_probe_reference(fp, tiles, w, tiles.shape[0])
+    torch.cuda.synchronize(dev)
+    err = int((got.long() - want.long()).abs().max())
+    k_ms = timed(lambda: stream.stream_probe_reps(fp, tiles, w,
+                                                  tiles.shape[0], reps), dev)
+    t_ms = timed(lambda: stream.stream_probe_reference(fp, tiles, w,
+                                                       tiles.shape[0]), dev)
+    print(f"phase 9: w={w} slots={tiles.shape[1]} reps={reps} "
+          f"max_abs_err={err} kernel_ms={k_ms:.4f} "
+          f"kernel_ms_per_rep={k_ms / reps:.4f} twin_ms={t_ms:.4f}",
+          flush=True)
+    del fp, tiles, got, want
+    check = mb.correctness_on_card(str(dev))
+    print(f"phase 9: microbench {json.dumps(check)}", flush=True)
+    if not check["ok"]:
+        raise RuntimeError("the microbenchmark's real-table check failed")
+    reset_counts()
+    rows = []
+    for n_slots, r in mb.CONFIGS:
+        rows.append(mb.bench_stream(n_slots, r))
+        print(f"phase 9: microbench {json.dumps(rows[-1])}", flush=True)
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    check_launches("phase 9 microbench rows", counts, ("stream_reps",))
+    bad = [(row["plane_mb"], row["reps"]) for row in rows
+           if row["max_abs_err"] != 0]
+    if bad:
+        raise RuntimeError(f"microbench rows (plane MB, reps) {bad}: the "
+                           "repetition launch disagrees with the twin")
+    return (max([err] + [row["max_abs_err"] for row in rows]), k_ms, t_ms,
+            counts["stream_reps"])
+
+
+def planted_tjgather(dev, plane3, ids, cap, seed=SEED):
+    """A copy of the sweep's plane with 30% empties and one variant of its
+    packed cells at ``cap``, half of them carrying the value found a random
+    offset (< 16) into their column."""
+    import torch
+
+    from kmergutsjava_tpu_torch.scripts import sweep
+
+    g = torch.Generator(device=dev).manual_seed(seed + cap)
+    p3 = plane3.clone().view(torch.int16)
+    p3[torch.randint(0, 10, p3.shape, generator=g, device=dev,
+                     dtype=torch.int8) < 3] = -1  # FP_EMPTY
+    pk = sweep.make_packed(ids.numel(), cap, 1, dev, seed=seed + cap)[0]
+    rr, off = (pk >> 7) & 127, pk & 127
+    tile = (ids[:, None, None, None] * sweep.TPG
+            + torch.arange(sweep.TPG, device=dev)[None, :, None, None])
+    at = off + torch.randint(0, sweep.W, pk.shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    v = p3[tile.long(), at.long(), rr.long()].to(torch.int32) & 0xFFFF
+    plant = torch.rand(pk.shape, generator=g, device=dev) < 0.5
+    pk = torch.where(plant, (v << 14) | (rr << 7) | off, pk).contiguous()
+    return p3.view(torch.uint16), pk
+
+
+def tjgather_phase(dev):
+    """Phase 10: the ported sweep's lane-gather section at its defaults (a
+    512 MB plane, caps 256 and 512), then the kernel against its twin at
+    those shapes on planted operands. Returns (max_abs_err, kernel_ms,
+    twin_ms at the largest cap, the sweep's launches)."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import tjgather
+    from kmergutsjava_tpu_torch.scripts import sweep
+
+    cfg = sweep.settings()
+    reset_counts()
+    rates = sweep.section_tjgather(str(dev))
+    counts = read_counts()
+    print(f"phase 10: sweep {json.dumps(rates)} launches="
+          f"{counts['tjgather']}", flush=True)
+    check_launches("phase 10 sweep", counts, ("tjgather",))
+    plane3, ids = sweep.make_plane(sweep.plane_tiles(cfg["plane_mb"]), dev)
+    err, k_ms, t_ms = 0, 0.0, 0.0
+    for cap in cfg["caps"]:
+        p3, pk = planted_tjgather(dev, plane3, ids, cap)
+        got = tjgather.tjgather_probe(p3, ids, pk)
+        want = tjgather.tjgather_reference(p3, ids, pk)
+        torch.cuda.synchronize(dev)
+        e = int((got.long() - want.long()).abs().max())
+        keys = torch.bincount(torch.where(got == 2 * sweep.W, 2, got % 2)
+                              .flatten().long(), minlength=3).tolist()
+        k = timed(lambda: tjgather.tjgather_probe(p3, ids, pk), dev)
+        t = timed(lambda: tjgather.tjgather_reference(p3, ids, pk), dev)
+        print(f"phase 10: plane_mb={cfg['plane_mb']:g} tiles={p3.shape[0]} "
+              f"cap={cap} cells={pk.numel()} keys(cand/empty/none)={keys} "
+              f"max_abs_err={e} kernel_ms={k:.4f} twin_ms={t:.4f}",
+              flush=True)
+        err, k_ms, t_ms = max(err, e), k, t
+        del p3, pk, got, want
+        torch.cuda.empty_cache()
+    return err, k_ms, t_ms, counts["tjgather"]
 
 
 def build_kernels():
     """Phase 1: one nvcc per kernel source, started together."""
-    from kmergutsjava_tpu_torch.lookup import stream, tilejoin
-
+    mods = list(kernel_modules().values())
     errors = []
 
     def build(mod):
@@ -563,17 +780,16 @@ def build_kernels():
             errors.append(ex)
 
     t0 = time.time()
-    threads = [threading.Thread(target=build, args=(m,))
-               for m in (tilejoin, stream)]
+    threads = [threading.Thread(target=build, args=(m,)) for m in mods]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print(f"phase 1: built {os.path.relpath(tilejoin.SOURCE, HERE)} and "
-          f"{os.path.relpath(stream.SOURCE, HERE)} (nvcc "
-          f"{' '.join(tilejoin.NVCC_FLAGS)}) in {time.time() - t0:.3f} s",
+    print(f"phase 1: built "
+          f"{', '.join(os.path.relpath(m.SOURCE, HERE) for m in mods)} (nvcc "
+          f"{' '.join(mods[0].NVCC_FLAGS)}) in {time.time() - t0:.3f} s",
           flush=True)
 
 
@@ -625,9 +841,21 @@ def main() -> int:
         genome = write_genome(os.path.join(work, "genome.fna"))
         st_launches = golden_dna_run(work, corpus,
                                      os.path.join(work, "genome.fna"))
-        s_err, s_ms, s_plain_ms = dense_run(dev, work, big, table, genome)
-    if s_err != 0:
-        return fail("stream kernel and twin disagree on a pass's real tiles")
+        (s_err, s_ms, s_plain_ms), bp_launches, values = dense_run(
+            dev, work, big, table, genome)
+        if s_err != 0:
+            return fail("stream kernel and twin disagree on a pass's real "
+                        "tiles")
+        bp_err, bp_ms, bp_plain_ms = block_probe_vs_twin(dev, table, values)
+        if bp_err != 0:
+            return fail("block probe and twin disagree on the read set")
+        del values, table
+    r_err, r_ms, r_plain_ms, r_launches = stream_reps_phase(dev)
+    if r_err != 0:
+        return fail("the stream kernel's repetition launch and twin disagree")
+    g_err, g_ms, g_plain_ms, g_launches = tjgather_phase(dev)
+    if g_err != 0:
+        return fail("lane-gather kernel and twin disagree")
 
     print(json.dumps({"kernels": [{
         "name": "tilejoin_first_event",
@@ -647,6 +875,33 @@ def main() -> int:
         "max_abs_err": max([s_err] + [e for e, _, _ in s_cmp.values()]),
         "ms": s_ms,
         "plain_ms": s_plain_ms,
+    }, {
+        "name": "block_probe",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/block_probe.cu",
+        "replaces": "kmergutsjava_tpu/lookup/pallas_kernel.py:56",
+        "launches": bp_launches,
+        "max_abs_err": bp_err,
+        "ms": bp_ms,
+        "plain_ms": bp_plain_ms,
+    }, {
+        "name": "stream_probe_reps",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/stream_probe.cu",
+        "replaces": "scripts/microbench_probe.py:180",
+        "launches": r_launches,
+        "max_abs_err": r_err,
+        "ms": r_ms,
+        "plain_ms": r_plain_ms,
+    }, {
+        "name": "tjgather_probe",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/tjgather.cu",
+        "replaces": "scripts/sweep.py:179",
+        "launches": g_launches,
+        "max_abs_err": g_err,
+        "ms": g_ms,
+        "plain_ms": g_plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ Arguments:
  -t - (optional) temporary directory (system one is used by default)
  -l - (optional) limit for input Kmer array (long, default = 20,000,000)
  --device NAME - (optional) torch device of the probe: cuda (default; the CUDA kernel) or cpu (its PyTorch twin)
- --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, parity
+ --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, pallas, parity
  --probe-window N - (optional) override table-derived probe window
  --chunk N - (optional) queries per device dispatch (default 524288)
  --prepare IMPL - (optional) encode impl: native (default), numpy

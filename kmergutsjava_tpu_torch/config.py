@@ -13,10 +13,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 # lookup backends: "auto" (stream vs xla by query density — both are exact,
-# so the choice only costs speed), "xla" (the sparse tile-join probe; the
-# JAX package's name, so its command lines run unchanged), "stream" (the
-# dense stream probe) and "parity" (the exact streaming scan)
-BACKENDS = ("auto", "xla", "stream", "parity")
+# so the choice only costs speed), "xla" (the sparse tile-join probe),
+# "stream" (the dense stream probe), "pallas" (the merge-join block probe;
+# "xla" and "pallas" keep the JAX package's names, so its command lines run
+# unchanged) and "parity" (the exact streaming scan). "auto" never picks
+# "pallas".
+BACKENDS = ("auto", "xla", "stream", "pallas", "parity")
 PREPARE_IMPLS = ("native", "numpy")
 GROUPING_IMPLS = ("host",)
 

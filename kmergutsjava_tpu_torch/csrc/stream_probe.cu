@@ -95,4 +95,24 @@ int stream_probe(const void* fp, const void* tiles, int64_t slots,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same probe with a leading repetition axis, for timing (the port of
+// scripts/microbench_probe.py stream_reps): one launch with gridDim.y =
+// reps, each rep recomputing and rewriting the same output, as the TPU
+// grid (reps, nsuper) does. reps <= 65535 (the grid's y limit).
+int stream_probe_reps(const void* fp, const void* tiles, int64_t slots,
+                      int32_t channels, int32_t w, int32_t reps, void* out,
+                      void* stream) {
+  if (w < 1 || w > kMaxWindow || channels < 4 || channels % 4 || slots < 0 ||
+      reps < 1 || reps > 65535)
+    return cudaErrorInvalidValue;
+  if (slots == 0) return cudaSuccess;
+  const int64_t blocks = (slots + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(reps));
+  stream_probe_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(fp), static_cast<const uint16_t*>(tiles),
+      slots, channels / 4, w, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // extern "C"

@@ -33,63 +33,61 @@ def sort_records(rec: np.ndarray, num_sigs: int) -> np.ndarray:
     return rec[order]
 
 
-def _lex_le_split(a_home, a_val, b_home0, b_val0) -> int:
-    """Number of leading records of sorted (a_home, a_val) <= (b_home0, b_val0)."""
-    i1 = int(np.searchsorted(a_home, b_home0, side="left"))
-    i2 = int(np.searchsorted(a_home, b_home0, side="right"))
-    j = int(np.searchsorted(a_val[i1:i2], b_val0, side="right"))
-    return i1 + j
+def _lex_split(a_home, a_val, home0, val0, side: str) -> int:
+    """Number of leading records of sorted (a_home, a_val) below
+    (home0, val0) (side "left") or at most it (side "right")."""
+    i1 = int(np.searchsorted(a_home, home0, side="left"))
+    i2 = int(np.searchsorted(a_home, home0, side="right"))
+    return i1 + int(np.searchsorted(a_val[i1:i2], val0, side=side))
 
 
 def merge_two_sorted_files(f1: str, f2: str, out: str, num_sigs: int,
                            block: int = 1 << 20) -> None:
-    """Streaming merge of two (home, value)-sorted record files."""
+    """Streaming merge of two (home, value)-sorted record files; records
+    with equal keys keep f1's before f2's. Each round buffers up to
+    ``block`` records of each file and merges, with one stable sort, every
+    buffered record up to the smaller of the two buffers' last keys, so a
+    round drains at least one buffer whole: O(n log block) however finely
+    the files interleave."""
     a = np.memmap(f1, dtype=REC_DTYPE, mode="r")
     b = np.memmap(f2, dtype=REC_DTYPE, mode="r")
     ns = np.int64(num_sigs)
+    ai = bi = 0
+    a_buf = b_buf = np.empty(0, dtype=REC_DTYPE)
     with open(out, "wb") as fh:
-        ai = bi = 0
-        a_blk: Optional[np.ndarray] = None
-        b_blk: Optional[np.ndarray] = None
-        a_off = b_off = 0
         while True:
-            if a_blk is None or a_off >= len(a_blk):
-                a_blk = np.asarray(a[ai: ai + block])
-                ai += len(a_blk)
-                a_off = 0
-            if b_blk is None or b_off >= len(b_blk):
-                b_blk = np.asarray(b[bi: bi + block])
-                bi += len(b_blk)
-                b_off = 0
-            a_rest = a_blk[a_off:]
-            b_rest = b_blk[b_off:]
-            if len(a_rest) == 0 and len(b_rest) == 0:
-                if ai >= len(a) and bi >= len(b):
-                    break
-                continue
-            if len(a_rest) == 0:
-                if ai < len(a):
-                    continue
-                b_rest.tofile(fh)
-                b_off += len(b_rest)
-                continue
-            if len(b_rest) == 0:
-                if bi < len(b):
-                    continue
-                a_rest.tofile(fh)
-                a_off += len(a_rest)
-                continue
-            a_home = a_rest["value"] % ns
-            b_home = b_rest["value"] % ns
-            cut_a = _lex_le_split(a_home, a_rest["value"], b_home[0], b_rest["value"][0])
-            if cut_a > 0:
-                a_rest[:cut_a].tofile(fh)
-                a_off += cut_a
+            if len(a_buf) == 0 and ai < len(a):
+                a_buf = np.asarray(a[ai: ai + block])
+                ai += len(a_buf)
+            if len(b_buf) == 0 and bi < len(b):
+                b_buf = np.asarray(b[bi: bi + block])
+                bi += len(b_buf)
+            if len(a_buf) == 0 or len(b_buf) == 0:
+                break  # one file is drained: copy the other's rest
+            a_val, b_val = a_buf["value"], b_buf["value"]
+            a_home, b_home = a_val % ns, b_val % ns
+            if (a_home[-1], a_val[-1]) <= (b_home[-1], b_val[-1]):
+                # all of a's buffer, and b's records below its last key (an
+                # equal b record waits for a's equal records still unread)
+                cut_a = len(a_buf)
+                cut_b = _lex_split(b_home, b_val, a_home[-1], a_val[-1],
+                                   "left")
             else:
-                cut_b = _lex_le_split(b_home, b_rest["value"], a_home[0], a_rest["value"][0])
-                cut_b = max(cut_b, 1)
-                b_rest[:cut_b].tofile(fh)
-                b_off += cut_b
+                # all of b's buffer, and a's records up to its last key
+                # (b's file holds nothing below it any more)
+                cut_b = len(b_buf)
+                cut_a = _lex_split(a_home, a_val, b_home[-1], b_val[-1],
+                                   "right")
+            both = np.concatenate([a_buf[:cut_a], b_buf[:cut_b]])
+            order = np.lexsort((both["value"],
+                                np.concatenate([a_home[:cut_a],
+                                                b_home[:cut_b]])))
+            both[order].tofile(fh)  # lexsort is stable: a's ties first
+            a_buf, b_buf = a_buf[cut_a:], b_buf[cut_b:]
+        for buf, mm, at in ((a_buf, a, ai), (b_buf, b, bi)):
+            buf.tofile(fh)
+            for s in range(at, len(mm), block):
+                np.asarray(mm[s: s + block]).tofile(fh)
 
 
 class QueryKmerStore:

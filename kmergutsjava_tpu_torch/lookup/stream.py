@@ -55,6 +55,9 @@ SOURCE = os.path.join(_PKG_DIR, "csrc", "stream_probe.cu")
 # kernel launches since import (or since a caller reset it to 0); counted
 # only where the wrapper launches the CUDA kernel, never for the twin
 launches = 0
+# launches of the timing entry ``stream_probe_reps``, counted apart
+reps_launches = 0
+MAX_REPS = 65535  # the launch grid's y limit
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -73,6 +76,10 @@ def load_kernel() -> ctypes.CDLL:
         p = ctypes.c_void_p
         fn.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                        p, p]
+        fn = lib.stream_probe_reps
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                       ctypes.c_int32, p, p]
         _lib = lib
         return lib
 
@@ -123,6 +130,29 @@ def _check(fp, qfp_tiles, w, channels) -> None:
         raise KernelError("too many slots for one launch's grid")
 
 
+def _run(fp, qfp_tiles, w, channels, reps: Optional[int]):
+    """The twin for CPU tensors; else one launch of the ``stream_probe``
+    entry (``reps`` None) or of ``stream_probe_reps``. Returns (out,
+    launched)."""
+    if fp.device.type == "cpu":
+        return stream_probe_reference(fp, qfp_tiles, w, channels), False
+    if fp.device.type != "cuda":
+        raise KernelError(f"no stream kernel for device {fp.device}")
+    slots = qfp_tiles.shape[1]
+    out = torch.empty((channels // 4, slots), dtype=torch.int32,
+                      device=fp.device)
+    if slots == 0:
+        return out, False
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(fp.device).cuda_stream
+    head = (fp.data_ptr(), qfp_tiles.data_ptr(), slots, channels, w)
+    rc = (lib.stream_probe(*head, out.data_ptr(), stream) if reps is None
+          else lib.stream_probe_reps(*head, reps, out.data_ptr(), stream))
+    if rc != 0:
+        raise KernelError(f"stream kernel launch failed: CUDA error {rc}")
+    return out, True
+
+
 def stream_probe(fp: torch.Tensor, qfp_tiles: torch.Tensor, w: int,
                  channels: int = CHANNELS) -> torch.Tensor:
     """Raw first fingerprint-match offset of every (channel, slot) tile cell
@@ -133,23 +163,29 @@ def stream_probe(fp: torch.Tensor, qfp_tiles: torch.Tensor, w: int,
     qfp_tiles: u16 ``[channels, S]``."""
     global launches
     _check(fp, qfp_tiles, w, channels)
-    if fp.device.type == "cpu":
-        return stream_probe_reference(fp, qfp_tiles, w, channels)
-    if fp.device.type != "cuda":
-        raise KernelError(f"no stream kernel for device {fp.device}")
-    slots = qfp_tiles.shape[1]
-    out = torch.empty((channels // 4, slots), dtype=torch.int32,
-                      device=fp.device)
-    if slots == 0:
-        return out
-    lib = load_kernel()
-    stream = torch.cuda.current_stream(fp.device).cuda_stream
-    rc = lib.stream_probe(fp.data_ptr(), qfp_tiles.data_ptr(), slots,
-                          channels, w, out.data_ptr(), stream)
-    if rc != 0:
-        raise KernelError(f"stream kernel launch failed: CUDA error {rc}")
-    with _lock:
-        launches += 1
+    out, launched = _run(fp, qfp_tiles, w, channels, None)
+    if launched:
+        with _lock:
+            launches += 1
+    return out
+
+
+def stream_probe_reps(fp: torch.Tensor, qfp_tiles: torch.Tensor, w: int,
+                      channels: int = CHANNELS, reps: int = 1
+                      ) -> torch.Tensor:
+    """``stream_probe`` repeated ``reps`` times in one launch (a timing
+    harness: every rep rewrites the same output, so the result is
+    ``stream_probe``'s). CPU tensors run the plain twin once; CUDA tensors
+    launch the kernel (or raise KernelError). Counted in
+    ``reps_launches``, not ``launches``."""
+    global reps_launches
+    _check(fp, qfp_tiles, w, channels)
+    if not isinstance(reps, int) or not 1 <= reps <= MAX_REPS:
+        raise KernelError(f"reps {reps!r} outside [1, {MAX_REPS}]")
+    out, launched = _run(fp, qfp_tiles, w, channels, reps)
+    if launched:
+        with _lock:
+            reps_launches += 1
     return out
 
 

@@ -6,7 +6,7 @@ KmerGutsJava.java:742-820:
 1. prepare  — FASTA -> host 8-mer encode (6-frame translation in DNA mode)
    -> query k-mer stream
 2. lookup   — probe the signature table (sparse tile-join probe | dense
-   stream probe | parity scan)
+   stream probe | merge-join block probe | parity scan)
 3. group    — sequential call state machine -> report text
 
 Report text is bit-identical to the reference in non-debug mode; info lines
@@ -30,8 +30,10 @@ from ..constants import ENTRY_SIZE
 from ..formats.fasta import read_fasta
 from ..formats.function_index import load_function_index
 from ..formats.kmer_table import read_table, resolve_table_files
+from ..lookup import blockprobe
 from ..lookup import stream as stream_kernel
 from ..lookup import tilejoin
+from ..lookup.blockprobe import BlockProbeLookup
 from ..lookup.parity import LookupHits, TableTruncatedError, lookup_stream
 from ..lookup.sparse import SparseLookup, StreamingLookup, torch_device
 from ..lookup.store import QueryKmerStore
@@ -179,8 +181,8 @@ def _cached_read_table(table_path: str):
 
 
 def _cached_lookup(backend: str, table_path: str, table, cfg: EngineConfig):
-    """The sparse ("xla") or "stream" lookup of this table, from the
-    one-slot cache keyed also by the torch device."""
+    """The sparse ("xla"), "stream" or block-probe ("pallas") lookup of
+    this table, from the one-slot cache keyed also by the torch device."""
     key = (backend, _table_ident(table_path), cfg.probe_window,
            cfg.lookup_chunk, str(torch_device(cfg.device)))
     lk = _LOOKUP_CACHE.get(key)
@@ -188,6 +190,9 @@ def _cached_lookup(backend: str, table_path: str, table, cfg: EngineConfig):
         if backend == "xla":
             lk = SparseLookup(table, probe_window=cfg.probe_window,
                               chunk=cfg.lookup_chunk, device=cfg.device)
+        elif backend == "pallas":
+            lk = BlockProbeLookup(table, probe_window=cfg.probe_window,
+                                  chunk=cfg.lookup_chunk, device=cfg.device)
         else:
             lk = StreamLookup(table, probe_window=cfg.probe_window,
                               device=cfg.device)
@@ -273,18 +278,22 @@ class Engine:
                                                      choice or AUTO_SPARSE)
         if on_cuda and not table.truncated:
             # a build failure raises here, before any work, and never
-            # degrades; a deferred choice may run either kernel
-            if deferred is not None or cfg.backend == "xla":
+            # degrades; a deferred choice may run either kernel, and the
+            # block probe's exact rest runs the tile-join kernel
+            if deferred is not None or cfg.backend in ("xla", "pallas"):
                 tilejoin.load_kernel()
             if deferred is not None or cfg.backend == "stream":
                 stream_kernel.load_kernel()
+            if cfg.backend == "pallas":
+                blockprobe.load_kernel()
 
         # --- phase 1: prepare (ref :776-795) ---
         # xla backend: the feeder streams k-mer batches straight into the
         # device probe (parse/transfer/probe/verify pipeline; only hits
         # are retained, so no spill is needed). stream backend: each chunk
         # scatters into the persistent query tiles; finish() runs the
-        # plane pass(es). Parity buffers through the bounded-RAM store.
+        # plane pass(es). Parity and pallas buffer through the bounded-RAM
+        # store, as in the JAX engine.
         t1 = time.time()
         streaming = None
         store = None
@@ -411,8 +420,8 @@ class Engine:
 
     def _lookup(self, table, rec) -> LookupHits:
         """One-shot lookup of buffered queries: the parity scan (and every
-        truncated table), or a deferred 'auto' run that finished below the
-        density crossover on the sparse path."""
+        truncated table), the block probe (pallas), or a deferred 'auto' run
+        that finished below the density crossover on the sparse path."""
         cfg = self.config
         if table.truncated and cfg.backend != "parity":
             # only the streaming parity scan reproduces the reference's
@@ -424,10 +433,15 @@ class Engine:
             return lookup_stream(table, rec["value"], rec["cnt"], rec["pos"])
         if cfg.backend == "parity":
             return lookup_stream(table, rec["value"], rec["cnt"], rec["pos"])
+        # the block probe ("pallas") is built here, inside the lookup
+        # phase's error handling: a table past its window (a ValueError)
+        # becomes the JAX engine's "Error:" line, not a parity fallback;
+        # like the JAX engine's pallas branch, it reports no progress
         lk = _cached_lookup(cfg.backend, self._table_path, table, cfg)
+        progress = None if cfg.backend == "pallas" else self._progress(
+            len(rec))
         return lk.lookup(rec["value"], rec["cnt"], rec["pos"],
-                         progress=self._progress(len(rec)),
-                         compute_kmers_found=cfg.debug)
+                         progress=progress, compute_kmers_found=cfg.debug)
 
     def _bucket_hits(self, prep: Prepared, hits: LookupHits, functions,
                      params) -> Dict[tuple, object]:

@@ -1,13 +1,14 @@
 """The PyTorch package's Engine and CLI, on the CPU, against the JAX
 package: the 800-protein corpus report must equal golden_aa_800 and the JAX
 Engine's report byte for byte, through the sparse path, the stream path,
-the parity backend, a truncated table and the debug info lines; in DNA mode
-the 300 kbp contig's report must equal golden_dna_800 and the JAX Engine's
-through every backend, with `auto` deciding from a stream (upgrading
-mid-prepare), from a file's size, and below the density crossover (the
-sparse one-shot lookup). Also: the port imports neither jax nor the JAX
-package, a kernel fault propagates, and a CUDA device without CUDA
-raises."""
+the merge-join block probe (``pallas``), the parity backend, a truncated
+table and the debug info lines; in DNA mode the 300 kbp contig's report must
+equal golden_dna_800 and the JAX Engine's through every backend, with `auto`
+deciding from a stream (upgrading mid-prepare), from a file's size, and
+below the density crossover (the sparse one-shot lookup). A table past the
+block probe's 128-slot window gives the JAX engine's `Error:` line. Also:
+the port imports neither jax nor the JAX package, a kernel fault
+propagates, and a CUDA device without CUDA raises."""
 import gzip
 import io
 import os
@@ -25,7 +26,7 @@ from kmergutsjava_tpu.models.pipeline import Engine as JaxEngine
 from kmergutsjava_tpu_torch import cli
 from kmergutsjava_tpu_torch.config import EngineConfig
 from kmergutsjava_tpu_torch.formats.kmer_table import TABLE_FILE
-from kmergutsjava_tpu_torch.lookup import stream, tilejoin
+from kmergutsjava_tpu_torch.lookup import blockprobe, stream, tilejoin
 from kmergutsjava_tpu_torch.models import pipeline
 from kmergutsjava_tpu_torch.models.pipeline import Engine
 
@@ -80,10 +81,12 @@ def dna(corpus):
 @pytest.fixture
 def spy(monkeypatch):
     """Counts the one-shot and streaming lookups' calls by kind."""
+    from kmergutsjava_tpu_torch.lookup.blockprobe import BlockProbeLookup
     from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
     from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
 
-    calls = {"stream_pass": 0, "sparse_lookup": 0, "parity": 0}
+    calls = {"stream_pass": 0, "sparse_lookup": 0, "parity": 0,
+             "block_lookup": 0}
 
     def wrap(owner, name, key):
         orig = getattr(owner, name)
@@ -96,29 +99,35 @@ def spy(monkeypatch):
 
     wrap(StreamLookup, "_probe", "stream_pass")
     wrap(SparseLookup, "lookup", "sparse_lookup")
+    wrap(BlockProbeLookup, "lookup", "block_lookup")
     wrap(pipeline, "lookup_stream", "parity")
     return calls
 
 
-@pytest.mark.parametrize("backend", ["auto", "xla", "stream", "parity"])
+@pytest.mark.parametrize("backend", ["auto", "xla", "stream", "pallas",
+                                     "parity"])
 def test_engine_matches_golden_and_jax(corpus, backend):
     d, fasta, _, golden = corpus
     got = _port(d, fasta, backend=backend)
     assert got == golden
-    if backend == "xla":
-        assert got == _jax(d, fasta, backend="xla")
+    if backend in ("xla", "pallas"):
+        assert got == _jax(d, fasta, backend=backend)
 
 
-@pytest.mark.parametrize("backend", ["auto", "stream", "xla", "parity"])
+@pytest.mark.parametrize("backend", ["auto", "stream", "xla", "pallas",
+                                     "parity"])
 def test_dna_engine_matches_golden_and_jax(dna, spy, backend):
     """A stream input: `auto` buffers, crosses numSigs/2.5 mid-prepare and
-    upgrades to the stream path, as the JAX Engine does."""
+    upgrades to the stream path, as the JAX Engine does. The block probe
+    (`pallas`) buffers and runs one plane pass; its exact rest is the only
+    one-shot sparse lookup."""
     d, fasta, _, golden, jax_report = dna
     got = _port(d, fasta, aa=False, backend=backend)
     assert got == golden
     assert got == jax_report
     assert (spy["stream_pass"] > 0) == (backend in ("auto", "stream"))
-    assert spy["sparse_lookup"] == 0
+    assert spy["block_lookup"] == (backend == "pallas")
+    assert spy["sparse_lookup"] == 0 or backend == "pallas"
 
 
 @pytest.mark.parametrize("backend,prepare", [("auto", "native"),
@@ -149,6 +158,28 @@ def test_dna_stream_multipass_matches_golden(dna, spy):
     assert got == golden
 
 
+@pytest.mark.parametrize("backend", ["pallas", "parity"])
+def test_dna_store_spills_match_golden(dna, monkeypatch, backend):
+    """A small input_size_limit (-l) makes the bounded-RAM store, which
+    feeds the block probe and the parity scan, spill sorted runs and merge
+    them in a cascade: the report does not change."""
+    from kmergutsjava_tpu_torch.lookup.store import QueryKmerStore
+
+    spills = []
+    orig = QueryKmerStore._spill
+
+    def counted(self):
+        spills.append(len(self._batches))
+        return orig(self)
+
+    monkeypatch.setattr(QueryKmerStore, "_spill", counted)
+    d, fasta, _, golden, _ = dna
+    got = _port(d, fasta, aa=False, backend=backend, prepare_impl="numpy",
+                input_size_limit=50_000)
+    assert len(spills) >= 3
+    assert got == golden
+
+
 def test_dna_debug_report_matches_jax(dna):
     """Debug mode through `auto`'s upgrade to the stream path: info lines,
     table info and the kmers-found count equal the JAX Engine's."""
@@ -170,7 +201,8 @@ def test_dna_stdin_below_crossover_finishes_sparse(dna, spy):
     head, seq = fasta.split("\n", 1)
     small = head + "\n" + seq[:20_000] + "\n"
     got = _port(d, small, aa=False)
-    assert spy == {"stream_pass": 0, "sparse_lookup": 1, "parity": 0}
+    assert spy == {"stream_pass": 0, "sparse_lookup": 1, "parity": 0,
+                   "block_lookup": 0}
     assert got == _jax(d, small, aa=False)
     assert "CALL" in got
 
@@ -275,6 +307,97 @@ def test_debug_report_matches_jax(corpus):
     assert masked(got) == masked(_jax(d, fasta, debug=True, min_hits=1))
 
 
+def _masked(text):
+    return re.sub(r"time=\d+ ms|: \d+ ms\.", "<t>", text)
+
+
+def test_pallas_debug_report_matches_jax(corpus):
+    """Debug mode through the block probe: the kmers-found line and the
+    info lines equal the JAX Engine's pallas run; neither writes progress
+    lines."""
+    d, fasta, _, _ = corpus
+    fasta = ">" + ">".join(fasta.split(">")[1:16])
+    got = _port(d, fasta, debug=True, min_hits=1, backend="pallas")
+    assert "Kmers found: " in got and "Processed:" not in got
+    assert _masked(got) == _masked(_jax(d, fasta, debug=True, min_hits=1,
+                                        backend="pallas"))
+
+
+def test_cli_pallas_matches_jax_cli_and_parity(corpus, tmp_path, capsys):
+    """`--backend pallas --device cpu` through the CLI: byte-identical to
+    the JAX CLI's `--backend pallas` and to the port's `--backend parity`."""
+    from kmergutsjava_tpu import cli as jax_cli
+
+    d, _, faa, golden = corpus
+    runs = {"pallas": (cli.main, "pallas", ["--device", "cpu"]),
+            "parity": (cli.main, "parity", ["--device", "cpu"]),
+            "jax": (jax_cli.main, "pallas", [])}
+    got = {}
+    for name, (main, backend, extra) in runs.items():
+        out = tmp_path / f"{name}.txt"
+        assert main(["-a", "-D", d, "-q", faa, "-o", str(out), "--backend",
+                     backend, *extra]) == 0
+        got[name] = out.read_text()
+    assert got["pallas"] == got["jax"] == got["parity"] == golden
+
+
+def _one_chain_table(path, chain, num_sigs=600):
+    """A data dir whose table holds one ``chain``-slot probe chain."""
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.constants import EMPTY_KMER
+    from kmergutsjava_tpu_torch.formats.function_index import \
+        write_function_index
+    from kmergutsjava_tpu_torch.formats.kmer_table import (KmerTable,
+                                                           SLOT_DTYPE,
+                                                           write_table)
+
+    slots = np.zeros(num_sigs, dtype=SLOT_DTYPE)
+    slots["kmer"] = EMPTY_KMER
+    slots["kmer"][:chain] = np.arange(chain) * num_sigs
+    write_table(str(path / TABLE_FILE),
+                KmerTable(slots=slots, num_sigs=num_sigs))
+    write_function_index(str(path / "function.index"), ["f0"])
+    return str(path)
+
+
+def test_pallas_window_past_128_reports_the_jax_error(tmp_path):
+    """max_probe 150 is past the block probe's 128-slot window: the
+    constructor's ValueError is raised inside the lookup phase and becomes
+    the JAX engine's `Error:` line and an empty hit set, not a parity
+    fallback."""
+    d = _one_chain_table(tmp_path, 150)
+    query = ">P1\nACDEFGHIKLMNPQRSTVWY\n"
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = _port(d, query, backend="pallas", debug=True)
+    assert not any("parity" in str(x.message) for x in w)
+    assert "Error: max_probe exceeds kernel halo" in got
+    assert "Kmers found: 0 (pos-count=0)" in got
+    assert _masked(got) == _masked(_jax(d, query, backend="pallas",
+                                        debug=True))
+
+
+@pytest.mark.parametrize("fault", ["kernel", "device"])
+def test_block_probe_error_is_not_turned_into_a_report(corpus, monkeypatch,
+                                                       fault):
+    """A KernelError from the block-probe wrapper, or a device fault
+    surfacing as a torch RuntimeError at its pass, propagates as a
+    KernelError instead of becoming an `Error:` line."""
+    def broken(*a, **kw):
+        if fault == "kernel":
+            raise tilejoin.KernelError("launch refused")
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    monkeypatch.setattr(blockprobe, "block_probe", broken)
+    d, fasta, _, _ = corpus
+    with pytest.raises(tilejoin.KernelError,
+                       match="launch refused" if fault == "kernel"
+                       else "pass failed"):
+        _port(d, fasta, backend="pallas")
+
+
 def test_truncated_table_partial_report_matches_jax(tmp_path, corpus):
     d, fasta, _, _ = corpus
     small = tmp_path / "trunc"
@@ -374,7 +497,7 @@ def test_cuda_device_without_cuda_raises(corpus):
         cli.main(["-a", "-D", d, "-q", faa, "--device", "cuda"])
 
 
-@pytest.mark.parametrize("argv", [["-D", "x", "--backend", "pallas"],
+@pytest.mark.parametrize("argv", [["-D", "x", "--backend", "replicated"],
                                   ["-a", "-D", "x", "--backend", "spmd"],
                                   ["-a", "-D", "x", "--mesh", "2x2"],
                                   ["-a", "-D", "x", "--prepare", "jax"]])
