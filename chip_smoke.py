@@ -32,8 +32,11 @@ failure and then prints no result):
 5. the stream kernel against its plain PyTorch twin on the card: a seeded
    40M-slot plane at load 0.6 with tiles filled as a dense read set fills
    them (Poisson(0.6) distinct queries a slot, so some slots use all 4
-   channels), at w=24 (the realistic table's window) and w=64 (the cap);
-   every int32 must be equal; both times are printed;
+   channels, half of them planted), at w=24 (the realistic table's window)
+   and w=64 (the cap), and a worst case at w=64 with every used cell
+   planted; every int32 must be equal; both times and the share of cells
+   that the kernel had to list (the rest it answers from a presence
+   bitmap) are printed;
 6. golden DNA: the CLI (no ``-a``, ``-q`` the 4.64 Mbp genome, ``--device
    cuda``) with ``auto`` deciding from the file size must reproduce
    tests/data/golden_dna_full.txt.gz byte for byte through the stream
@@ -50,9 +53,9 @@ failure and then prints no result):
    the twin on one pass's real tiles, with the tiles' upload and the
    answer's read-back timed;
 8. the block probe against its plain PyTorch twin on that table's plane,
-   with the read set's queries sorted by home on the card, fed in
-   prepare's order and in the store's (home, value) order (the engine's);
-   every (off, state) must be equal; both times are printed;
+   with the read set's queries in prepare's order and in the store's
+   (home, value) order (the engine's); every (off, state) must be equal;
+   both times are printed;
 9. the stream kernel's repetition launch (4 reps) against the twin on phase
    5's w=24 operands, every int32 equal; then the ported microbenchmark
    (kmergutsjava_tpu_torch/scripts/microbench_probe.py): its real-table
@@ -63,6 +66,11 @@ failure and then prints no result):
    512), then the lane-gather kernel against its twin at that shape with
    planted matches and empties, every key equal; both times are printed.
 
+Each kernel's line also prints its bound (``bound_ms``: the larger of
+the bytes it must move over the card's memory rate and one integer
+operation an input element over its INT32 rate; ``bound_by``) and its
+share of the bound (bound_ms / kernel_ms).
+
 Every run that drives a path (the CLI runs, the microbenchmark's rows, the
 sweep) starts with every launch count at 0 and must launch its kernels and
 no others. The line before the last is a JSON object with each kernel's
@@ -70,8 +78,10 @@ name, source, the TPU kernel it replaces, its launches on its path (phase
 4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather), its largest
-disagreement with the twin, and both times at the real shapes (phase 4's
-first dispatch, phase 7's pass, phases 8, 9 and 10); the last line is
+disagreement with the twin, both times at the real shapes (phase 4's
+first dispatch, phase 7's pass, phases 8, 9 and 10), the bound and share
+at those shapes, and ``library_ms`` null (no single PyTorch call computes
+a first-event window probe); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import contextlib
@@ -92,6 +102,45 @@ SEED = 0
 BIG_QUERIES = 4_000_000  # about the whole proteome in one launch
 N_READS, READ_LEN = 120_000, 150  # phase 7's read set
 INPUT_SIZE_LIMIT = 20_000_000  # the engine's default -l: queries a pass
+# the card's published rates (H100 SXM, 700 W): device memory, and INT32
+# lanes (132 SMs x 64 lanes x 1.98 GHz boost clock)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of ``nbytes`` over the card's memory
+    rate and ``ops`` integer operations over its INT32 rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def bound_window_probe(plane_slots, n):
+    """B1 and B3: each query's fingerprint and home in and its two code
+    bytes out (8 B), and the plane's 32-byte sectors its window touches,
+    at most the whole plane; one operation a query and plane slot."""
+    return bound(8 * n + min(2 * plane_slots, 32 * n),
+                 n + min(plane_slots, 16 * n))
+
+
+def bound_stream(slots, channels, w, reps=1):
+    """B2 and B5: the plane (slots + w) and the tiles read, the packed
+    answer written, once a rep; one operation a plane slot and cell."""
+    return bound(reps * (2 * (slots + w) + 3 * channels * slots),
+                 reps * (slots + w + channels * slots))
+
+
+def bound_tjgather(plane_slots, cells):
+    """B4: the plane tiles read, each packed cell read and its key
+    written; one operation a plane slot and cell."""
+    return bound(2 * plane_slots + 8 * cells, plane_slots + cells)
+
+
+def bound_fields(k_ms, bnd):
+    """A phase line's bound and share of it."""
+    return (f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]} "
+            f"share={bnd[0] / k_ms:.3f}")
 
 
 def fail(msg: str) -> int:
@@ -186,7 +235,7 @@ def synthetic_probe(dev, w, n_queries, n_slots=N_SLOTS, seed=SEED):
 
 def check_kernel(dev, label, fp, q_fp, homes, w):
     """The wrapper's (off, state) against the twin's for every query, and
-    both times; returns (max_abs_err, kernel_ms, twin_ms)."""
+    both times; returns (max_abs_err, kernel_ms, twin_ms, bound)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import tilejoin
@@ -200,14 +249,17 @@ def check_kernel(dev, label, fp, q_fp, homes, w):
     k_ms = timed(lambda: tilejoin.tilejoin_probe(fp, q_fp, homes, w), dev)
     t_ms = timed(lambda: tilejoin.first_event_reference(fp, q_fp, homes, w),
                  dev)
+    bnd = bound_window_probe(fp.numel(), homes.numel())
     print(f"{label}: w={w} slots={fp.numel() - w} queries={homes.numel()} "
           f"states(0/1/2)={states} max_abs_err={err} "
-          f"kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f}", flush=True)
-    return err, k_ms, t_ms
+          f"kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f} "
+          f"{bound_fields(k_ms, bnd)}", flush=True)
+    return err, k_ms, t_ms, bnd
 
 
 def kernel_vs_twin(dev, cases):
-    """Phase 2: {(w, n_queries): (max_abs_err, kernel_ms, twin_ms)}."""
+    """Phase 2: {(w, n_queries): (max_abs_err, kernel_ms, twin_ms,
+    bound)}."""
     return {(w, n): check_kernel(dev, "phase 2", *synthetic_probe(dev, w, n),
                                  w)
             for w, n in cases}
@@ -408,12 +460,13 @@ def realistic_run(dev, work, sig, faa):
     return d, table, launches, real_chunk_check(dev, table, values)
 
 
-def dense_tiles(dev, w, n_slots=N_SLOTS, channels=4, seed=SEED):
+def dense_tiles(dev, w, n_slots=N_SLOTS, channels=4, seed=SEED,
+                planted_frac=0.5):
     """A seeded u16 plane of ``n_slots`` (+ w FP_EMPTY slots) at load 0.6
     and tiles [channels, n_slots] as a dense read set fills them: slot s
     holds Poisson(0.6) distinct queries (channel c used iff more than c),
-    half of them planted a random offset into the window, the rest random;
-    unused cells hold 0."""
+    ``planted_frac`` of them planted a random offset into the window, the
+    rest random; unused cells hold 0."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed + w)
@@ -430,15 +483,40 @@ def dense_tiles(dev, w, n_slots=N_SLOTS, channels=4, seed=SEED):
                           device=dev))
     qv = torch.randint(0, 65535, (channels, n_slots), generator=g,
                        device=dev, dtype=torch.int32)
-    planted = torch.rand((channels, n_slots), generator=g, device=dev) < 0.5
+    planted = (torch.rand((channels, n_slots), generator=g, device=dev)
+               < planted_frac)
     qv = torch.where(planted, raw[at], qv)
     qv = torch.where(used, qv, 0)
     return to_u16(raw), to_u16(qv).contiguous(), used
 
 
+def listed_share(fp, tiles, w):
+    """The share of tile cells that the stream kernel lists to answer by a
+    scan or a table lookup: those whose fingerprint occurs among the plane
+    values staged for their span (stream.SPAN slots and the w - 1 values
+    after them); every other cell's answer is w at once."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.stream import SPAN
+    from kmergutsjava_tpu_torch.lookup.tilejoin import _widen
+
+    c, s = tiles.shape
+    dev = tiles.device
+    span = torch.arange(-(-s // SPAN), device=dev)
+    # the last span stages up to slot s + w - 2; repeating it adds nothing
+    idx = (span[:, None] * SPAN + torch.arange(SPAN + w - 1, device=dev)
+           ).clamp_(max=s + w - 2)
+    keys = torch.unique(span[:, None] * 65536 + _widen(fp)[idx])
+    cell_span = torch.arange(s, device=dev) // SPAN * 65536
+    hits = sum(int(torch.isin(cell_span + _widen(tiles[ch]), keys).sum())
+               for ch in range(c))
+    return hits / (c * s)
+
+
 def check_stream_kernel(dev, label, fp, tiles, w):
-    """The wrapper's packed output against the twin's, every int32, and both
-    times; returns (max_abs_err, kernel_ms, twin_ms)."""
+    """The wrapper's packed output against the twin's, every int32, both
+    times and the share of cells listed; returns (max_abs_err, kernel_ms,
+    twin_ms, bound)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import stream
@@ -451,24 +529,30 @@ def check_stream_kernel(dev, label, fp, tiles, w):
                  dev)
     t_ms = timed(lambda: stream.stream_probe_reference(fp, tiles, w,
                                                        tiles.shape[0]), dev)
+    bnd = bound_stream(tiles.shape[1], tiles.shape[0], w)
     print(f"{label}: w={w} slots={tiles.shape[1]} channels={tiles.shape[0]} "
-          f"max_abs_err={err} kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f}",
-          flush=True)
-    return err, k_ms, t_ms
+          f"max_abs_err={err} kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f} "
+          f"{bound_fields(k_ms, bnd)} "
+          f"listed_cells={listed_share(fp, tiles, w):.5f}", flush=True)
+    return err, k_ms, t_ms, bnd
 
 
 def stream_vs_twin(dev):
-    """Phase 5: {w: (max_abs_err, kernel_ms, twin_ms)}."""
+    """Phase 5: {label: (max_abs_err, kernel_ms, twin_ms, bound)}, at w=24
+    and w=64 with half the used cells planted, and at w=64 with all."""
     import torch
 
     res = {}
-    for w in (24, 64):
-        fp, tiles, used = dense_tiles(dev, w)
+    for label, w, frac in (("w=24", 24, 0.5), ("w=64", 64, 0.5),
+                           ("w=64 all planted", 64, 1.0)):
+        fp, tiles, used = dense_tiles(dev, w, planted_frac=frac)
         per_slot = used.sum(0)
-        print(f"phase 5: w={w} queries_per_slot={float(per_slot.float().mean()):.4f} "
-              f"slots_by_channels_used={torch.bincount(per_slot, minlength=5).tolist()}",
+        print(f"phase 5: {label} queries_per_slot="
+              f"{float(per_slot.float().mean()):.4f} slots_by_channels_used="
+              f"{torch.bincount(per_slot, minlength=5).tolist()}",
               flush=True)
-        res[w] = check_stream_kernel(dev, "phase 5", fp, tiles, w)
+        res[label] = check_stream_kernel(dev, f"phase 5: {label}", fp,
+                                         tiles, w)
         del fp, tiles, used
     return res
 
@@ -546,8 +630,8 @@ def dense_run(dev, work, d, table, genome):
     kernel, two plane passes) and ``--backend pallas`` (the block probe)
     against ``--backend xla`` on the card, then the stream kernel against
     the twin on the tiles of one pass's worth of the real queries (the
-    first input_size_limit). Returns ((max_abs_err, kernel_ms, twin_ms),
-    the block probe's launches, the query values)."""
+    first input_size_limit). Returns ((max_abs_err, kernel_ms, twin_ms,
+    bound), the block probe's launches, the query values)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import stream
@@ -622,11 +706,10 @@ def dense_run(dev, work, d, table, genome):
 
 def block_probe_vs_twin(dev, table, values):
     """Phase 8: the block probe against its twin on the table's plane with
-    the read set's queries, sorted by home on the card as BlockProbeLookup
-    sorts them: first in prepare's order (each answer lands at a random
-    position), then in the bounded-RAM store's (home, value) order, which
-    is how the engine feeds them (the answers land in order). Returns
-    (max_abs_err, kernel_ms, twin_ms), the times of the store's order."""
+    the read set's queries: first in prepare's order (neighbouring queries
+    read windows far apart), then in the bounded-RAM store's (home, value)
+    order, which is how the engine feeds them. Returns (max_abs_err,
+    kernel_ms, twin_ms, bound), the times of the store's order."""
     import numpy as np
     import torch
 
@@ -641,7 +724,7 @@ def block_probe_vs_twin(dev, table, values):
                         ("store", values[np.lexsort((values, homes))])):
         q = torch.from_numpy((vals % FP_MOD).astype(np.uint16)).to(dev)
         h = torch.from_numpy((vals % lk.num_sigs).astype(np.int32)).to(dev)
-        args = (lk.fp, *blockprobe.sorted_args(q, h, lk.nblocks), lk.w)
+        args = (lk.fp, q, h, lk.w)
         off_k, st_k = blockprobe.block_probe(*args)
         off_t, st_t = blockprobe.block_probe_reference(*args)
         torch.cuda.synchronize(dev)
@@ -650,12 +733,14 @@ def block_probe_vs_twin(dev, table, values):
         states = torch.bincount(st_k.long(), minlength=4).tolist()
         k_ms = timed(lambda: blockprobe.block_probe(*args), dev)
         t_ms = timed(lambda: blockprobe.block_probe_reference(*args), dev)
+        bnd = bound_window_probe(lk.fp.numel(), len(vals))
         print(f"phase 8: {label} order w={lk.w} slots={lk.num_sigs} "
-              f"blocks={lk.nblocks} queries={len(vals)} "
+              f"plane_slots={lk.fp.numel()} queries={len(vals)} "
               f"states(0/1/2/3)={states} max_abs_err={err} "
-              f"kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f}", flush=True)
+              f"kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f} "
+              f"{bound_fields(k_ms, bnd)}", flush=True)
         del q, h, args, off_k, st_k, off_t, st_t
-    return err, k_ms, t_ms
+    return err, k_ms, t_ms, bnd
 
 
 def stream_reps_phase(dev):
@@ -663,7 +748,7 @@ def stream_reps_phase(dev):
     operands, then the ported microbenchmark's real-table check and stream
     rows, each row's timed launch held against the twin on its operands.
     Returns (max_abs_err over all of them, kernel_ms and twin_ms at w=24,
-    the rows' launches)."""
+    the rows' launches, the bound at w=24)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import stream
@@ -679,10 +764,11 @@ def stream_reps_phase(dev):
                                                   tiles.shape[0], reps), dev)
     t_ms = timed(lambda: stream.stream_probe_reference(fp, tiles, w,
                                                        tiles.shape[0]), dev)
+    bnd = bound_stream(tiles.shape[1], tiles.shape[0], w, reps)
     print(f"phase 9: w={w} slots={tiles.shape[1]} reps={reps} "
           f"max_abs_err={err} kernel_ms={k_ms:.4f} "
-          f"kernel_ms_per_rep={k_ms / reps:.4f} twin_ms={t_ms:.4f}",
-          flush=True)
+          f"kernel_ms_per_rep={k_ms / reps:.4f} twin_ms={t_ms:.4f} "
+          f"{bound_fields(k_ms, bnd)}", flush=True)
     del fp, tiles, got, want
     check = mb.correctness_on_card(str(dev))
     print(f"phase 9: microbench {json.dumps(check)}", flush=True)
@@ -702,7 +788,7 @@ def stream_reps_phase(dev):
         raise RuntimeError(f"microbench rows (plane MB, reps) {bad}: the "
                            "repetition launch disagrees with the twin")
     return (max([err] + [row["max_abs_err"] for row in rows]), k_ms, t_ms,
-            counts["stream_reps"])
+            counts["stream_reps"], bnd)
 
 
 def planted_tjgather(dev, plane3, ids, cap, seed=SEED):
@@ -733,7 +819,7 @@ def tjgather_phase(dev):
     """Phase 10: the ported sweep's lane-gather section at its defaults (a
     512 MB plane, caps 256 and 512), then the kernel against its twin at
     those shapes on planted operands. Returns (max_abs_err, kernel_ms,
-    twin_ms at the largest cap, the sweep's launches)."""
+    twin_ms and bound at the largest cap, the sweep's launches)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import tjgather
@@ -747,7 +833,7 @@ def tjgather_phase(dev):
           f"{counts['tjgather']}", flush=True)
     check_launches("phase 10 sweep", counts, ("tjgather",))
     plane3, ids = sweep.make_plane(sweep.plane_tiles(cfg["plane_mb"]), dev)
-    err, k_ms, t_ms = 0, 0.0, 0.0
+    err, k_ms, t_ms, bnd = 0, 0.0, 0.0, None
     for cap in cfg["caps"]:
         p3, pk = planted_tjgather(dev, plane3, ids, cap)
         got = tjgather.tjgather_probe(p3, ids, pk)
@@ -758,14 +844,22 @@ def tjgather_phase(dev):
                               .flatten().long(), minlength=3).tolist()
         k = timed(lambda: tjgather.tjgather_probe(p3, ids, pk), dev)
         t = timed(lambda: tjgather.tjgather_reference(p3, ids, pk), dev)
+        bnd = bound_tjgather(p3.numel(), pk.numel())
         print(f"phase 10: plane_mb={cfg['plane_mb']:g} tiles={p3.shape[0]} "
               f"cap={cap} cells={pk.numel()} keys(cand/empty/none)={keys} "
-              f"max_abs_err={e} kernel_ms={k:.4f} twin_ms={t:.4f}",
-              flush=True)
+              f"max_abs_err={e} kernel_ms={k:.4f} twin_ms={t:.4f} "
+              f"{bound_fields(k, bnd)}", flush=True)
         err, k_ms, t_ms = max(err, e), k, t
         del p3, pk, got, want
         torch.cuda.empty_cache()
-    return err, k_ms, t_ms, counts["tjgather"]
+    return err, k_ms, t_ms, counts["tjgather"], bnd
+
+
+def kernel_bound(ms, bnd):
+    """A kernel entry's bound, share and library call (none: no single
+    PyTorch call computes a first-event window probe)."""
+    return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
+            "library_ms": None}
 
 
 def build_kernels():
@@ -821,7 +915,7 @@ def main() -> int:
     chunk = SparseLookup.DEFAULT_CHUNK
     cmp = kernel_vs_twin(dev, ((16, chunk), (16, BIG_QUERIES),
                                (32, BIG_QUERIES), (64, BIG_QUERIES)))
-    for (w, n), (err, _, _) in cmp.items():
+    for (w, n), (err, *_) in cmp.items():
         if err != 0:
             return fail(f"kernel and twin disagree at w={w}, n={n}")
 
@@ -829,31 +923,32 @@ def main() -> int:
         prots = load_proteome()
         sig = corpus_signatures(prots)
         corpus, faa = golden_run(dev, work, prots, sig)
-        big, table, tj_launches, (w1, (err, k_ms, t_ms)) = realistic_run(
-            dev, work, sig, faa)
+        big, table, tj_launches, (w1, (err, k_ms, t_ms, tj_bnd)) = \
+            realistic_run(dev, work, sig, faa)
         if err != 0:
             return fail("kernel and twin disagree on the first dispatch "
                         f"(w={w1})")
         s_cmp = stream_vs_twin(dev)
-        for w, (e, _, _) in s_cmp.items():
+        for label, (e, *_) in s_cmp.items():
             if e != 0:
-                return fail(f"stream kernel and twin disagree at w={w}")
+                return fail(f"stream kernel and twin disagree at {label}")
         genome = write_genome(os.path.join(work, "genome.fna"))
         st_launches = golden_dna_run(work, corpus,
                                      os.path.join(work, "genome.fna"))
-        (s_err, s_ms, s_plain_ms), bp_launches, values = dense_run(
+        (s_err, s_ms, s_plain_ms, s_bnd), bp_launches, values = dense_run(
             dev, work, big, table, genome)
         if s_err != 0:
             return fail("stream kernel and twin disagree on a pass's real "
                         "tiles")
-        bp_err, bp_ms, bp_plain_ms = block_probe_vs_twin(dev, table, values)
+        bp_err, bp_ms, bp_plain_ms, bp_bnd = block_probe_vs_twin(
+            dev, table, values)
         if bp_err != 0:
             return fail("block probe and twin disagree on the read set")
         del values, table
-    r_err, r_ms, r_plain_ms, r_launches = stream_reps_phase(dev)
+    r_err, r_ms, r_plain_ms, r_launches, r_bnd = stream_reps_phase(dev)
     if r_err != 0:
         return fail("the stream kernel's repetition launch and twin disagree")
-    g_err, g_ms, g_plain_ms, g_launches = tjgather_phase(dev)
+    g_err, g_ms, g_plain_ms, g_launches, g_bnd = tjgather_phase(dev)
     if g_err != 0:
         return fail("lane-gather kernel and twin disagree")
 
@@ -863,18 +958,20 @@ def main() -> int:
         "source": "kmergutsjava_tpu_torch/csrc/tilejoin.cu",
         "replaces": "kmergutsjava_tpu/lookup/pallas_tilejoin.py:145",
         "launches": tj_launches,
-        "max_abs_err": max([err] + [e for e, _, _ in cmp.values()]),
+        "max_abs_err": max([err] + [r[0] for r in cmp.values()]),
         "ms": k_ms,
         "plain_ms": t_ms,
+        **kernel_bound(k_ms, tj_bnd),
     }, {
         "name": "stream_probe",
         "route": "cuda",
         "source": "kmergutsjava_tpu_torch/csrc/stream_probe.cu",
         "replaces": "kmergutsjava_tpu/lookup/pallas_stream.py:81",
         "launches": st_launches,
-        "max_abs_err": max([s_err] + [e for e, _, _ in s_cmp.values()]),
+        "max_abs_err": max([s_err] + [r[0] for r in s_cmp.values()]),
         "ms": s_ms,
         "plain_ms": s_plain_ms,
+        **kernel_bound(s_ms, s_bnd),
     }, {
         "name": "block_probe",
         "route": "cuda",
@@ -884,6 +981,7 @@ def main() -> int:
         "max_abs_err": bp_err,
         "ms": bp_ms,
         "plain_ms": bp_plain_ms,
+        **kernel_bound(bp_ms, bp_bnd),
     }, {
         "name": "stream_probe_reps",
         "route": "cuda",
@@ -893,6 +991,7 @@ def main() -> int:
         "max_abs_err": r_err,
         "ms": r_ms,
         "plain_ms": r_plain_ms,
+        **kernel_bound(r_ms, r_bnd),
     }, {
         "name": "tjgather_probe",
         "route": "cuda",
@@ -902,6 +1001,7 @@ def main() -> int:
         "max_abs_err": g_err,
         "ms": g_ms,
         "plain_ms": g_plain_ms,
+        **kernel_bound(g_ms, g_bnd),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

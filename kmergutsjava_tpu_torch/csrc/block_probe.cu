@@ -1,35 +1,47 @@
-// Block-streamed merge-join probe of the u16 fingerprint plane, for Hopper
-// (sm_90a).
+// Window probe of the u16 fingerprint plane with the block probe's
+// encoding, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel kmergutsjava_tpu/lookup/pallas_kernel.py
-// _probe_block_kernel (launched by probe_blocks). The plane is cut into
-// blocks of 2048 slots; queries are sorted by home slot and the queries of
-// block b are [starts[b], starts[b+1]) (CSR). For one query with home h and
-// fingerprint q, over the window fp[h .. h+w-1] (w <= 128):
+// _probe_block_kernel (launched by probe_blocks). For one query with home h
+// and fingerprint q, over the window fp[h .. h+w-1] (w <= 128):
 //   first_cand  = the first offset l with fp[h+l] == q,
 //   first_empty = the first offset l with fp[h+l] == FP_EMPTY,
 //   off   = first_cand if there is one (even after an empty slot), else 0,
 //   state = has_cand + 2 * empty_any, where empty_any is an empty slot
 //           anywhere in the window and has_cand a candidate before the
 //           first empty slot.
-// This is not _first_event's encoding (csrc/tilejoin.cu). A query whose
-// home lies outside its block's 2048 slots is unresolved (state 0, off 0).
-// The answer for sorted query i is written at position order[i], so the
-// caller reads it back in its own query order.
+// This is not _first_event's encoding (csrc/tilejoin.cu). A window that
+// runs off the plane (h < 0 or h + w > plane_len) is unresolved (state 0,
+// off 0), as in the tile-join kernel. Answers are written at the query's
+// own position, so queries come in any order.
 //
-// Bound: device-memory bytes. The plane is read once (2 B a slot, plus a
-// 128-slot halo a block), each query reads 2 + 4 + 8 B (fingerprint, home,
-// order) and writes 2 B at a scattered position. The design: one thread
-// block per plane block stages its 2048 + 128 slots (4.25 KB) in shared
-// memory once, and its threads stride over the block's queries, each
-// scanning its window there. There is no per-block query capacity, so
-// nothing overflows (the TPU kernel's fixed 2176-query tile did). Measured
-// on an H100 80GB HBM3 (700 W) with 22.5M read 8-mers against a 40M-slot
-// plane at w=16, in an order that scatters the answers: 2.0 ms, against
-// 50 ms for the plain twin (PERF.md, Findings); the scattered one-byte
-// stores, not the plane, are the larger cost there. In home order, as the
-// engine feeds it, 0.35 ms, plus 1.4 ms for the caller's device sort; a
-// direct per-query scan with this encoding took 0.39 ms with no sort.
+// What bounds it. The bytes the function needs: each query's fingerprint
+// and home in (6 B), its off and state out (2 B), and the plane once:
+// 260 MB for 22.5M queries against a 40M-slot plane, 0.078 ms at 3.35 TB/s.
+// The TPU kernel's design, ported first (queries sorted by home on the
+// card, a CSR of 2048-slot blocks, one CTA a block), took 0.33 ms in home
+// order plus 1.39 ms for the sort and CSR. A query with no candidate must
+// see its whole window (a candidate after an empty slot still counts), so
+// the window is always read to its end.
+// The design's answer: no sort and no CSR. Each thread takes kQueries
+// consecutive queries in the caller's order: their homes and fingerprints
+// come in as 16- and 8-byte vectors, each window as aligned 16-byte
+// vectors (ceil((w + 7) / 8) cover any w-slot window), compared two slots
+// at a time in registers with an exact test for a zero 16-bit half of
+// word ^ (q * 0x10001) (and of ~word for FP_EMPTY); the per-half flags are
+// gathered into bit masks with a byte permute and one multiply, and the
+// first offsets are __ffs of the masks. Each test stops once its first
+// offset is known; wide windows are walked in pieces of 32 slots. The
+// answers go out as 4-byte stores at the queries' own positions.
+// Measured on an H100 80GB HBM3 (700 W; PERF.md, Findings): 0.29 ms in
+// home order, 0.69 ms in a random order (windows far apart in an 80 MB
+// plane), against 1.72 / 3.68 ms for the sort, CSR and block kernel. What
+// is left is latency: a thread's window loads wait on its homes, and the
+// windows of its queries come one after another; streaming the homes and
+// fingerprints alone, with no window, takes 0.15 ms. More queries a
+// thread, all windows in flight at once, a grid-stride loop that fetches
+// the next query's window ahead, and more CTAs an SM were each measured
+// and were no faster.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libblock_probe.so block_probe.cu
@@ -40,51 +52,182 @@
 
 namespace {
 
-constexpr int kBlock = 2048;  // plane slots a block
-constexpr int kHalo = 128;    // the largest window
+constexpr int kMaxWindow = 128;
 constexpr int kThreads = 256;
-constexpr uint16_t kFpEmpty = 65535;
+constexpr int kFirstVecs = 3;   // loaded first: any window of w <= 17
+constexpr int kQueries = 4;     // queries a thread (a multiple of 4)
+constexpr int kNone = 1 << 30;  // no such offset yet
 
+// Bit 15 (bit 31) set where the low (high) 16-bit half of x is zero: exact
+// per half, since the sum never carries across halves.
+__device__ __forceinline__ uint32_t zero_halves(uint32_t x) {
+  return ~(((x & 0x7FFF7FFFu) + 0x7FFF7FFFu) | x) & 0x80008000u;
+}
+
+// The per-slot flags of one 16-byte vector (8 slots, 4 words; the low half
+// of a word is the lower slot), from zero_halves of each word, as bits 0..7.
+__device__ __forceinline__ uint32_t slot_flags(uint32_t z0, uint32_t z1,
+                                               uint32_t z2, uint32_t z3) {
+  // one byte a slot, 0x80 or 0: slots 0..3 and 4..7
+  const uint32_t a = __byte_perm(z0, z1, 0x7531);
+  const uint32_t b = __byte_perm(z2, z3, 0x7531);
+  // slot k's flag at bit 8k (k < 4) or 8(k - 4) + 4; the multiply moves
+  // them to bits 21..28 in slot order, with no two partial products on
+  // the same bit
+  return (((a >> 7) | (b >> 3)) * 0x00204081u) >> 21 & 0xFFu;
+}
+
+// Plane slots [8k - shift, 8k - shift + 8), as one aligned vector where it
+// lies inside the plane, else slot by slot (0 outside the plane, which no
+// window reads).
+__device__ __forceinline__ uint4 load_vec(const uint16_t* __restrict__ abase,
+                                          int64_t k, int64_t shift,
+                                          int64_t plane_len) {
+  const int64_t lo = 8 * k - shift;
+  if (lo >= 0 && lo + 8 <= plane_len)
+    return __ldg(reinterpret_cast<const uint4*>(abase) + k);
+  uint32_t h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    h[i] = lo + i >= 0 && lo + i < plane_len ? __ldg(abase + 8 * k + i) : 0;
+  return make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16,
+                    h[6] | h[7] << 16);
+}
+
+// Folds one vector into the first offsets: ``at`` is the window offset of
+// its first slot, ``keep`` the slots of it inside the window. Each test
+// runs only until its first offset is known.
+__device__ __forceinline__ void scan_vec(uint4 v, uint32_t qq, uint32_t keep,
+                                         int at, int& fc, int& fe) {
+  if (fc == kNone) {
+    const uint32_t c =
+        slot_flags(zero_halves(v.x ^ qq), zero_halves(v.y ^ qq),
+                   zero_halves(v.z ^ qq), zero_halves(v.w ^ qq)) & keep;
+    if (c) fc = at + __ffs(c) - 1;
+  }
+  if (fe == kNone) {
+    const uint32_t e = slot_flags(zero_halves(~v.x), zero_halves(~v.y),
+                                  zero_halves(~v.z), zero_halves(~v.w)) &
+                       keep;
+    if (e) fe = at + __ffs(e) - 1;
+  }
+}
+
+// The slots of the vector that starts ``from`` slots after the first
+// vector's start that lie in the window [lead, span), as bits 0..7.
+__device__ __forceinline__ uint32_t keep_bits(int from, int lead, int span) {
+  uint32_t keep = 0xFFu;
+  if (from == 0) keep = (keep << lead) & 0xFFu;
+  if (span - from < 8) keep &= (1u << (span - from)) - 1u;
+  return keep;
+}
+
+struct Plane {
+  const uint16_t* abase;  // fp - shift, 16-byte aligned
+  int64_t shift;          // slots of fp before its first aligned vector
+  int64_t len;
+  int32_t w;
+};
+
+// One query's answer; v holds its window's first kFirstVecs vectors
+// (loaded by the caller), the rest is loaded here.
+__device__ __forceinline__ uint32_t answer(const Plane& P, int64_t h,
+                                           uint32_t q, const uint4 (&v)[3]) {
+  const uint32_t qq = q * 0x10001u;
+  const int64_t e0 = h + P.shift;
+  const int lead = static_cast<int>(e0 & 7);
+  const int span = lead + P.w;  // slots from the first vector's start
+  int fc = kNone, fe = kNone;
+#pragma unroll
+  for (int j = 0; j < kFirstVecs; ++j)
+    if (8 * j < span)
+      scan_vec(v[j], qq, keep_bits(8 * j, lead, span), 8 * j - lead, fc,
+               fe);
+  // a wider window: the rest four vectors at a time, loaded together
+  for (int piece = 8 * kFirstVecs;
+       piece < span && (fc == kNone || fe == kNone); piece += 32) {
+    uint4 u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      u[j] = piece + 8 * j < span
+                 ? load_vec(P.abase, (e0 >> 3) + (piece >> 3) + j, P.shift,
+                            P.len)
+                 : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (piece + 8 * j < span)
+        scan_vec(u[j], qq, keep_bits(piece + 8 * j, lead, span),
+                 piece + 8 * j - lead, fc, fe);
+  }
+  const bool cand_any = fc != kNone;
+  const bool empty_any = fe != kNone;
+  const uint32_t off = cand_any ? static_cast<uint32_t>(fc) : 0;
+  const uint32_t state = (cand_any && (!empty_any || fc < fe) ? 1u : 0u) +
+                         (empty_any ? 2u : 0u);
+  return off | state << 8;
+}
+
+// kQueries consecutive queries a thread: their homes and fingerprints
+// come in with a few vector loads, so that enough bytes are in flight for
+// this streaming kernel, then each window in turn. kAligned: the inputs
+// and outputs are aligned for vector loads and stores, which a thread
+// uses when its queries are whole.
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-block_probe_kernel(const uint16_t* __restrict__ fp,
-                   const uint16_t* __restrict__ q_fp,
-                   const int32_t* __restrict__ homes,
-                   const int64_t* __restrict__ starts,
-                   const int64_t* __restrict__ order, int64_t n, int32_t w,
+block_probe_kernel(Plane P, const uint16_t* __restrict__ q_fp,
+                   const int32_t* __restrict__ homes, int64_t n,
                    uint8_t* __restrict__ off, uint8_t* __restrict__ state) {
-  __shared__ uint16_t win[kBlock + kHalo];
-  const int64_t b = blockIdx.x;
-  const int64_t lo = starts[b] < 0 ? 0 : starts[b];
-  const int64_t hi = starts[b + 1] > n ? n : starts[b + 1];
-  if (lo >= hi) return;  // the whole block returns: no barrier is skipped
-  const int64_t base = b * kBlock;
-  // the plane holds nblocks * 2048 + 128 slots (the wrapper checks it)
-  for (int i = threadIdx.x; i < kBlock + kHalo; i += kThreads)
-    win[i] = __ldg(fp + base + i);
-  __syncthreads();
-  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const int64_t local = static_cast<int64_t>(homes[i]) - base;
-    uint8_t o = 0, st = 0;
-    if (local >= 0 && local < kBlock) {
-      const uint16_t want = q_fp[i];
-      const uint16_t* my = win + local;
-      int32_t fc = -1, fe = -1;
-      for (int32_t l = 0; l < w; ++l) {
-        const uint16_t v = my[l];
-        if (fc < 0 && v == want) fc = l;
-        if (fe < 0 && v == kFpEmpty) fe = l;
-        if (fc >= 0 && fe >= 0) break;
-      }
-      const bool cand_any = fc >= 0;
-      const bool empty_any = fe >= 0;
-      const bool has_cand = cand_any && (!empty_any || fc < fe);
-      o = cand_any ? static_cast<uint8_t>(fc) : 0;
-      st = static_cast<uint8_t>(has_cand) + 2 * static_cast<uint8_t>(empty_any);
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kQueries;
+  if (i0 >= n) return;
+  const bool vec = kAligned && i0 + kQueries <= n;
+  int32_t h[kQueries];
+  uint32_t q[kQueries];
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < kQueries; k += 4) {
+      const int4 hv = __ldg(reinterpret_cast<const int4*>(homes + i0 + k));
+      const uint2 qv = __ldg(reinterpret_cast<const uint2*>(q_fp + i0 + k));
+      h[k] = hv.x, h[k + 1] = hv.y, h[k + 2] = hv.z, h[k + 3] = hv.w;
+      q[k] = qv.x & 0xFFFF, q[k + 1] = qv.x >> 16;
+      q[k + 2] = qv.y & 0xFFFF, q[k + 3] = qv.y >> 16;
     }
-    const int64_t at = order[i];
-    if (at >= 0 && at < n) {
-      off[at] = o;
-      state[at] = st;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kQueries; ++k) {
+      h[k] = i0 + k < n ? __ldg(homes + i0 + k) : -1;
+      q[k] = i0 + k < n ? __ldg(q_fp + i0 + k) : 0;
+    }
+  }
+  uint32_t o[kQueries / 4] = {}, st[kQueries / 4] = {};
+#pragma unroll
+  for (int k = 0; k < kQueries; ++k) {
+    // a window that runs off the plane is unresolved: off 0, state 0
+    if (h[k] < 0 || static_cast<int64_t>(h[k]) + P.w > P.len) continue;
+    const int64_t e0 = h[k] + P.shift;
+    const int span = static_cast<int>(e0 & 7) + P.w;
+    uint4 v[kFirstVecs];
+#pragma unroll
+    for (int j = 0; j < kFirstVecs; ++j)
+      v[j] = 8 * j < span ? load_vec(P.abase, (e0 >> 3) + j, P.shift, P.len)
+                          : make_uint4(0, 0, 0, 0);
+    const uint32_t a = answer(P, h[k], q[k], v);
+    o[k / 4] |= (a & 0xFF) << (8 * (k % 4));
+    st[k / 4] |= (a >> 8) << (8 * (k % 4));
+  }
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < kQueries; k += 4) {
+      *reinterpret_cast<uint32_t*>(off + i0 + k) = o[k / 4];
+      *reinterpret_cast<uint32_t*>(state + i0 + k) = st[k / 4];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kQueries; ++k) {
+      if (i0 + k < n) {
+        off[i0 + k] = static_cast<uint8_t>(o[k / 4] >> (8 * (k % 4)));
+        state[i0 + k] = static_cast<uint8_t>(st[k / 4] >> (8 * (k % 4)));
+      }
     }
   }
 }
@@ -93,25 +236,38 @@ block_probe_kernel(const uint16_t* __restrict__ fp,
 
 extern "C" {
 
-// Launches the probe on ``stream``; returns cudaGetLastError() (0 = the
-// launch was accepted). Inputs: the plane fp[plane_len >= nblocks * 2048 +
-// 128]; per sorted query its fingerprint q_fp[n], home homes[n] and output
-// position order[n]; the CSR starts[nblocks + 1]. Outputs off[n] and
-// state[n] (zeroed by the caller: a position no query writes stays 0).
+// Launches the probe on ``stream``; returns a CUDA error code (0 = the
+// launch was accepted). Inputs: the plane fp[plane_len]; per query its
+// fingerprint q_fp[n] and home homes[n], in any order. Outputs off[n] and
+// state[n], at the queries' positions.
 int block_probe(const void* fp, int64_t plane_len, const void* q_fp,
-                const void* homes, const void* starts, int64_t nblocks,
-                const void* order, int64_t n, int32_t w, void* off,
+                const void* homes, int64_t n, int32_t w, void* off,
                 void* state, void* stream) {
-  if (w < 1 || w > kHalo || n < 0 || nblocks < 0 || nblocks >= (1LL << 31) ||
-      plane_len < nblocks * kBlock + kHalo)
+  const auto addr = reinterpret_cast<uintptr_t>(fp);
+  if (w < 1 || w > kMaxWindow || n < 0 || plane_len < 0 || addr % 2)
     return cudaErrorInvalidValue;
-  if (n == 0 || nblocks == 0) return cudaSuccess;
-  block_probe_kernel<<<static_cast<unsigned>(nblocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(fp), static_cast<const uint16_t*>(q_fp),
-      static_cast<const int32_t*>(homes), static_cast<const int64_t*>(starts),
-      static_cast<const int64_t*>(order), n, w, static_cast<uint8_t*>(off),
-      static_cast<uint8_t*>(state));
+  if (n == 0) return cudaSuccess;
+  const int64_t threads = (n + kQueries - 1) / kQueries;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int64_t shift = (addr % 16) / 2;
+  const Plane P{static_cast<const uint16_t*>(fp) - shift, shift, plane_len,
+                w};
+  const auto* q = static_cast<const uint16_t*>(q_fp);
+  const auto* h = static_cast<const int32_t*>(homes);
+  auto* o = static_cast<uint8_t*>(off);
+  auto* s = static_cast<uint8_t*>(state);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(q) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(s) % 4 == 0;
+  if (aligned)
+    block_probe_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               st>>>(P, q, h, n, o, s);
+  else
+    block_probe_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                st>>>(P, q, h, n, o, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,28 +1,26 @@
-"""Block-streamed merge-join probe (the port of the TPU block probe behind
-the ``pallas`` backend): the hand-written CUDA kernel's wrapper, its plain
-PyTorch twin, and ``BlockProbeLookup`` around them.
+"""Window probe with the TPU block probe's encoding (the port of the kernel
+behind the ``pallas`` backend): the hand-written CUDA kernel's wrapper, its
+plain PyTorch twin, and ``BlockProbeLookup`` around them.
 
 Replaces the Pallas TPU kernel ``_probe_block_kernel`` of
 ``kmergutsjava_tpu/lookup/pallas_kernel.py`` (launched there by
 ``probe_blocks``); ``BlockProbeLookup`` is the counterpart of its
-``PallasLookup``. The regime is the reference's sequential table scan:
-queries sorted by home slot are merged into one pass over the fingerprint
-plane, cut into blocks of 2048 slots. For each query the kernel reports, in
-its ``w``-slot window, the first fingerprint candidate and whether an empty
-slot comes first or anywhere (see ``csrc/block_probe.cu`` for the exact
-encoding, which is not the tile-join kernel's). Candidates are verified on
-the host against the full k-mer values; fingerprint collisions that fail
-verification and windows with neither a candidate nor an empty slot take
-the exact backend, the sparse lookup (``lookup/sparse.py``) on the same
-device.
+``PallasLookup``. For each query the kernel reports, in the ``w``-slot
+window of the fingerprint plane from its home slot, the first fingerprint
+candidate and whether an empty slot comes first or anywhere (see
+``csrc/block_probe.cu`` for the exact encoding, which is not the tile-join
+kernel's). Candidates are verified on the host against the full k-mer
+values; fingerprint collisions that fail verification and windows with
+neither a candidate nor an empty slot take the exact backend, the sparse
+lookup (``lookup/sparse.py``) on the same device.
 
-Layout: a flat plane u16 ``[nblocks * 2048 + 128]`` (slots past the table
-hold FP_EMPTY, so a window never wraps) and queries sorted by home with a
-start offset for each block (CSR). The TPU layout's overlapped
-``[nblocks, 1, 2176]`` rows and its 2176-query tiles exist for Mosaic's
-BlockSpec and equal-shape gather; nothing here has a capacity, so nothing
-overflows to the exact backend. The sort runs on the device, and the kernel
-writes each answer at its query's input position.
+Layout: a flat plane u16 ``[num_sigs + 128]`` (slots past the table hold
+FP_EMPTY, so a window never wraps) and the queries' fingerprints and homes
+in the caller's order. The TPU kernel merges home-sorted queries into
+2048-slot plane blocks (overlapped ``[nblocks, 1, 2176]`` rows and
+2176-query tiles, for Mosaic's BlockSpec); on the H100 one thread a query
+reads its own window as aligned 16-byte vectors, so nothing is sorted and
+nothing has a capacity, and each answer lands at its query's position.
 
 The kernel is compiled with nvcc for sm_90a into a plain-C shared library
 on first use and loaded with ctypes; nothing is built or imported for CUDA
@@ -44,8 +42,7 @@ from .sparse import (FP_EMPTY, FP_MOD, SparseLookup, _check_int32_homes,
                      _device_fault, _round_up_pow2, on_stream, owned_stream)
 from .tilejoin import KernelError, _widen, build_cuda_library
 
-BLOCK = 2048  # plane slots a kernel block stages
-HALO = 128    # slots past a block's end: the largest window
+HALO = 128  # slots past the table: the largest window
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "block_probe.cu")
@@ -70,130 +67,82 @@ def load_kernel() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
-        fn.argtypes = [p, i64, p, p, p, i64, p, i64, ctypes.c_int32, p, p, p]
+        fn.argtypes = [p, i64, p, p, i64, ctypes.c_int32, p, p, p]
         _lib = lib
         return lib
 
 
-def block_starts(h_sorted: torch.Tensor, nblocks: int) -> torch.Tensor:
-    """CSR over home-sorted int32 homes: int64 ``[nblocks + 1]``, the queries
-    of block b are ``[starts[b], starts[b + 1])``."""
-    bounds = (torch.arange(nblocks + 1, dtype=torch.int64,
-                           device=h_sorted.device) * BLOCK).clamp_(
-        max=(1 << 31) - 1).to(torch.int32)
-    return torch.searchsorted(h_sorted, bounds)
-
-
-def sorted_args(q_fp: torch.Tensor, homes: torch.Tensor, nblocks: int
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                           torch.Tensor]:
-    """The kernel's query arguments from u16 fingerprints and int32 homes in
-    input order, on their device: (q_sorted, h_sorted, starts, order), the
-    queries stably sorted by home, the CSR of ``block_starts`` and each
-    sorted query's input position."""
-    h_sorted, order = torch.sort(homes, stable=True)
-    q_sorted = q_fp.view(torch.int16)[order].view(torch.uint16)
-    return q_sorted, h_sorted, block_starts(h_sorted, nblocks), order
-
-
 def block_probe_reference(fp: torch.Tensor, q_fp: torch.Tensor,
-                          homes: torch.Tensor, starts: torch.Tensor,
-                          order: torch.Tensor, w: int,
+                          homes: torch.Tensor, w: int,
                           chunk: int = 1 << 18
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of the kernel: a chunked [n, w] gather, compare
-    and min. Sorted query i belongs to the block b with starts[b] <= i <
-    starts[b + 1]; its answer goes to position order[i]. A query whose home
-    lies outside its block's 2048 slots is unresolved (state 0); positions
-    no query writes stay 0. Returns (off u8, state u8) on fp's device."""
+    and min. A window that runs off the plane (home < 0 or home + w >
+    len(fp)) is unresolved (off 0, state 0). Returns (off u8, state u8) in
+    the queries' order on fp's device."""
     n = homes.numel()
-    nblocks = starts.numel() - 1
     dev = fp.device
     off = torch.zeros(n, dtype=torch.uint8, device=dev)
     state = torch.zeros(n, dtype=torch.uint8, device=dev)
-    if n == 0 or nblocks <= 0:
-        return off, state
     plane = fp.view(torch.int16)
     rel = torch.arange(w, dtype=torch.int64, device=dev)
-    inner = starts[1:].contiguous()
-    lo = max(int(starts[0]), 0)
-    hi = min(int(starts[-1]), n)
-    for s in range(lo, hi, chunk):
-        e = min(s + chunk, hi)
-        p = torch.arange(s, e, dtype=torch.int64, device=dev)
-        blk = torch.searchsorted(inner, p, right=True).clamp_(max=nblocks - 1)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
         h = homes[s:e].to(torch.int64)
-        local = h - blk * BLOCK
-        valid = (local >= 0) & (local < BLOCK)
-        idx = torch.where(valid, h, 0)[:, None] + rel
+        valid = (h >= 0) & (h + w <= fp.numel())
+        idx = (torch.where(valid, h, 0)[:, None] + rel).clamp_(
+            max=max(fp.numel() - 1, 0))
         win = plane[idx].to(torch.int32) & 0xFFFF
         fc = torch.where(win == _widen(q_fp[s:e])[:, None], rel, w).min(
             dim=1).values
         fe = torch.where(win == FP_EMPTY, rel, w).min(dim=1).values
-        cand_any = fc < w
-        empty_any = fe < w
+        cand_any = valid & (fc < w)
+        empty_any = valid & (fe < w)
         has_cand = cand_any & (~empty_any | (fc < fe))
-        o = torch.where(valid & cand_any, fc, 0).to(torch.uint8)
-        st = torch.where(valid, has_cand.to(torch.uint8)
-                         + 2 * empty_any.to(torch.uint8), 0).to(torch.uint8)
-        at = order[s:e]
-        ok = (at >= 0) & (at < n)
-        off[at[ok]] = o[ok]
-        state[at[ok]] = st[ok]
+        off[s:e] = torch.where(cand_any, fc, 0).to(torch.uint8)
+        state[s:e] = has_cand.to(torch.uint8) + 2 * empty_any.to(torch.uint8)
     return off, state
 
 
-def _check(fp, q_fp, homes, starts, order, w) -> None:
+def _check(fp, q_fp, homes, w) -> None:
     if not isinstance(w, int) or not 1 <= w <= HALO:
         raise KernelError(f"window {w!r} outside [1, {HALO}]")
     for name, t, dt in (("fp", fp, torch.uint16), ("q_fp", q_fp, torch.uint16),
-                        ("homes", homes, torch.int32),
-                        ("starts", starts, torch.int64),
-                        ("order", order, torch.int64)):
+                        ("homes", homes, torch.int32)):
         if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
             raise KernelError(f"{name} must be a contiguous 1-D {dt} tensor, "
                               f"got {t.dtype} {tuple(t.shape)}")
         if t.device != fp.device:
             raise KernelError(f"{name} is on {t.device}, fp on {fp.device}")
-    n = homes.numel()
-    if q_fp.numel() != n or order.numel() != n:
-        raise KernelError(f"{q_fp.numel()} fingerprints and {order.numel()} "
-                          f"output positions for {n} homes")
-    nblocks = starts.numel() - 1
-    if nblocks < 0 or nblocks >= 1 << 31:
-        raise KernelError(f"{starts.numel()} block starts")
-    if fp.numel() < nblocks * BLOCK + HALO:
-        raise KernelError(f"plane of {fp.numel()} slots is shorter than "
-                          f"{nblocks} blocks of {BLOCK} + {HALO}")
+    if q_fp.numel() != homes.numel():
+        raise KernelError(f"{q_fp.numel()} fingerprints for "
+                          f"{homes.numel()} homes")
+    if -(-homes.numel() // 256) >= 1 << 31:  # grid.x of 256-thread blocks
+        raise KernelError("too many queries for one launch's grid")
 
 
 def block_probe(fp: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,
-                starts: torch.Tensor, order: torch.Tensor, w: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge-join probe of home-sorted queries against the plane's blocks:
-    (off u8, state u8) with sorted query i's answer at position order[i],
-    on the inputs' device. CPU tensors run the plain twin; CUDA tensors
-    launch the kernel on the current stream (or raise KernelError).
-    fp: u16 ``[>= nblocks * 2048 + 128]``; q_fp: u16 [n] and homes: int32
-    [n] in home order; starts: int64 ``[nblocks + 1]``, nondecreasing;
-    order: int64 [n], a permutation (``sorted_args`` forms the four)."""
+                w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Window probe with the block probe's encoding: (off u8, state u8) in
+    the queries' order, on the inputs' device. CPU tensors run the plain
+    twin; CUDA tensors launch the kernel on the current stream (or raise
+    KernelError). fp: u16 plane; q_fp: u16 [n] and homes: int32 [n], in
+    any order."""
     global launches
-    _check(fp, q_fp, homes, starts, order, w)
+    _check(fp, q_fp, homes, w)
     if fp.device.type == "cpu":
-        return block_probe_reference(fp, q_fp, homes, starts, order, w)
+        return block_probe_reference(fp, q_fp, homes, w)
     if fp.device.type != "cuda":
         raise KernelError(f"no block-probe kernel for device {fp.device}")
     n = homes.numel()
-    nblocks = starts.numel() - 1
-    off = torch.zeros(n, dtype=torch.uint8, device=fp.device)
-    state = torch.zeros(n, dtype=torch.uint8, device=fp.device)
-    if n == 0 or nblocks == 0:
+    off = torch.empty(n, dtype=torch.uint8, device=fp.device)
+    state = torch.empty(n, dtype=torch.uint8, device=fp.device)
+    if n == 0:
         return off, state
     lib = load_kernel()
     stream = torch.cuda.current_stream(fp.device).cuda_stream
     rc = lib.block_probe(fp.data_ptr(), fp.numel(), q_fp.data_ptr(),
-                         homes.data_ptr(), starts.data_ptr(), nblocks,
-                         order.data_ptr(), n, w, off.data_ptr(),
+                         homes.data_ptr(), n, w, off.data_ptr(),
                          state.data_ptr(), stream)
     if rc != 0:
         raise KernelError(f"block-probe kernel launch failed: CUDA error {rc}")
@@ -203,13 +152,13 @@ def block_probe(fp: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,
 
 
 class BlockProbeLookup:
-    """Merge-join lookup: the home-sorted query stream against one pass over
-    the device-resident fingerprint plane. Same exact-result contract as the
+    """Window-probe lookup with the block probe's encoding: one launch for
+    the whole query set against the device-resident fingerprint plane. Same exact-result contract as the
     other lookups (differentially tested against ``PallasLookup`` and
     ``lookup/parity.py``).
 
     All device work is issued on one CUDA stream the lookup owns; a torch
-    RuntimeError from upload, sort, launch or read-back becomes a
+    RuntimeError from upload, launch or read-back becomes a
     KernelError.
     """
 
@@ -229,8 +178,7 @@ class BlockProbeLookup:
         self._exact = SparseLookup(table, probe_window=probe_window,
                                    chunk=chunk, device=device)
         self.device = self._exact.device
-        self.nblocks = -(-s // BLOCK)
-        fp = np.full(self.nblocks * BLOCK + HALO, FP_EMPTY, dtype=np.uint16)
+        fp = np.full(s + HALO, FP_EMPTY, dtype=np.uint16)
         occ = table.occupied
         fp[:s][occ] = (table.slots["kmer"][occ] % FP_MOD).astype(np.uint16)
         self._stream = owned_stream(self.device)
@@ -238,20 +186,18 @@ class BlockProbeLookup:
             self.fp = torch.from_numpy(fp).to(self.device)
 
     def _probe(self, q_fp: np.ndarray, homes: np.ndarray):
-        """Upload the queries, sort them by home on the device, run one
-        plane pass and read the answer back in the queries' order: (off,
-        state) numpy u8 arrays."""
+        """Upload the queries, run one launch and read the answer back in
+        the queries' order: (off, state) numpy u8 arrays."""
         with on_stream(self._stream), _device_fault("pass", "block probe"):
             q = torch.from_numpy(q_fp).to(self.device)
             h = torch.from_numpy(homes).to(self.device)
-            off, state = block_probe(self.fp,
-                                     *sorted_args(q, h, self.nblocks), self.w)
+            off, state = block_probe(self.fp, q, h, self.w)
             return off.cpu().numpy(), state.cpu().numpy()
 
     def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,
                progress=None, compute_kmers_found: bool = True
                ) -> LookupHits:
-        """Hits in the queries' input order: one plane pass, host
+        """Hits in the queries' input order: one launch, host
         verification, then the exact backend for the unresolved rest, whose
         metadata overwrites that of its hits."""
         values = np.ascontiguousarray(values, dtype=np.int64)

@@ -19,15 +19,21 @@ and unresolved queries take the exact full-window pass (the JAX package's
 native decode, ``resolve_slots`` + ``emit_hits``).
 
 Layout: plane u16 ``[S + w]`` (S = the slot count padded to a multiple of
-256, then at least ``w`` FP_EMPTY slots), tiles u16 ``[C, S]``, output
+4, then at least ``w`` FP_EMPTY slots), tiles u16 ``[C, S]``, output
 int32 ``[C/4, S]``: one contiguous plane per channel. The native scatter
 (``scatter_chunk``) produces it with ``rows=1, block=S``. The TPU layout's
 overlapped ``[nsuper, ROWS, BLOCK + HALO]`` rows and its bf16 form are
 Mosaic workarounds and are not carried.
 
-The kernel (``csrc/stream_probe.cu``) is compiled with nvcc for sm_90a
-into a plain-C shared library on first use and loaded with ctypes; nothing
-is built or imported for CUDA when this module is imported.
+The kernel (``csrc/stream_probe.cu``) keeps the TPU kernel's output bit for
+bit but not its method: the TPU kernel compares every cell with every
+window offset, which on the H100 is bound by the integer pipe. Each work
+item of the port (a span of ``SPAN`` slots) marks the fingerprints its plane
+values hold in a shared-memory bitmap, answers ``w`` at once for every cell
+whose fingerprint is absent (most of them), and lists the rest, which scan
+their windows, one listed cell a thread. It is compiled with nvcc for sm_90a into
+a plain-C shared library on first use and loaded with ctypes; nothing is
+built or imported for CUDA when this module is imported.
 """
 from __future__ import annotations
 
@@ -47,7 +53,9 @@ from .tilejoin import KernelError, _widen, build_cuda_library
 
 CHANNELS = 4      # query channels per slot (home-collision capacity)
 MAX_WINDOW = 64   # offsets pack bytewise; the kernel's compile-time cap
-SLOT_ALIGN = 256  # slots padded to whole kernel blocks
+SLOT_ALIGN = 4    # slots padded to a multiple of 4 (the kernel's vector
+                  # path; it takes any count)
+SPAN = 1024       # slots a CTA of the kernel owns (kSpan in the source)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "stream_probe.cu")
@@ -126,8 +134,6 @@ def _check(fp, qfp_tiles, w, channels) -> None:
     if fp.numel() < qfp_tiles.shape[1] + w:
         raise KernelError(f"plane of {fp.numel()} slots is shorter than "
                           f"{qfp_tiles.shape[1]} slots + window {w}")
-    if -(-qfp_tiles.shape[1] // SLOT_ALIGN) >= 1 << 31:
-        raise KernelError("too many slots for one launch's grid")
 
 
 def _run(fp, qfp_tiles, w, channels, reps: Optional[int]):
@@ -208,8 +214,9 @@ class StreamLookup:
             table.compute_max_probe()
         self.table = table
         self.num_sigs = s = table.num_sigs
-        # offsets pack into a byte and the kernel caps w at 64; compute is
-        # proportional to w, so round to a multiple of 8, not a power of 2
+        # offsets pack into a byte and the kernel caps w at 64; the scans
+        # of the cells that can match grow with w, so round to a multiple
+        # of 8, not a power of 2
         self.w = min(max(8, -(-table.max_probe // 8) * 8), MAX_WINDOW)
         if table.max_probe > MAX_WINDOW:
             raise ValueError(

@@ -7,8 +7,8 @@ The whole rep loop runs as one launch of the stream kernel with a leading
 repetition grid axis (``stream.stream_probe_reps``), timed with CUDA events
 around that launch after a warm-up launch of the same shape. Operands come
 from a seeded ``torch.Generator`` on the card, with a match planted in half
-the tile cells; the probe's time does not depend much on their contents
-(the kernel scans every window to its end). Each row holds its timed
+the tile cells; the probe's time depends on their contents (cells whose
+fingerprint the plane span holds are listed and scanned or looked up). Each row holds its timed
 launch's output against the plain twin (``stream_probe_reference``) on the
 same operands, so its numbers belong to a launch that was right. The
 real-table check holds the stream lookup (the main path's ``stream_probe``

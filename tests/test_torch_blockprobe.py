@@ -1,8 +1,9 @@
-"""The PyTorch package's merge-join block probe (kmergutsjava_tpu_torch/
-lookup/blockprobe.py, on the CPU through the kernel's plain twin) against
-the JAX package: the twin must give ``probe_blocks``'s (off, state) in
-interpret mode (its tile layout built from the same home-sorted queries)
-cell for cell, and ``BlockProbeLookup`` the hits of ``PallasLookup`` (in
+"""The PyTorch package's block probe (kmergutsjava_tpu_torch/lookup/
+blockprobe.py, on the CPU through the kernel's plain twin) against the JAX
+package: the twin, given queries in any order, must give ``probe_blocks``'s
+(off, state) in interpret mode (its tile layout built from the same queries
+sorted by home, the answers mapped back by the sort's permutation) cell for
+cell, and ``BlockProbeLookup`` the hits of ``PallasLookup`` (in
 interpret mode, in the same input order) and of the parity scan
 ``lookup_stream``, including a block whose queries overflow the TPU tile.
 Exact everywhere: offsets and states are integers, weights are copied
@@ -50,18 +51,12 @@ def _plane_and_queries(nblocks, n, w, seed):
     return fp, qfp, homes.astype(np.int32)
 
 
-def _sorted(qfp, homes):
-    """Home-sorted (stable) tensors as BlockProbeLookup forms them."""
-    q_sorted, h_sorted, _, order = blockprobe.sorted_args(
-        torch.from_numpy(qfp), torch.from_numpy(homes), 1)
-    return q_sorted, h_sorted, order
-
-
 def _jax_probe(fp, q_sorted, h_sorted, nblocks, w):
     """The Pallas kernel in interpret mode on the TPU layout (overlapped
     [nblocks, 1, BLOCK + HALO] plane rows, [nblocks, 1, QCAP] query tiles)
-    built from the same home-sorted queries; answers in sorted order."""
-    h = h_sorted.numpy().astype(np.int64)
+    built from home-sorted queries (numpy arrays); answers in sorted
+    order."""
+    h = h_sorted.astype(np.int64)
     blk = h // BLOCK
     rank = np.arange(len(h)) - np.searchsorted(blk, blk)
     assert rank.max() < QCAP
@@ -69,7 +64,7 @@ def _jax_probe(fp, q_sorted, h_sorted, nblocks, w):
         fp, shape=(nblocks, BLOCK + HALO), strides=(BLOCK * 2, 2)))
     qt = np.full((nblocks, QCAP), FP_EMPTY, np.uint16)
     lt = np.zeros((nblocks, QCAP), np.int32)
-    qt[blk, rank] = q_sorted.numpy()
+    qt[blk, rank] = q_sorted
     lt[blk, rank] = h - blk * BLOCK
     off, state = probe_blocks(fp_blocks[:, None, :], qt[:, None, :],
                               lt[:, None, :], nblocks, w, interpret=True)
@@ -77,40 +72,50 @@ def _jax_probe(fp, q_sorted, h_sorted, nblocks, w):
             np.asarray(state)[:, 0, :][blk, rank])
 
 
+@pytest.mark.parametrize("order", ["random", "home"])
 @pytest.mark.parametrize("w", [8, 16, 32, 64, 128])
-def test_twin_matches_probe_blocks_interpret(w):
+def test_twin_matches_probe_blocks_interpret(w, order):
     nblocks = 3
     fp, qfp, homes = _plane_and_queries(nblocks, 4000, w, seed=w)
-    q_sorted, h_sorted, order = _sorted(qfp, homes)
-    starts = blockprobe.block_starts(h_sorted, nblocks)
-    off, state = blockprobe.block_probe(torch.from_numpy(fp), q_sorted,
-                                        h_sorted, starts, order, w)
-    j_off, j_state = _jax_probe(fp, q_sorted, h_sorted, nblocks, w)
-    o = order.numpy()
-    np.testing.assert_array_equal(off.numpy()[o], j_off)
-    np.testing.assert_array_equal(state.numpy()[o], j_state)
+    if order == "home":
+        p = np.argsort(homes, kind="stable")
+        qfp, homes = qfp[p], homes[p]
+    off, state = blockprobe.block_probe(torch.from_numpy(fp),
+                                        torch.from_numpy(qfp),
+                                        torch.from_numpy(homes), w)
+    perm = np.argsort(homes, kind="stable")
+    j_off, j_state = _jax_probe(fp, qfp[perm], homes[perm], nblocks, w)
+    np.testing.assert_array_equal(off.numpy()[perm], j_off)
+    np.testing.assert_array_equal(state.numpy()[perm], j_state)
     st = state.numpy()
     assert {0, 1, 2, 3} <= set(st.tolist())
     # a candidate reported after an empty slot: off > 0 with has_cand unset
     assert ((st == 2) & (off.numpy() > 0)).any()
 
 
-def test_block_starts_and_twin_chunking():
-    """The CSR splits the sorted homes at block bounds, and chunk
-    boundaries change nothing."""
-    nblocks = 4
-    fp, qfp, homes = _plane_and_queries(nblocks, 3000, 16, seed=2)
-    q_sorted, h_sorted, order = _sorted(qfp, homes)
-    starts = blockprobe.block_starts(h_sorted, nblocks)
-    h = h_sorted.numpy()
-    want = np.searchsorted(h, np.arange(nblocks + 1) * BLOCK)
-    np.testing.assert_array_equal(starts.numpy(), want)
-    fp_t = torch.from_numpy(fp)
-    a = blockprobe.block_probe_reference(fp_t, q_sorted, h_sorted, starts,
-                                         order, 16)
-    b = blockprobe.block_probe_reference(fp_t, q_sorted, h_sorted, starts,
-                                         order, 16, chunk=333)
+def test_twin_chunking():
+    """Chunk boundaries change nothing."""
+    fp, qfp, homes = _plane_and_queries(4, 3000, 16, seed=2)
+    args = [torch.from_numpy(a) for a in (fp, qfp, homes)]
+    a = blockprobe.block_probe_reference(*args, 16)
+    b = blockprobe.block_probe_reference(*args, 16, chunk=333)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_off_plane_window_is_unresolved():
+    """A window that runs off the plane (home < 0 or home + w past its end)
+    gives (off 0, state 0), never an index error; the last window that
+    fits is answered."""
+    w = 32
+    fp, qfp, homes = _plane_and_queries(1, 50, w, seed=3)
+    n = len(fp)
+    homes[:5] = [-1, n - w + 1, n - 1, n, 1 << 30]
+    homes[5] = n - w
+    qfp[5] = fp[n - 1]
+    off, state = blockprobe.block_probe_reference(
+        *[torch.from_numpy(a) for a in (fp, qfp, homes)], w)
+    assert off[:5].tolist() == [0] * 5 and state[:5].tolist() == [0] * 5
+    assert int(state[5]) != 0
 
 
 def _tables(seed, n_sigs, load):
@@ -138,7 +143,7 @@ def test_lookup_matches_pallas_lookup_and_parity(seed, load, nq):
     values, cnt, pos = make_queries(rng, sig["kmers"], nq)
     lk = BlockProbeLookup(port_t, device="cpu")
     jlk = PallasLookup(jax_t)
-    assert lk.w == jlk.w and lk.nblocks == jlk.nblocks
+    assert lk.w == jlk.w
     got = lk.lookup(values, cnt, pos)
     assert len(got) > 0
     _in_order(got, jlk.lookup(values, cnt, pos))
@@ -186,11 +191,10 @@ def test_empty_query_set():
     want = PallasLookup(jax_t).lookup(z, z, z)
     assert len(got) == len(want) == 0
     assert got.kmers_found == want.kmers_found
-    e = torch.zeros(0, dtype=torch.int64)
     off, state = blockprobe.block_probe(
         torch.zeros(BLOCK + HALO, dtype=torch.uint16),
         torch.zeros(0, dtype=torch.uint16), torch.zeros(0, dtype=torch.int32),
-        torch.zeros(2, dtype=torch.int64), e, 16)
+        16)
     assert off.numel() == state.numel() == 0
 
 

@@ -1,7 +1,7 @@
 """The PyTorch package's kernel wrappers and their plain twins (the
 tile-join probe B1, kmergutsjava_tpu_torch/lookup/tilejoin.py; the stream
-probe B2 and its repetition launch B5, lookup/stream.py; the merge-join
-block probe B3, lookup/blockprobe.py; the lane-gather probe B4,
+probe B2 and its repetition launch B5, lookup/stream.py; the block
+probe B3, lookup/blockprobe.py; the lane-gather probe B4,
 lookup/tjgather.py), without JAX, so the file also runs on a GPU machine
 that has no JAX: there, from the repository root,
 
@@ -211,12 +211,79 @@ def test_stream_wrapper_rejects_bad_inputs(bad):
         stream.stream_probe(fp, tiles, w, c)
 
 
+SPAN = 1024  # slots a CTA of the stream kernel owns (csrc/stream_probe.cu)
+
+
+def _stream_adversarial(case):
+    """Operands at the stream kernel's edges: (fp, tiles, w, channels).
+
+    ragged: a slot count that is neither a multiple of the span nor of 4
+    (the scalar path); span_edge: matches at offset w - 1 whose windows
+    cross into the next span; zero_and_empty: fingerprints 0 and 65535 in
+    both the plane and the tiles; all_channels: slots whose four channels
+    all match; all_scan: a plane that holds 0 in every span, so every
+    unused cell is a scan; unaligned: the plane as a view that is not
+    16-byte aligned (the scalar path)."""
+    rng = np.random.default_rng(len(case))
+    w, c, n = 64, 4, 2 * SPAN + 100
+    if case == "ragged":
+        w, c, n = 24, 8, 3 * SPAN + 3
+    fp = rng.integers(0, 65536, n + w).astype(np.uint16)
+    fp[rng.random(n + w) < 0.35] = FP_EMPTY
+    fp[n:] = FP_EMPTY
+    tiles = rng.integers(0, 65536, (c, n)).astype(np.uint16)
+    tiles[rng.random((c, n)) < 0.5] = 0
+    at = np.arange(n) + rng.integers(0, w, (c, n))
+    planted = rng.random((c, n)) < 0.3
+    tiles[planted] = fp[at[planted]]
+    if case == "span_edge":
+        for s in (SPAN - 1, SPAN - w // 2, 2 * SPAN - 1):
+            v = 40000 + s
+            fp[s:s + w][fp[s:s + w] == v] = 1
+            fp[s + w - 1] = v
+            tiles[:, s] = v
+    elif case == "zero_and_empty":
+        fp[rng.random(n + w) < 0.05] = 0
+        tiles[rng.random((c, n)) < 0.1] = FP_EMPTY
+    elif case == "all_channels":
+        for s in range(0, n, 7):
+            tiles[:, s] = fp[s + np.arange(c) * (w // c)]
+    elif case == "all_scan":
+        fp[::SPAN // 2] = 0
+        tiles[:] = 0
+        tiles[:, ::5] = fp[np.arange(0, n, 5)]
+    fp_t = torch.from_numpy(fp)
+    if case == "unaligned":
+        fp_t = torch.cat([torch.zeros(1, dtype=torch.uint16), fp_t])[1:]
+    return fp_t, torch.from_numpy(tiles), w, c
+
+
+STREAM_CASES = ["ragged", "span_edge", "zero_and_empty", "all_channels",
+                "all_scan", "unaligned"]
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_stream_twin_on_adversarial_operands(case):
+    """The twin gives, on each edge case, the first offset of every cell's
+    fingerprint in its window, or w (a brute-force numpy scan)."""
+    fp, tiles, w, c = _stream_adversarial(case)
+    got = _unpack(stream.stream_probe_reference(fp, tiles, w, c), c)
+    f, t = fp.numpy(), tiles.numpy()
+    n = t.shape[1]
+    want = np.full(t.shape, w)
+    for l in reversed(range(w)):
+        want = np.where(f[l:l + n][None, :] == t, l, want)
+    np.testing.assert_array_equal(got, want)
+    if case == "span_edge":
+        assert (got[:, SPAN - 1] == w - 1).all()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,channels", [(8, 4), (24, 4), (64, 4), (24, 8),
-                                        (64, 8)])
+@pytest.mark.parametrize("channels", [4, 8])
+@pytest.mark.parametrize("w", [1, 8, 16, 24, 63, 64])
 def test_cuda_stream_kernel_matches_twin(cuda_device, w, channels):
     """B2 against its twin on the card, every int32 equal; the slot count is
-    not a multiple of the kernel's block, so the ragged tail is covered."""
+    not a multiple of the kernel's span, so the ragged tail is covered."""
     fp, tiles = _stream_inputs(300_001, w, channels, seed=w + channels)
     want = stream.stream_probe_reference(fp, tiles, w, channels)
     before = stream.launches
@@ -224,6 +291,25 @@ def test_cuda_stream_kernel_matches_twin(cuda_device, w, channels):
                               channels)
     torch.cuda.synchronize()
     assert stream.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_cuda_stream_kernel_adversarial(cuda_device, case):
+    """B2 against its twin on the card on each edge case, every int32
+    equal."""
+    fp, tiles, w, c = _stream_adversarial(case)
+    want = stream.stream_probe_reference(fp, tiles, w, c)
+    fp_d = torch.empty(fp.numel() + 1, dtype=torch.uint16,
+                       device=cuda_device)
+    if case == "unaligned":  # keep the view's misalignment on the card
+        fp_d[1:] = fp.to(cuda_device)
+        fp_d = fp_d[1:]
+    else:
+        fp_d = fp.to(cuda_device)
+    got = stream.stream_probe(fp_d, tiles.to(cuda_device), w, c)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
 
 
@@ -272,7 +358,7 @@ def test_stream_reps_cpu_runs_twin_and_counts_no_launch(reps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,reps", [(16, 1), (24, 4), (64, 3)])
+@pytest.mark.parametrize("w,reps", [(16, 1), (24, 4), (64, 3), (64, 1)])
 def test_cuda_stream_reps_matches_twin(cuda_device, w, reps):
     """B5: one launch of ``reps`` plane passes gives the twin's output,
     counted in ``reps_launches`` and not in ``launches``."""
@@ -287,24 +373,23 @@ def test_cuda_stream_reps_matches_twin(cuda_device, w, reps):
     assert torch.equal(got.cpu(), want)
 
 
-BLOCK = blockprobe.BLOCK
-
-
-def _block_inputs(nblocks, n, w, seed):
-    """A plane of ``nblocks`` blocks + halo (empties except in its last
-    fifth, so full windows occur) and ``n`` queries homed in the blocks,
-    half planted, sorted by home as BlockProbeLookup sorts them: (fp,
-    q_sorted, h_sorted, starts, order) tensors."""
-    fp = _plane(nblocks * BLOCK + blockprobe.HALO, seed)
-    qfp, homes = _queries(fp[:nblocks * BLOCK], n, w, seed + 1)
-    homes[:4] = nblocks * BLOCK - 1 - np.arange(4)  # the last block's end
-    return (torch.from_numpy(fp),
-            *blockprobe.sorted_args(torch.from_numpy(qfp),
-                                    torch.from_numpy(homes), nblocks))
+def _block_inputs(n_slots, n, w, seed, order="random"):
+    """A plane of ``n_slots`` + HALO slots (empties except in its last fifth,
+    so full windows occur) and ``n`` queries homed in its first ``n_slots``,
+    half planted, four of them in the last slots (windows reaching into the
+    padding); in random order, or sorted by home (``order="home"``) as the
+    bounded-RAM store feeds them: (fp, q_fp, homes) tensors."""
+    fp = _plane(n_slots + blockprobe.HALO, seed)
+    qfp, homes = _queries(fp[:n_slots], n, w, seed + 1)
+    homes[:4] = n_slots - 1 - np.arange(4)
+    if order == "home":
+        p = np.argsort(homes, kind="stable")
+        qfp, homes = qfp[p], homes[p]
+    return [torch.from_numpy(a) for a in (fp, qfp, homes)]
 
 
 def test_block_probe_cpu_wrapper_runs_twin_and_counts_no_launch():
-    args = _block_inputs(3, 2000, 16, seed=40)
+    args = _block_inputs(6000, 2000, 16, seed=40)
     before = blockprobe.launches
     off, state = blockprobe.block_probe(*args, 16)
     assert blockprobe.launches == before
@@ -314,11 +399,11 @@ def test_block_probe_cpu_wrapper_runs_twin_and_counts_no_launch():
 
 
 def test_block_probe_twin_contract():
-    """Each answer, at its query's input position, is the window's first
+    """Each answer, at its query's position, is the window's first
     candidate offset (even after an empty slot) and has_cand +
     2 * empty_any, with has_cand a candidate before the first empty."""
-    fp, q, h, starts, order = _block_inputs(2, 1500, 32, seed=41)
-    off, state = blockprobe.block_probe_reference(fp, q, h, starts, order, 32)
+    fp, q, h = _block_inputs(4000, 1500, 32, seed=41)
+    off, state = blockprobe.block_probe_reference(fp, q, h, 32)
     f = fp.numpy()
     for i in range(0, 1500, 7):
         win = f[int(h[i]):int(h[i]) + 32]
@@ -327,56 +412,80 @@ def test_block_probe_twin_contract():
         fc = cand[0] if len(cand) else None
         fe = emp[0] if len(emp) else None
         has = fc is not None and (fe is None or fc < fe)
-        at = int(order[i])
-        assert int(off[at]) == (fc if fc is not None else 0)
-        assert int(state[at]) == int(has) + 2 * (fe is not None)
+        assert int(off[i]) == (fc if fc is not None else 0)
+        assert int(state[i]) == int(has) + 2 * (fe is not None)
 
 
-@pytest.mark.parametrize("bad", ["w0", "w129", "homes_i64", "order_i32",
-                                 "short_plane", "length"])
+@pytest.mark.parametrize("bad", ["w0", "w129", "homes_i64", "q_fp_i16",
+                                 "strided", "length"])
 def test_block_probe_wrapper_rejects_bad_inputs(bad):
-    fp = torch.zeros(2 * BLOCK + 128, dtype=torch.uint16)
+    fp = torch.zeros(2000, dtype=torch.uint16)
     q = torch.zeros(10, dtype=torch.uint16)
     h = torch.zeros(10, dtype=torch.int32)
-    starts = torch.tensor([0, 10, 10], dtype=torch.int64)
-    order = torch.arange(10)
     w = {"w0": 0, "w129": 129}.get(bad, 16)
     if bad == "homes_i64":
         h = h.to(torch.int64)
-    elif bad == "order_i32":
-        order = order.to(torch.int32)
-    elif bad == "short_plane":
-        fp = fp[:2 * BLOCK + 127]
-    elif bad == "length":
-        order = order[:9]
+    elif bad == "q_fp_i16":
+        q = q.view(torch.int16)
+    elif bad == "strided":
+        h = torch.zeros(20, dtype=torch.int32)[::2]
+    elif bad == "length":  # fingerprints and homes disagree in length
+        q = q[:9]
     with pytest.raises(tilejoin.KernelError):
-        blockprobe.block_probe(fp, q, h, starts, order, w)
+        blockprobe.block_probe(fp, q, h, w)
+
+
+def _offset_view(t, lead, device):
+    """``t`` on ``device`` as a view that starts ``lead`` elements into its
+    allocation, so it is not aligned for vector loads."""
+    buf = torch.empty(t.numel() + lead, dtype=t.dtype, device=device)
+    buf[lead:] = t.to(device)
+    return buf[lead:]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("order", ["random", "home", "unaligned"])
 @pytest.mark.parametrize("w", [8, 16, 128])
-def test_cuda_block_probe_matches_twin(cuda_device, w):
+def test_cuda_block_probe_matches_twin(cuda_device, w, order):
     """B3 against its twin on the card, every (off, state) equal, with
-    homes in the last block whose windows reach into the halo."""
-    args = _block_inputs(150, 300_000, w, seed=w)
-    want = blockprobe.block_probe_reference(*args, w)
+    homes at the plane's start, homes in the last slots whose windows reach
+    into the padding or end the plane, and homes whose windows run off the
+    plane (one of them the largest int32, where home + w overflows 32
+    bits). unaligned: random order, a query count that is not a multiple
+    of 4, the plane a view a few slots past a 16-byte boundary (its first
+    and last vectors are read slot by slot), and the fingerprints and homes
+    views one element past theirs (the kernel's scalar path)."""
+    n = 300_001 if order == "unaligned" else 300_000
+    fp, q, h = _block_inputs(300_000, n, w, seed=w, order=order)
+    h[4:9] = torch.tensor([0, 1, 2, 7, fp.numel() - w], dtype=torch.int32)
+    h[-4:] = torch.tensor([-5, fp.numel() - w + 1, 1 << 30, 2**31 - 1],
+                          dtype=torch.int32)
+    want = blockprobe.block_probe_reference(fp, q, h, w)
+    if order == "unaligned":
+        lead = {8: 3, 16: 1, 128: 7}[w]
+        args = [_offset_view(fp, lead, cuda_device),
+                _offset_view(q, 1, cuda_device),
+                _offset_view(h, 1, cuda_device)]
+        assert args[0].data_ptr() % 16 == 2 * lead
+    else:
+        args = [a.to(cuda_device) for a in (fp, q, h)]
     before = blockprobe.launches
-    got = blockprobe.block_probe(*[a.to(cuda_device) for a in args], w)
+    got = blockprobe.block_probe(*args, w)
     torch.cuda.synchronize()
     assert blockprobe.launches == before + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+    assert (want[1][-4:] == 0).all()
+    assert set(want[1].tolist()) == {0, 1, 2, 3}
 
 
 @pytest.mark.cuda
 def test_cuda_block_probe_empty_launch(cuda_device):
-    e = torch.zeros(0, dtype=torch.int64, device=cuda_device)
     before = blockprobe.launches
     off, state = blockprobe.block_probe(
-        torch.zeros(BLOCK + 128, dtype=torch.uint16, device=cuda_device),
+        torch.zeros(256, dtype=torch.uint16, device=cuda_device),
         torch.zeros(0, dtype=torch.uint16, device=cuda_device),
-        torch.zeros(0, dtype=torch.int32, device=cuda_device),
-        torch.zeros(2, dtype=torch.int64, device=cuda_device), e, 16)
+        torch.zeros(0, dtype=torch.int32, device=cuda_device), 16)
     torch.cuda.synchronize()
     assert off.numel() == state.numel() == 0
     assert blockprobe.launches == before
@@ -384,8 +493,8 @@ def test_cuda_block_probe_empty_launch(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_block_probe_lookup_matches_cpu(cuda_device):
-    """BlockProbeLookup on the card (device sort, one launch, the sparse
-    lookup as its exact rest) gives the CPU twin's hits in input order."""
+    """BlockProbeLookup on the card (one launch, the sparse lookup as its
+    exact rest) gives the CPU twin's hits in input order."""
     from kmergutsjava_tpu_torch.constants import MAX_ENCODED
     from kmergutsjava_tpu_torch.formats.kmer_table import build_table
     from kmergutsjava_tpu_torch.lookup.blockprobe import BlockProbeLookup

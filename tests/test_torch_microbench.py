@@ -64,8 +64,8 @@ def test_stream_reps_matches_jax_microbench_interpret(w):
 def test_microbench_operands_plant_matches():
     """Half the tile cells of a row hold a plane value from their window, so
     the twin that each row is held against answers more than ``w``."""
-    fp, tiles = microbench_probe.stream_operands(3000, device="cpu")
-    assert tiles.shape == (stream.CHANNELS, 3072) and fp.numel() == 3072 + 16
+    fp, tiles = microbench_probe.stream_operands(3001, device="cpu")
+    assert tiles.shape == (stream.CHANNELS, 3004) and fp.numel() == 3004 + 16
     first = stream.stream_probe_reference(fp, tiles, 16).view(
         torch.uint8).reshape(-1).long()
     share = float((first < 16).float().mean())

@@ -241,7 +241,7 @@ def test_native_scatter_layout_invariants():
     values[::3] = values[2]
     tiles, homes, flat, shift = lk._scatter_native(lib, values)
     assert tiles.shape == (lk.channels, lk.slots)
-    assert lk.slots % 256 == 0 and lk.slots >= port_t.num_sigs
+    assert lk.slots % stream.SLOT_ALIGN == 0 and lk.slots >= port_t.num_sigs
     np.testing.assert_array_equal(homes, values % port_t.num_sigs)
     ok = shift >= 0
     np.testing.assert_array_equal(flat[ok] % lk.slots, homes[ok])
