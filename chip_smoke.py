@@ -12,10 +12,12 @@ failure and then prints no result):
    csrc/tjgather.cu, one nvcc each, started together) for sm_90a;
 2. the tile-join kernel against its plain PyTorch twin on the card: a
    seeded 40M-slot fingerprint plane at load 0.6 with planted empties,
-   queried (half planted hits) at the main path's launch shape (2^19
-   queries, the engine's DEFAULT_CHUNK, at w=16) and with 4M queries at
-   windows 16, 32 and 64; every query's (off, state) must be equal; both
-   times are printed;
+   queried (half planted hits) at the main path's launch shape (eight
+   dispatches of 2^19 queries, the engine's DEFAULT_CHUNK, at w=16,
+   launched in turn; the kernel's device time a chunk from a torch.profiler
+   trace, and the wrapper's time a call) and with 4M queries in one launch
+   at windows 16, 32 and 64 (CUDA events); every query's (off, state) must
+   be equal; the twin's time is printed too;
 3. golden: the CLI (``-a -D -q -o --device cuda``) on the E. coli K-12
    proteome (13,645 proteins) against the corpus table must reproduce
    tests/data/golden_aa_full.txt.gz byte for byte, with ``auto`` (dense
@@ -28,7 +30,10 @@ failure and then prints no result):
    queried with the whole proteome on cuda and then on cpu; the two reports
    must be byte-identical. Phase times and query rates are printed. Then
    the kernel is held against the twin on that table's plane and pass-1
-   window with the proteome's first dispatch of queries;
+   window at the engine's own launches: the proteome's eight dispatches,
+   uploaded and launched in order by SparseLookup, each launch's device
+   time from a torch.profiler trace (the L2 flushed before each run of
+   the eight), and the wrapper's time a call back to back (``call_ms``);
 5. the stream kernel against its plain PyTorch twin on the card: a seeded
    40M-slot plane at load 0.6 with tiles filled as a dense read set fills
    them (Poisson(0.6) distinct queries a slot, so some slots use all 4
@@ -79,9 +84,10 @@ name, source, the TPU kernel it replaces, its launches on its path (phase
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
-first dispatch, phase 7's pass, phases 8, 9 and 10), the bound and share
-at those shapes, and ``library_ms`` null (no single PyTorch call computes
-a first-event window probe); the last line is
+device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
+phase 7's pass; phases 8, 9 and 10), the bound and share at those shapes,
+and ``library_ms`` null (no single PyTorch call computes a first-event
+window probe); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import contextlib
@@ -208,6 +214,79 @@ def timed(fn, dev, reps=5):
     return start.elapsed_time(end) / reps
 
 
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def kernel_device_ms(run, dev, marker, reps=5):
+    """Device milliseconds of each kernel whose name holds ``marker``, in
+    the order one ``run()`` launches them, averaged over ``reps`` runs:
+    the kernel events (CUPTI's device timestamps) of a torch.profiler
+    trace, read from its Chrome trace as chip_profile.py reads it. Before
+    each run a 256 MB write evicts the L2 and the card is synchronised, so
+    each run starts as cold as the engine's first chunk and its launches
+    overlap nothing. ``run()`` launches no other kernel, so the flush
+    kernels (an add over the buffer) split the trace into runs on the
+    device's own clock. The tracer can drop a kernel's record: a run that
+    does not show the most common count is left out, and a trace that
+    keeps fewer than half of the runs is taken again (three traces at
+    most). Returns (the milliseconds, the number of runs kept)."""
+    import torch
+
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    run()  # warm-up
+    torch.cuda.synchronize(dev)
+    for attempt in range(3):
+        try:
+            return _traced_runs(run, dev, marker, reps, flush)
+        except RuntimeError as ex:
+            print(f"kernel_device_ms: trace {attempt + 1} of 3: {ex}",
+                  flush=True)
+    raise RuntimeError(f"no whole trace of *{marker}* kernels in 3 tries")
+
+
+def _traced_runs(run, dev, marker, reps, flush):
+    """One torch.profiler trace of ``reps`` flushed runs; see
+    kernel_device_ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.add_(1)  # a kernel (a fill can become a memset)
+            torch.cuda.synchronize(dev)
+            run()
+            torch.cuda.synchronize(dev)
+    with tempfile.TemporaryDirectory(prefix="kmer_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            kernels = sorted((e["ts"], e["dur"], marker in e.get("name", ""))
+                             for e in json.load(fh)["traceEvents"]
+                             if e.get("ph") == "X"
+                             and e.get("cat") in ("kernel", "gpu_memset"))
+    per_run = []
+    for _, dur, mine in kernels:
+        if not mine:  # a flush: the next run starts
+            per_run.append([])
+        elif per_run:
+            per_run[-1].append(dur)
+    counts = [len(r) for r in per_run]
+    k = max(set(counts), key=counts.count, default=0)
+    whole = [r for r in per_run if len(r) == k]
+    if k == 0 or 2 * len(whole) < reps:
+        raise RuntimeError(f"the trace holds runs of {counts} kernels "
+                           f"named *{marker}* for {reps} runs")
+    return [sum(r[i] for r in whole) / len(whole) / 1000.0
+            for i in range(k)], len(whole)
+
+
+def chunk_spans(n, chunk):
+    """The engine's dispatches of ``n`` queries: ``chunk`` each, in order,
+    the rest last (as StreamingLookup forms them)."""
+    return [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+
+
 def synthetic_probe(dev, w, n_queries, n_slots=N_SLOTS, seed=SEED):
     """A seeded u16 plane of ``n_slots`` (+ w slots of padding) at load 0.6
     with planted empties, its last fifth full (so full windows occur), and
@@ -257,12 +336,80 @@ def check_kernel(dev, label, fp, q_fp, homes, w):
     return err, k_ms, t_ms, bnd
 
 
+def check_chunks(dev, label, fp, w, chunks, run, chunk):
+    """The kernel against the twin at the engine's dispatches: ``run()``
+    launches one kernel for each of ``chunks`` ((q_fp, homes) on the card,
+    ``chunk`` queries each but the last) in order and returns their (off,
+    state) answers. Every answer is held against the twin; then the device
+    time of each launch (kernel_device_ms) and the wrapper's time a call,
+    back to back on the same chunks (CUDA events: the host's work around
+    the launch included). Prints and returns (max_abs_err, device ms of a
+    full chunk, twin_ms, bound of a full chunk, call_ms)."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import tilejoin
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    err, states = 0, np.zeros(3, np.int64)
+    for (q, h), (off, st) in zip(chunks, run()):
+        off_t, st_t = tilejoin.first_event_reference(fp, q, h, w)
+        err = max(err, int(np.abs(host(off).astype(np.int64)
+                                  - host(off_t)).max()),
+                  int(np.abs(host(st).astype(np.int64)
+                             - host(st_t)).max()))
+        states += np.bincount(host(st), minlength=3)
+    reps = 5
+    ms, kept = kernel_device_ms(run, dev, "first_event", reps)
+    full = [m for m, (_, h) in zip(ms, chunks) if h.numel() == chunk]
+    k_ms = sum(full) / len(full)
+    call_ms = timed(lambda: [tilejoin.tilejoin_probe(fp, q, h, w)
+                             for q, h in chunks], dev) / len(chunks)
+    t_ms = timed(lambda: tilejoin.first_event_reference(fp, *chunks[0], w),
+                 dev)
+    bnd = bound_window_probe(fp.numel(), chunk)
+    print(f"{label}: w={w} slots={fp.numel() - w} queries="
+          f"{sum(h.numel() for _, h in chunks)} chunks={len(chunks)} of "
+          f"{chunk} states(0/1/2)={states.tolist()} max_abs_err={err} "
+          f"device_ms_full_chunk={k_ms:.5f} runs_kept={kept}/{reps} "
+          f"device_ms_by_chunk="
+          f"{[round(m, 5) for m in ms]} call_ms={call_ms:.5f} "
+          f"twin_ms={t_ms:.4f} {bound_fields(k_ms, bnd)}", flush=True)
+    return err, k_ms, t_ms, bnd, call_ms
+
+
+def synthetic_chunks(dev, w, chunk, count=8):
+    """Phase 2's engine-shaped case: ``count`` dispatches of ``chunk``
+    queries on the synthetic plane, each launched once by the wrapper in
+    order. Returns check_chunks' result."""
+    from kmergutsjava_tpu_torch.lookup import tilejoin
+
+    fp, q_fp, homes = synthetic_probe(dev, w, count * chunk)
+    chunks = [(q_fp[s:e], homes[s:e])
+              for s, e in chunk_spans(homes.numel(), chunk)]
+    return check_chunks(
+        dev, "phase 2", fp, w, chunks,
+        lambda: [tilejoin.tilejoin_probe(fp, q, h, w) for q, h in chunks],
+        chunk)
+
+
 def kernel_vs_twin(dev, cases):
     """Phase 2: {(w, n_queries): (max_abs_err, kernel_ms, twin_ms,
-    bound)}."""
-    return {(w, n): check_kernel(dev, "phase 2", *synthetic_probe(dev, w, n),
-                                 w)
-            for w, n in cases}
+    bound)}; the case of the engine's chunk size runs eight dispatches of
+    it (synthetic_chunks, device time a chunk), the others one launch each
+    (check_kernel, CUDA events)."""
+    from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
+
+    out = {}
+    for w, n in cases:
+        if n == SparseLookup.DEFAULT_CHUNK:
+            out[w, n] = synthetic_chunks(dev, w, n)[:4]
+        else:
+            out[w, n] = check_kernel(dev, "phase 2",
+                                     *synthetic_probe(dev, w, n), w)
+    return out
 
 
 def load_proteome():
@@ -332,20 +479,45 @@ def query_values(path, aa=True):
     return np.concatenate(c.parts)
 
 
+def engine_launches(lk, chunks):
+    """One run of the engine's pass-1 probes, as SparseLookup.lookup makes
+    them: each chunk's (q_fp, homes) uploaded and launched by
+    dispatch_probe in order, then each answer read back by resolve_probe.
+    Returns the (off, state) answers."""
+    pending = [lk.dispatch_probe(q, h) for q, h in chunks]
+    return [lk.resolve_probe(p) for p in pending]
+
+
+def engine_chunks(lk, values):
+    """The (q_fp, homes) host arrays of the engine's dispatches of
+    ``values`` on lookup ``lk``."""
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+
+    return [((values[s:e] % FP_MOD).astype(np.uint16),
+             (values[s:e] % lk.num_sigs).astype(np.int32))
+            for s, e in chunk_spans(len(values), lk.chunk)]
+
+
 def real_chunk_check(dev, table, values):
-    """The kernel against the twin at one main-path launch: the first
-    dispatch's queries (as StreamingLookup forms them) on the table's own
-    plane and pass-1 window."""
+    """The kernel against the twin at the main path's own launches: the
+    whole proteome's dispatches (as StreamingLookup forms them: eight, of
+    2^19 queries but the last) on the table's own plane and pass-1 window,
+    launched in order through SparseLookup, so that each chunk's windows
+    are as cold as the engine finds them. Returns (w1, check_chunks'
+    result)."""
     import torch
 
-    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD, SparseLookup
+    from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
 
     lk = SparseLookup(table, device=str(dev))
-    v = values[:lk.chunk]
-    homes = torch.from_numpy((v % lk.num_sigs).astype("int32")).to(dev)
-    q_fp = torch.from_numpy((v % FP_MOD).astype("uint16")).to(dev)
-    res = check_kernel(dev, "phase 4: first dispatch", lk.fp, q_fp, homes,
-                       lk.w1)
+    chunks = engine_chunks(lk, values)
+    on_card = [(torch.from_numpy(q).to(dev), torch.from_numpy(h).to(dev))
+               for q, h in chunks]
+    res = check_chunks(dev, "phase 4: engine dispatches", lk.fp, lk.w1,
+                       on_card, lambda: engine_launches(lk, chunks),
+                       lk.chunk)
     return lk.w1, res
 
 
@@ -910,7 +1082,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     build_kernels()
 
-    # the main path's launch (one dispatch of 2^19 queries, w1 = 16 on the
+    # the main path's launches (dispatches of 2^19 queries, w1 = 16 on the
     # realistic table) first, then whole-proteome launches at wider windows
     chunk = SparseLookup.DEFAULT_CHUNK
     cmp = kernel_vs_twin(dev, ((16, chunk), (16, BIG_QUERIES),
@@ -923,11 +1095,11 @@ def main() -> int:
         prots = load_proteome()
         sig = corpus_signatures(prots)
         corpus, faa = golden_run(dev, work, prots, sig)
-        big, table, tj_launches, (w1, (err, k_ms, t_ms, tj_bnd)) = \
-            realistic_run(dev, work, sig, faa)
+        big, table, tj_launches, (w1, (err, k_ms, t_ms, tj_bnd, call_ms)) \
+            = realistic_run(dev, work, sig, faa)
         if err != 0:
-            return fail("kernel and twin disagree on the first dispatch "
-                        f"(w={w1})")
+            return fail("kernel and twin disagree on the proteome's "
+                        f"dispatches (w={w1})")
         s_cmp = stream_vs_twin(dev)
         for label, (e, *_) in s_cmp.items():
             if e != 0:
@@ -960,6 +1132,7 @@ def main() -> int:
         "launches": tj_launches,
         "max_abs_err": max([err] + [r[0] for r in cmp.values()]),
         "ms": k_ms,
+        "call_ms": call_ms,
         "plain_ms": t_ms,
         **kernel_bound(k_ms, tj_bnd),
     }, {

@@ -9,18 +9,41 @@
 //   state 2, off = 0  an empty slot (FP_EMPTY) comes first: a miss,
 //   state 0, off = 0  neither within w slots, or a window that runs off
 //                     the plane: the host's exact pass.
+// A slot that holds the fingerprint is a candidate even if the
+// fingerprint is FP_EMPTY's value.
 //
-// Bound: device-memory bytes. Each query reads its fingerprint (2 B) and
-// home (4 B), writes 2 B, and reads the plane sectors its window touches:
-// at the tables' load factors a window ends at an empty slot or a match
-// after a few slots, so usually one 32-byte sector. The design's answer is
-// to read only those sectors: one thread per query scans its own window
-// straight from device memory (through L1/L2), in the queries' order, with
-// no sort. The TPU kernel's answer, a tile join (queries sorted by home,
-// each tile of the plane staged once in fast memory), reads the whole
-// plane per launch; on an H100 80GB HBM3 (700 W limit) at the engine's
-// launch of 2^19 queries over a 40M-slot plane it took 0.154 ms with its
-// sort against 0.019 ms for this scan (PERF.md, Findings).
+// What bounds it. The bytes the function needs: each query's home (4 B)
+// and fingerprint (2 B) in, its off and state (2 B) out, and the 32-byte
+// plane sector its window starts in (at the tables' load factors a window
+// ends at an empty slot or a candidate within a few slots): 20.97 MB for
+// the engine's dispatch of 2^19 queries, 0.0063 ms at 3.35 TB/s. Those
+// sectors lie at random in an 80 MB plane, and random reads are what the
+// card is slow at: 2^19 random 16-byte reads, one a query and nothing
+// else, take 0.0152 ms of device time, against 0.0038 ms for the same
+// reads in order and 0.0045 ms for the kernel with no window read at all
+// (PERF.md, Findings; the L2 fetches at least 64 bytes a miss). The
+// TPU kernel's tile join (queries sorted by home, the whole plane staged
+// in fast memory a launch) took 0.154 ms with its sort; the first port,
+// one thread a query scanning its window one u16 load at a time, 0.0191 ms.
+// The design's answer is to spend as little as it can beyond those random
+// reads, one a window where it can: each thread takes kQueries = 4
+// consecutive queries, whose homes and fingerprints come in as 16- and
+// 8-byte vectors, and reads each window in turn as aligned 16-byte vectors
+// from the one that holds its home (1-8 of its slots), then two vectors at
+// a time while no event is found. Each read
+// gives a candidate mask and an empty mask (two slots a word, the exact
+// zero-half test of probe_common.cuh); the first event is the lowest bit
+// of their OR. The answers go out as 4-byte words, four queries' off
+// bytes and four state bytes, into one buffer that the host reads back in
+// one copy.
+// Measured in turns by chip_turns.py on an H100 80GB HBM3 (700 W; PERF.md,
+// Findings), device time a dispatch of the E. coli proteome's 2^19 queries
+// on a 24M-signature plane: 0.0174 ms against the first port's 0.0190.
+// Every window's first two vectors in flight before any compare (0.0202),
+// one query a thread (0.0188), two (0.0185) or eight (0.0202), a first
+// read of the window's 32-byte sector (0.0216) or 64-byte line (0.0200), a
+// 32-byte L2 fetch granularity (0.0174) and a persisting L2 window over
+// the plane (0.0219) were each measured and were no faster.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libtilejoin.so tilejoin.cu
@@ -29,59 +52,161 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe_common.cuh"  // zero_halves, slot_flags, load_vec, Plane
+
 namespace {
 
 constexpr int kMaxWindow = 256;  // largest w (offsets are u8)
 constexpr int kThreads = 256;
-constexpr uint16_t kFpEmpty = 65535;
+constexpr int kQueries = 4;  // queries a thread: one int4 of homes
 
+// The window's slots [lead, span) among the 16 slots that start ``from``
+// slots after its first vector's start, as bits 0..15.
+__device__ __forceinline__ uint32_t window_bits(int from, int lead,
+                                                int span) {
+  const int lo = max(lead - from, 0);
+  const int hi = min(span - from, 16);
+  return lo < hi ? (0xFFFFu >> (16 - hi)) & (0xFFFFu << lo) : 0u;
+}
+
+// The first event among the 16 slots of vectors a, b: 0 if none, else
+// state << 8 | off, with ``at`` the window offset of a's first slot.
+__device__ __forceinline__ uint32_t pair_event(uint4 a, uint4 b, uint32_t qq,
+                                               uint32_t keep, int at) {
+  const uint32_t c =
+      (slot_flags(zero_halves(a.x ^ qq), zero_halves(a.y ^ qq),
+                  zero_halves(a.z ^ qq), zero_halves(a.w ^ qq)) |
+       slot_flags(zero_halves(b.x ^ qq), zero_halves(b.y ^ qq),
+                  zero_halves(b.z ^ qq), zero_halves(b.w ^ qq)) << 8) &
+      keep;
+  const uint32_t e =
+      (slot_flags(zero_halves(~a.x), zero_halves(~a.y), zero_halves(~a.z),
+                  zero_halves(~a.w)) |
+       slot_flags(zero_halves(~b.x), zero_halves(~b.y), zero_halves(~b.z),
+                  zero_halves(~b.w)) << 8) &
+      keep;
+  const uint32_t m = c | e;
+  if (!m) return 0;
+  const int bit = __ffs(m) - 1;
+  // a candidate outranks an empty slot at the same offset
+  return (c >> bit) & 1u ? 1u << 8 | static_cast<uint32_t>(at + bit)
+                         : 2u << 8;
+}
+
+__device__ __forceinline__ bool in_plane(const Plane& P, int32_t h) {
+  return h >= 0 && static_cast<int64_t>(h) + P.w <= P.len;
+}
+
+// One in-plane query's answer (state << 8 | off): its window read from the
+// 16-byte vector that holds its home (1-8 of its slots), then two vectors
+// at a time while no event is found.
+__device__ __forceinline__ uint32_t answer(const Plane& P, int32_t h,
+                                           uint32_t q) {
+  const uint32_t qq = q * 0x10001u;
+  const int64_t e0 = h + P.shift;
+  const int lead = static_cast<int>(e0 & 7);  // slots before the home
+  const int64_t k0 = e0 >> 3;
+  const int span = lead + P.w;  // slots from the first vector's start
+  uint32_t ans = pair_event(load_vec(P.abase, k0, P.shift, P.len),
+                            make_uint4(0, 0, 0, 0), qq,
+                            window_bits(0, lead, min(span, 8)), -lead);
+  for (int from = 8; !ans && from < span; from += 16) {
+    const int64_t k = k0 + (from >> 3);
+    const uint4 u = load_vec(P.abase, k, P.shift, P.len);
+    const uint4 w = from + 8 < span ? load_vec(P.abase, k + 1, P.shift, P.len)
+                                    : make_uint4(0, 0, 0, 0);
+    ans = pair_event(u, w, qq, window_bits(from, lead, span), from - lead);
+  }
+  return ans;
+}
+
+// kQueries consecutive queries a thread, their windows in turn. kAligned:
+// the inputs and outputs are aligned for vector loads and stores, which a
+// thread uses when its queries are whole.
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-first_event_kernel(const uint16_t* __restrict__ fp, int64_t plane_len,
-                   const uint16_t* __restrict__ q_fp,
-                   const int32_t* __restrict__ homes, int64_t n, int32_t w,
+first_event_kernel(Plane P, const uint16_t* __restrict__ q_fp,
+                   const int32_t* __restrict__ homes, int64_t n,
                    uint8_t* __restrict__ off, uint8_t* __restrict__ state) {
-  const int64_t q =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= n) return;
-  const int64_t h = homes[q];
-  uint8_t o = 0, st = 0;
-  if (h >= 0 && h + w <= plane_len) {  // else the window runs off the plane
-    const uint16_t want = q_fp[q];
-    for (int32_t l = 0; l < w; ++l) {
-      const uint16_t v = __ldg(fp + h + l);
-      if (v == want) {  // a candidate outranks an empty slot
-        o = static_cast<uint8_t>(l);
-        st = 1;
-        break;
-      }
-      if (v == kFpEmpty) {
-        st = 2;
-        break;
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kQueries;
+  if (i0 >= n) return;
+  const bool vec = kAligned && i0 + kQueries <= n;
+  int32_t h[kQueries];
+  uint32_t q[kQueries];
+  if (vec) {
+    const int4 hv = __ldg(reinterpret_cast<const int4*>(homes + i0));
+    const uint2 qv = __ldg(reinterpret_cast<const uint2*>(q_fp + i0));
+    h[0] = hv.x, h[1] = hv.y, h[2] = hv.z, h[3] = hv.w;
+    q[0] = qv.x & 0xFFFF, q[1] = qv.x >> 16;
+    q[2] = qv.y & 0xFFFF, q[3] = qv.y >> 16;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kQueries; ++k) {
+      h[k] = i0 + k < n ? __ldg(homes + i0 + k) : -1;
+      q[k] = i0 + k < n ? __ldg(q_fp + i0 + k) : 0;
+    }
+  }
+  // an off-plane window is unresolved: off 0, state 0
+  uint32_t ans[kQueries];
+#pragma unroll
+  for (int k = 0; k < kQueries; ++k)
+    ans[k] = in_plane(P, h[k]) ? answer(P, h[k], q[k]) : 0;
+  if (vec) {
+    uint32_t o = 0, s = 0;
+#pragma unroll
+    for (int k = 0; k < kQueries; ++k) {
+      o |= (ans[k] & 0xFFu) << (8 * k);
+      s |= (ans[k] >> 8 & 0xFFu) << (8 * k);
+    }
+    *reinterpret_cast<uint32_t*>(off + i0) = o;
+    *reinterpret_cast<uint32_t*>(state + i0) = s;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kQueries; ++k) {
+      if (i0 + k < n) {
+        off[i0 + k] = static_cast<uint8_t>(ans[k]);
+        state[i0 + k] = static_cast<uint8_t>(ans[k] >> 8);
       }
     }
   }
-  off[q] = o;
-  state[q] = st;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the probe on ``stream``; returns cudaGetLastError() (0 = the
+// Launches the probe on ``stream``; returns a CUDA error code (0 = the
 // launch was accepted). Inputs: the plane fp[plane_len], and per query its
 // fingerprint q_fp[n] and home slot homes[n]; outputs off[n], state[n].
 int tilejoin_first_event(const void* fp, int64_t plane_len, const void* q_fp,
                          const void* homes, int64_t n, int32_t w, void* off,
                          void* state, void* stream) {
-  if (w < 1 || w > kMaxWindow || n < 0) return cudaErrorInvalidValue;
+  const auto addr = reinterpret_cast<uintptr_t>(fp);
+  if (w < 1 || w > kMaxWindow || n < 0 || plane_len < 0 || addr % 2)
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  first_event_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(fp), plane_len,
-      static_cast<const uint16_t*>(q_fp), static_cast<const int32_t*>(homes),
-      n, w, static_cast<uint8_t*>(off), static_cast<uint8_t*>(state));
+  const int64_t threads = (n + kQueries - 1) / kQueries;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int64_t shift = (addr % 16) / 2;
+  const Plane P{static_cast<const uint16_t*>(fp) - shift, shift, plane_len,
+                w};
+  const auto* q = static_cast<const uint16_t*>(q_fp);
+  const auto* h = static_cast<const int32_t*>(homes);
+  auto* o = static_cast<uint8_t*>(off);
+  auto* s = static_cast<uint8_t*>(state);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(q) % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(s) % 4 == 0;
+  if (aligned)
+    first_event_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               st>>>(P, q, h, n, o, s);
+  else
+    first_event_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                st>>>(P, q, h, n, o, s);
   return static_cast<int>(cudaGetLastError());
 }
 

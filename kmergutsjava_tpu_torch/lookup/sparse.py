@@ -19,7 +19,8 @@ ref KmerGutsJava.java:944-1034):
   exact.
 
 Only the fingerprint plane lives on the device; per query 6 bytes go up and
-2 come back. Hit metadata is gathered from the host table.
+2 come back, one copy each way a dispatch. Hit metadata is gathered from
+the host table.
 """
 from __future__ import annotations
 
@@ -232,22 +233,30 @@ class SparseLookup(HostWindow):
 
     def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray):
         """Upload one chunk and start its pass-1 probe; returns the pending
-        (off, state) device tensors for resolve_probe. A device fault
-        surfacing here (an earlier launch's asynchronous error shows at the
-        next CUDA call, such as this chunk's upload) is a KernelError."""
-        q = torch.from_numpy(np.ascontiguousarray(q_fp, np.uint16))
-        h = torch.from_numpy(np.ascontiguousarray(homes, np.int32))
+        (answer buffer on the device, query count) for resolve_probe. The
+        homes and fingerprints go up in one copy of one host buffer (homes
+        at byte 0, fingerprints at the next 16-byte boundary), which the
+        kernel reads through two views. A device fault surfacing here (an
+        earlier launch's asynchronous error shows at the next CUDA call,
+        such as this chunk's upload) is a KernelError."""
+        n = len(homes)
+        at = -(-4 * n // 16) * 16  # the fingerprints' byte offset
+        host = np.empty(at + 2 * n, np.uint8)
+        host[:4 * n].view(np.int32)[:] = homes
+        host[at:].view(np.uint16)[:] = q_fp
         with on_stream(self._stream), _device_fault("dispatch"):
-            return tilejoin.tilejoin_probe(self.fp, q.to(self.device),
-                                           h.to(self.device), self.w1)
+            buf = torch.from_numpy(host).to(self.device)
+            return tilejoin.probe_answer(
+                self.fp, buf[at:].view(torch.uint16),
+                buf[:4 * n].view(torch.int32), self.w1), n
 
     def resolve_probe(self, pending):
-        """Copy one dispatch_probe answer back -> (off, state) numpy u8
-        arrays in the caller's query order (state 0 = exact host pass).
-        A device fault surfacing here is a KernelError."""
-        off, state = pending
+        """Copy one dispatch_probe answer back, in one copy -> (off, state)
+        numpy u8 arrays in the caller's query order (state 0 = exact host
+        pass). A device fault surfacing here is a KernelError."""
+        answer, n = pending
         with on_stream(self._stream), _device_fault("read-back"):
-            return off.cpu().numpy(), state.cpu().numpy()
+            return tilejoin.answer_views(answer.cpu().numpy(), n)
 
     def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,
                progress=None, compute_kmers_found: bool = True

@@ -11,16 +11,21 @@ fingerprint candidate at ``off``, 2 = an empty slot first (a miss), 0 =
 neither (the host's exact pass decides).
 
 The kernel (``csrc/tilejoin.cu``) is bound by device-memory bytes: 6 bytes
-in and 2 out per query, plus the plane sectors its window touches (usually
-one 32-byte sector, since windows end early at the tables' load factors).
-Its answer to that bound is to read only those sectors: one thread per
-query scans its own window in device memory, with no sort. The TPU
-kernel's tile join (queries sorted by home, every tile of the plane staged
-in fast memory) reads the whole plane per launch and was measured slower
-on the H100 (see the source note in ``csrc/tilejoin.cu``). Its layout
-(overlapped 128-lane rows, transposed tiles, capped bins, byte-packed
-codes) is not carried: nothing here has a bin capacity, so nothing
-overflows to the host pass.
+in and 2 out per query, plus the plane sector its window starts in
+(windows end early at the tables' load factors). Those sectors lie at
+random in the plane, and random reads of device memory are what bound it
+on the card: each thread takes four queries in the caller's order, with
+no sort, and reads each window as 16-byte vectors from the one that holds
+its home, comparing two slots a word. The TPU kernel's tile join (queries
+sorted by home, every tile of the plane staged in fast memory) reads the
+whole plane per launch and was measured slower on the H100 (see the
+source note in ``csrc/tilejoin.cu``). Its layout (overlapped 128-lane rows, transposed
+tiles, capped bins, byte-packed codes) is not carried: nothing here has a
+bin capacity, so nothing overflows to the host pass.
+
+A probe's answer is one u8 buffer (``probe_answer``): ``off`` at ``[0, n)``
+and ``state`` from the next 16-byte boundary (``answer_views``), so the
+engine reads it back in one copy.
 
 The kernel is compiled with nvcc for sm_90a into a plain-C shared library
 on first use and loaded with ctypes; nothing is built or imported for CUDA
@@ -41,6 +46,8 @@ MAX_WINDOW = 256  # window offsets travel as u8
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "tilejoin.cu")
+# headers the kernel sources include: a newer one rebuilds every library
+HEADERS = (os.path.join(_PKG_DIR, "csrc", "probe_common.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -69,14 +76,15 @@ def _nvcc() -> str:
 
 def build_cuda_library(source: str) -> ctypes.CDLL:
     """Compile ``source`` with nvcc for sm_90a into ``build/lib<name>.so``
-    (only when the source is newer than the library) and load it. Raises
-    KernelError. Callers hold their own lock and cache the result."""
+    (only when the source or a header in ``HEADERS`` is newer than the
+    library) and load it. Raises KernelError. Callers hold their own lock
+    and cache the result."""
     from ..utils.native import BUILD_DIR, compile_to, stale
 
     name = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
     try:
-        if stale(so, (source,)):
+        if stale(so, (source, *HEADERS)):
             compile_to([_nvcc(), *NVCC_FLAGS, source, "-o"], so)
         return ctypes.CDLL(so)
     except OSError as ex:
@@ -109,18 +117,32 @@ def _widen(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16).to(torch.int32) & 0xFFFF
 
 
+def _new_answer(n: int, device) -> torch.Tensor:
+    return torch.empty(-(-n // 16) * 16 + n, dtype=torch.uint8,
+                       device=device)
+
+
+def answer_views(answer, n: int):
+    """(off, state): the two views of one probe's answer buffer (a tensor
+    or a numpy array) to ``n`` queries. State starts at the 16-byte
+    boundary after off, so that the kernel writes both as 4-byte words."""
+    s = -(-n // 16) * 16
+    return answer[:n], answer[s:s + n]
+
+
 def first_event_reference(fp: torch.Tensor, q_fp: torch.Tensor,
                           homes: torch.Tensor, w: int,
-                          chunk: int = 1 << 18
+                          chunk: int = 1 << 18, out=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of the kernel: a chunked [n, w] gather, compare and
     min over key = 2*rel (candidate) | 2*rel+1 (empty). A home whose window
     runs off the plane (home < 0 or home + w > len(fp)) is unresolved, as in
-    the kernel. Returns (off u8, state u8) on fp's device."""
+    the kernel. Returns (off u8, state u8) on fp's device: ``out`` when
+    given, else the views of a new answer buffer, as the kernel's are."""
     n = homes.numel()
     dev = fp.device
-    off = torch.empty(n, dtype=torch.uint8, device=dev)
-    state = torch.empty(n, dtype=torch.uint8, device=dev)
+    off, state = out if out is not None else answer_views(
+        _new_answer(n, dev), n)
     plane = fp.view(torch.int16)
     rel = torch.arange(w, dtype=torch.int64, device=dev)
     big2 = 2 * w
@@ -158,23 +180,25 @@ def _check(fp, q_fp, homes, w) -> None:
         raise KernelError("too many queries for one launch's grid")
 
 
-def tilejoin_probe(fp: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,
-                   w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """First-event probe of ``w`` slots from each home: (off u8, state u8)
-    in the queries' order, on the inputs' device. CPU tensors run the plain
-    twin; CUDA tensors launch the kernel on the current stream (or raise
+def probe_answer(fp: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,
+                 w: int) -> torch.Tensor:
+    """First-event probe of ``w`` slots from each home, as one u8 answer
+    buffer on the inputs' device (``answer_views`` gives its off and
+    state, in the queries' order). CPU tensors run the plain twin; CUDA
+    tensors launch the kernel on the current stream (or raise
     KernelError). fp: u16 plane, q_fp: u16 [n], homes: int32 [n]."""
     global launches
     _check(fp, q_fp, homes, w)
+    n = homes.numel()
+    answer = _new_answer(n, fp.device)
+    off, state = answer_views(answer, n)
     if fp.device.type == "cpu":
-        return first_event_reference(fp, q_fp, homes, w)
+        first_event_reference(fp, q_fp, homes, w, out=(off, state))
+        return answer
     if fp.device.type != "cuda":
         raise KernelError(f"no tile-join kernel for device {fp.device}")
-    n = homes.numel()
-    off = torch.empty(n, dtype=torch.uint8, device=fp.device)
-    state = torch.empty(n, dtype=torch.uint8, device=fp.device)
     if n == 0:
-        return off, state
+        return answer
     lib = load_kernel()
     stream = torch.cuda.current_stream(fp.device).cuda_stream
     rc = lib.tilejoin_first_event(
@@ -184,4 +208,12 @@ def tilejoin_probe(fp: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,
         raise KernelError(f"tile-join kernel launch failed: CUDA error {rc}")
     with _lock:
         launches += 1
-    return off, state
+    return answer
+
+
+def tilejoin_probe(fp: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,
+                   w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First-event probe of ``w`` slots from each home: (off u8, state u8)
+    in the queries' order, on the inputs' device: the views of
+    ``probe_answer``'s buffer."""
+    return answer_views(probe_answer(fp, q_fp, homes, w), homes.numel())

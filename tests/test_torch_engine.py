@@ -479,7 +479,7 @@ def test_device_fault_is_not_turned_into_a_report(corpus, monkeypatch,
                            "encountered")
 
     if step == "dispatch":
-        monkeypatch.setattr(sparse.tilejoin, "tilejoin_probe", faulty)
+        monkeypatch.setattr(sparse.tilejoin, "probe_answer", faulty)
     else:
         monkeypatch.setattr(sparse.torch.Tensor, "cpu", faulty)
     d, fasta, _, _ = corpus

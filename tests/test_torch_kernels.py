@@ -9,6 +9,9 @@ that has no JAX: there, from the repository root,
 
 runs the ``cuda`` tests too, which compare each CUDA kernel with its twin on
 the card (exact: the codes are integers). Elsewhere they skip."""
+import glob
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +76,38 @@ def test_cpu_wrapper_runs_twin_and_counts_no_launch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def test_newer_header_rebuilds_a_kernel_library(tmp_path, monkeypatch):
+    """build_cuda_library rebuilds a library that is older than its source
+    or than a header the sources include (tilejoin.HEADERS: every .cuh in
+    csrc/), and only then."""
+    from kmergutsjava_tpu_torch.utils import native
+
+    csrc = os.path.dirname(tilejoin.SOURCE)
+    assert sorted(tilejoin.HEADERS) == sorted(
+        glob.glob(os.path.join(csrc, "*.cuh")))
+    src, hdr = tmp_path / "k.cu", tmp_path / "probe_common.cuh"
+    src.write_text("// kernel")
+    hdr.write_text("// header")
+    so = tmp_path / "build" / "libk.so"
+    so.parent.mkdir()
+    so.write_text("a stand-in, not a library")
+    os.utime(src, (100, 100))
+    os.utime(hdr, (150, 150))
+    os.utime(so, (200, 200))
+    built = []
+    monkeypatch.setattr(tilejoin, "HEADERS", (str(hdr),))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "compile_to",
+                        lambda cmd, out: built.append((cmd[-1], out)))
+    with pytest.raises(tilejoin.KernelError, match="cannot build or load"):
+        tilejoin.build_cuda_library(str(src))
+    assert built == []  # up to date: loaded as it is
+    os.utime(hdr, (300, 300))
+    with pytest.raises(tilejoin.KernelError):
+        tilejoin.build_cuda_library(str(src))
+    assert built == [("-o", str(so))]
+
+
 @pytest.mark.parametrize("bad", ["w0", "w257", "homes_i64", "fp_i32",
                                  "strided", "length"])
 def test_wrapper_rejects_bad_inputs(bad):
@@ -100,8 +135,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def test_wrapper_answers_are_views_of_one_buffer():
+    """off and state are views of one answer buffer (probe_answer's: off
+    first, state at the next 16-byte boundary), and hold the twin's
+    answers."""
+    fp = _plane(3000, seed=7)
+    for n in (0, 1, 17, 500):
+        qfp, homes = _queries(fp, n, 16, seed=n)
+        args = (_plane_t(fp, 16), torch.from_numpy(qfp),
+                torch.from_numpy(homes), 16)
+        buf = tilejoin.probe_answer(*args)
+        at = -(-n // 16) * 16
+        assert buf.dtype == torch.uint8 and buf.numel() == at + n
+        off, state = tilejoin.tilejoin_probe(*args)
+        assert off._base is not None and off._base is state._base
+        assert off._base.numel() == at + n
+        if n:
+            assert state.data_ptr() == off.data_ptr() + at
+        want = tilejoin.first_event_reference(*args)
+        for got in (tilejoin.answer_views(buf.numpy(), n), (off, state)):
+            np.testing.assert_array_equal(got[0], want[0].numpy())
+            np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [1, 16, 64, 256])
+@pytest.mark.parametrize("w", [1, 7, 9, 16, 17, 64, 256])
 def test_cuda_kernel_matches_twin(cuda_device, w):
     fp = _plane(300_000, seed=w)
     qfp, homes = _queries(fp, 200_000, w, seed=w + 9)
@@ -114,6 +172,123 @@ def test_cuda_kernel_matches_twin(cuda_device, w):
     assert tilejoin.launches == before + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+B1_QUERIES = 4  # queries a thread of csrc/tilejoin.cu
+
+
+def _b1_edge(case, n=40_000):
+    """B1's operands at its edges: (plane without padding, q_fp, homes, w,
+    lead), ``lead`` the slots by which the test places the plane past a
+    16-byte boundary on the card.
+
+    lead1/lead3/lead7: the plane 1, 3 or 7 slots past a boundary (its
+    first and last vectors read slot by slot); n_mod1/2/3: a query count
+    1, 2 or 3 past a multiple of the queries a thread (a ragged last
+    thread); vec2/vec3: disjoint windows whose first event (a candidate or
+    an empty, half each) lies in the window's second or third 16-byte
+    vector; off_plane: homes whose window runs off the plane (below 0, past
+    its end, up to the largest int32, where home + w overflows 32 bits);
+    full: a plane without empties, so most windows hold no event."""
+    w, lead = 16, 0
+    if case.startswith("vec"):
+        w = 32
+        rng = np.random.default_rng(len(case) + int(case[-1]))
+        homes = (np.arange(n, dtype=np.int64) * 64
+                 + rng.integers(0, 32, n)).astype(np.int32)
+        fp = rng.integers(0, 60000, n * 64 + 64).astype(np.uint16)
+        qfp = rng.integers(0, 60000, n).astype(np.uint16)
+        # the window offset of the vector's first slot: 8 - (home % 8) for
+        # the second vector, 16 - (home % 8) for the third
+        first = 8 * (int(case[-1]) - 1) - homes % 8
+        at = homes + first + rng.integers(0, 8, n)
+        for i in range(n):  # no earlier event in the window
+            win = fp[homes[i]:at[i]]
+            win[(win == qfp[i]) | (win == FP_EMPTY)] = 1 + qfp[i] % 7
+        fp[at] = np.where(rng.random(n) < 0.5, qfp, FP_EMPTY)
+        return fp, qfp, homes, w, lead
+    fp = _plane(300_000, seed=len(case),
+                empty_frac=0.0 if case == "full" else 0.35)
+    if case.startswith("n_mod"):
+        n = n - n % B1_QUERIES + int(case[-1])
+    qfp, homes = _queries(fp, n, w, seed=len(case) + 1)
+    if case.startswith("lead"):
+        lead = int(case[-1])
+    if case == "off_plane":
+        homes[:9] = [-1, -5, len(fp) + 1, len(fp) + w + 1, len(fp) + 2 * w,
+                     1 << 30, 2**31 - 1 - w, 2**31 - 2, 2**31 - 1]
+    return fp, qfp, homes, w, lead
+
+
+B1_EDGES = ["lead1", "lead3", "lead7", "n_mod1", "n_mod2", "n_mod3", "vec2",
+            "vec3", "off_plane", "full"]
+
+
+@pytest.mark.parametrize("case", B1_EDGES)
+def test_b1_edge_operands(case):
+    """Each edge case holds what its name says, on the twin."""
+    fp, qfp, homes, w, lead = _b1_edge(case)
+    off, state = tilejoin.first_event_reference(
+        _plane_t(fp, w), torch.from_numpy(qfp), torch.from_numpy(homes), w)
+    st = state.numpy()
+    if case.startswith("vec"):
+        lo = 8 * (int(case[-1]) - 1)
+        first = np.where(st == 1, off.numpy(), -1)
+        assert (st > 0).all() and set(np.unique(st)) == {1, 2}
+        hit = st == 1
+        assert ((first[hit] + homes[hit] % 8 >= lo)
+                & (first[hit] + homes[hit] % 8 < lo + 8)).all()
+    elif case == "off_plane":
+        assert (st[:9] == 0).all() and (st[9:] > 0).any()
+    elif case == "full":
+        assert (st == 0).mean() > 0.4
+    else:
+        assert set(np.unique(st)) == {0, 1, 2}
+    if case.startswith("n_mod"):
+        assert len(homes) % B1_QUERIES == int(case[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B1_EDGES)
+def test_cuda_kernel_edges_match_twin(cuda_device, case):
+    """B1 against its twin on the card at each edge case, every (off,
+    state) equal."""
+    fp, qfp, homes, w, lead = _b1_edge(case)
+    args = [_plane_t(fp, w), torch.from_numpy(qfp), torch.from_numpy(homes)]
+    want = tilejoin.first_event_reference(*args, w)
+    plane = _offset_view(args[0], lead, cuda_device)
+    assert plane.data_ptr() % 16 == 2 * lead
+    before = tilejoin.launches
+    got = tilejoin.tilejoin_probe(plane, *[a.to(cuda_device)
+                                           for a in args[1:]], w)
+    torch.cuda.synchronize()
+    assert tilejoin.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_unaligned_views_and_empty_launch(cuda_device):
+    """Fingerprints and homes as views one element past their allocation
+    (the kernel's scalar path), and a launch of no queries."""
+    fp = _plane(100_000, seed=70)
+    qfp, homes = _queries(fp, 50_001, 16, seed=71)
+    args = [_plane_t(fp, 16), torch.from_numpy(qfp), torch.from_numpy(homes)]
+    want = tilejoin.first_event_reference(*args, 16)
+    got = tilejoin.tilejoin_probe(args[0].to(cuda_device),
+                                  _offset_view(args[1], 1, cuda_device),
+                                  _offset_view(args[2], 1, cuda_device), 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    before = tilejoin.launches
+    off, state = tilejoin.tilejoin_probe(
+        args[0].to(cuda_device),
+        torch.zeros(0, dtype=torch.uint16, device=cuda_device),
+        torch.zeros(0, dtype=torch.int32, device=cuda_device), 16)
+    torch.cuda.synchronize()
+    assert off.numel() == state.numel() == 0
+    assert tilejoin.launches == before
 
 
 @pytest.mark.cuda

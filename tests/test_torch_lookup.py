@@ -111,6 +111,49 @@ def test_streaming_front_end_matches_jax():
     _assert_same(got, lookup_stream(jax_t, values, cnt, pos))
 
 
+@pytest.mark.parametrize("n", [2, 1001, 3000])
+def test_packed_dispatch_and_read_back_match_parity(n, monkeypatch):
+    """dispatch_probe sends homes and fingerprints up as one host buffer
+    and resolve_probe reads the probe's one answer buffer back in one copy:
+    its (off, state) are the twin's on separate tensors, and
+    SparseLookup.lookup and StreamingLookup give the port's parity
+    backend's hits."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.parity import \
+        lookup_stream as port_parity
+
+    _, port_t, kmers = _tables(3000, seed=30, load_factor=0.7)
+    values, cnt, pos = _queries(kmers, n, seed=31)
+    lk = SparseLookup(port_t, chunk=512, device="cpu")
+    homes = (values % port_t.num_sigs).astype(np.int32)
+    q_fp = (values % 65535).astype(np.uint16)
+    copies = {"up": 0, "down": 0}
+    from_numpy, cpu = torch.from_numpy, torch.Tensor.cpu
+
+    def up(a):
+        copies["up"] += 1
+        return from_numpy(a)
+
+    def down(t, *args, **kwargs):
+        copies["down"] += 1
+        return cpu(t, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "from_numpy", up)
+    monkeypatch.setattr(torch.Tensor, "cpu", down)
+    off, state = lk.resolve_probe(lk.dispatch_probe(q_fp, homes))
+    assert copies == {"up": 1, "down": 1}
+    monkeypatch.undo()
+    want = tilejoin.first_event_reference(lk.fp, torch.from_numpy(q_fp),
+                                          torch.from_numpy(homes), lk.w1)
+    np.testing.assert_array_equal(off, want[0].numpy())
+    np.testing.assert_array_equal(state, want[1].numpy())
+    parity = port_parity(port_t, values, cnt, pos)
+    assert len(parity) > 0
+    _assert_same(lk.lookup(values, cnt, pos), parity)
+    _assert_same(_port_lookup(lk, values, cnt, pos), parity)
+
+
 def test_from_numpy_takes_a_jax_lookups_arrays():
     """SparseLookup.from_numpy on a JAX XlaLookup's w1, full_window,
     host_kmer and unpadded fingerprint plane computes what the port's own

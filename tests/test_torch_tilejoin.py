@@ -18,7 +18,7 @@ from kmergutsjava_tpu.lookup.pallas_tilejoin import (TPG, band_geometry,
 from kmergutsjava_tpu.lookup.xla import probe_fingerprint_pass
 from kmergutsjava_tpu_torch.lookup import tilejoin
 
-from test_torch_kernels import FP_EMPTY, _plane, _queries
+from test_torch_kernels import B1_EDGES, FP_EMPTY, _b1_edge, _plane, _queries
 
 
 def _twin(fp, qfp, homes, w):
@@ -74,3 +74,37 @@ def test_twin_matches_flat_probe_wide_windows(w):
     np.testing.assert_array_equal(got_state, np.asarray(want_state))
     np.testing.assert_array_equal(got_off, np.asarray(want_off))
     assert set(np.unique(got_state)) == {0, 1, 2}
+
+
+def _flat_vs_twin(fp, qfp, homes, w, lead=0):
+    """The twin (on a plane ``lead`` slots into its allocation) against the
+    JAX package's flat first-event probe, every (off, state) equal."""
+    plane = np.concatenate([fp, np.full(w, FP_EMPTY, np.uint16)])
+    want_off, want_state = probe_fingerprint_pass(
+        jnp.asarray(plane), jnp.asarray(qfp), jnp.asarray(homes), w)
+    view = torch.cat([torch.zeros(lead, dtype=torch.uint16),
+                      torch.from_numpy(plane)])[lead:]
+    off, state = tilejoin.tilejoin_probe(view, torch.from_numpy(qfp),
+                                         torch.from_numpy(homes), w)
+    np.testing.assert_array_equal(state.numpy(), np.asarray(want_state))
+    np.testing.assert_array_equal(off.numpy(), np.asarray(want_off))
+    return state.numpy()
+
+
+@pytest.mark.parametrize("w", [1, 7, 9, 16, 17, 64, 256])
+def test_twin_matches_flat_probe_at_kernel_widths(w):
+    """The widths the card's tests give the CUDA kernel (one vector, a
+    vector and a slot, two vectors and a slot, the cap)."""
+    fp = _plane(20_000, seed=w + 3, empty_frac=0.35 if w < 64 else 0.03)
+    qfp, homes = _queries(fp, 4000, w, seed=w + 4)
+    assert set(np.unique(_flat_vs_twin(fp, qfp, homes, w))) == {0, 1, 2}
+
+
+@pytest.mark.parametrize("case", [c for c in B1_EDGES if c != "off_plane"])
+def test_twin_matches_flat_probe_at_kernel_edges(case):
+    """The card tests' in-plane edge cases (test_torch_kernels._b1_edge);
+    off-plane homes are left out: the JAX gather clamps them, where the
+    port leaves them unresolved."""
+    fp, qfp, homes, w, lead = _b1_edge(case, n=8000)
+    st = _flat_vs_twin(fp, qfp, homes, w, lead)
+    assert st.any()
