@@ -69,7 +69,24 @@ failure and then prints no result):
 10. the ported sweep's lane-gather section
    (kmergutsjava_tpu_torch/scripts/sweep.py, a 512 MB plane, caps 256 and
    512), then the lane-gather kernel against its twin at that shape with
-   planted matches and empties, every key equal; both times are printed.
+   planted matches and empties, every key equal; both times are printed;
+11. the port's JSON-RPC server and restartable runs on phase 4's table,
+   on the card (kmergutsjava_tpu_torch/service/server.py in this process,
+   driven by service/client.py): ``warm`` (its probe window must be phase
+   4's), the proteome by path (phase 4's cuda report byte for byte, B1
+   launched as often as in phase 4 and nothing else, served by the lookup
+   ``warm`` built), four inline requests of 1,000 proteins at once (each
+   equal to the CLI's report of the same text), ``_annotate_submit`` and
+   ``_check_job`` (equal to the sync report), phase 7's read set with
+   ``backend: "stream"`` (phase 7's report, two B2 launches and nothing
+   else), the proteome again (the one-slot lookup cache then builds xla's
+   lookup cold), and the ok counts of /metrics; a second server started
+   without ``--warm`` in a process of its own, beside a bare process that
+   only imports torch and creates the CUDA context; then the CLI with
+   ``--checkpoint --checkpoint-every 2000`` (7 batches) against a single
+   run, both cold, and a crash in the 4th batch with a torn tail, resumed
+   by a fresh process: both outputs must equal phase 4's cuda report.
+   Every request and run prints its wall time.
 
 Each kernel's line also prints its bound (``bound_ms``: the larger of
 the bytes it must move over the card's memory rate and one integer
@@ -77,8 +94,8 @@ operation an input element over its INT32 rate; ``bound_by``) and its
 share of the bound (bound_ms / kernel_ms).
 
 Every run that drives a path (the CLI runs, the microbenchmark's rows, the
-sweep) starts with every launch count at 0 and must launch its kernels and
-no others. The line before the last is a JSON object with each kernel's
+sweep, the server's requests) starts with every launch count at 0 and must
+launch its kernels and no others. The line before the last is a JSON object with each kernel's
 name, source, the TPU kernel it replaces, its launches on its path (phase
 4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
@@ -1027,6 +1044,314 @@ def tjgather_phase(dev):
     return err, k_ms, t_ms, counts["tjgather"], bnd
 
 
+def clear_engine_caches():
+    """Empty the engine's host-table and lookup caches, so that the next
+    request or run reads the table and builds its lookup as a fresh
+    process would (the kernel libraries stay loaded)."""
+    from kmergutsjava_tpu_torch.models import pipeline
+
+    pipeline._LOOKUP_CACHE.clear()
+    pipeline._TABLE_CACHE.clear()
+
+
+@contextlib.contextmanager
+def serving(data_dir):
+    """The port's server on ``data_dir`` (device cuda) in this process, on
+    a thread; yields (server, URL)."""
+    from kmergutsjava_tpu_torch.service.server import serve
+
+    srv = serve(data_dir, port=0, device="cuda")
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield srv, f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(60)
+
+
+def timed_call(fn):
+    """(fn(), seconds on the host clock)."""
+    t0 = time.time()
+    got = fn()
+    return got, time.time() - t0
+
+
+def port_env():
+    return {**os.environ, "PYTHONPATH": HERE}
+
+
+@contextlib.contextmanager
+def server_process(data_dir):
+    """The port's server started as a user starts it (``python -m
+    kmergutsjava_tpu_torch.service.server -D DIR -p 0``, device cuda, no
+    --warm) in a process of its own; yields (URL, seconds until it
+    served). Stopped with SIGTERM (drain) when done, killed if it hangs."""
+    import select
+    import signal
+
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kmergutsjava_tpu_torch.service.server", "-D",
+         data_dir, "-p", "0"], cwd=HERE, env=port_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, bufsize=0)
+    try:
+        line = b""
+        while not line.startswith(b"serving on :"):
+            if not select.select([proc.stdout], [], [], 120)[0]:
+                raise RuntimeError("the server process printed nothing "
+                                   "for 120 s")
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"the server process exited "
+                                   f"({proc.wait()}) before serving")
+        port = int(line.split(b":")[1].split()[0])
+        yield f"http://127.0.0.1:{port}", time.time() - t0
+        proc.send_signal(signal.SIGTERM)
+        tail = proc.communicate(timeout=60)[0].decode(errors="replace")
+        if proc.returncode != 0 or "drained cleanly" not in tail:
+            raise RuntimeError(f"the server process ended with "
+                               f"{proc.returncode}: {tail[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+
+
+def metric_value(text, name, labels):
+    """One sample of the Prometheus exposition ``text`` (0 if absent)."""
+    head = name + "{" + ",".join(f'{k}="{v}"' for k, v in
+                                 sorted(labels.items())) + "} "
+    for line in text.splitlines():
+        if line.startswith(head):
+            return float(line[len(head):])
+    return 0.0
+
+
+def service_phase(work, big, faa, prots, w1, tj_launches):
+    """Phase 11: the port's JSON-RPC server and restartable runs on the
+    card against phase 4's table. warm; the proteome by path (phase 4's
+    cuda report, B1 launches as phase 4's, served by warm's lookup); four
+    inline requests at once; the async protocol; phase 7's read set through
+    ``stream`` (phase 7's report, two B2 launches); the proteome again
+    (after ``stream`` the one-slot lookup cache builds it cold); /metrics;
+    a second server, started without --warm in a process of its own, and
+    a bare CUDA process beside it; then
+    the CLI with --checkpoint against a single run, both cold; and a crash
+    after 3 committed batches with a torn tail, resumed by a fresh
+    process. Every report must equal its reference byte for byte."""
+    import concurrent.futures
+    import urllib.request
+
+    from kmergutsjava_tpu_torch.models import pipeline
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+    from kmergutsjava_tpu_torch.service.client import KmerGutsClient
+
+    def read(name):
+        with open(os.path.join(work, name), "rb") as fh:
+            return fh.read()
+
+    def same(label, got, want):
+        if got != want:
+            raise RuntimeError(f"phase 11: {label} differs from its "
+                               f"reference ({len(got)} against {len(want)} "
+                               "bytes)")
+
+    want_aa, want_reads = read("big_cuda.txt"), read("reads_auto.txt")
+    reads = os.path.join(work, "reads.fna")
+    head = "".join(f">{p.id} {p.descr}\n{p.seq}\n" for p in prots[:1000])
+    head_path = os.path.join(work, "proteome_1000.faa")
+    with open(head_path, "w") as fh:
+        fh.write(head)
+    run_cli(big, head_path, os.path.join(work, "head_cli.txt"), "cuda")
+    want_head = read("head_cli.txt")
+    clear_engine_caches()
+    n_sync = 0
+
+    with serving(big) as (_, url):
+        client = KmerGutsClient(url)
+        st, warm_s = timed_call(client.warm)
+        (key, lk), = pipeline._LOOKUP_CACHE.items()
+        print(f"phase 11: server device=cuda warm_s={warm_s:.3f} {st} "
+              f"lookup={type(lk).__name__} key_device={key[-1]}", flush=True)
+        if st["probe_window"] != w1:
+            raise RuntimeError(f"phase 11: warm's probe window "
+                               f"{st['probe_window']} is not phase 4's {w1}")
+
+        def proteome(label, must_be=None):
+            reset_counts()
+            rep, secs = timed_call(lambda: client.annotate(
+                fasta_path=faa, aa=True))
+            counts = read_counts()
+            print(f"phase 11: annotate proteome ({label}) wall_s={secs:.3f} "
+                  f"report_bytes={len(rep.encode())} launches={counts} "
+                  f"same_lookup_as_warm="
+                  f"{list(pipeline._LOOKUP_CACHE.values()) == [lk]}",
+                  flush=True)
+            same(f"the proteome's report ({label})", rep.encode(), want_aa)
+            check_launches(f"phase 11 {label}", counts, ("tilejoin",))
+            if counts["tilejoin"] != tj_launches:
+                raise RuntimeError(f"phase 11: {counts['tilejoin']} B1 "
+                                   f"launches, phase 4 made {tj_launches}")
+            if must_be is not None and \
+                    list(pipeline._LOOKUP_CACHE.values()) != [must_be]:
+                raise RuntimeError("phase 11: the annotate did not run on "
+                                   "the lookup that warm built")
+            return secs
+
+        proteome("first after warm", must_be=lk)
+        proteome("again, warm", must_be=lk)
+        n_sync += 2
+
+        def inline(i):
+            rep, secs = timed_call(lambda: client.annotate(fasta=head,
+                                                           aa=True))
+            return rep.encode(), secs
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+            got = list(ex.map(inline, range(4)))
+        n_sync += 4
+        for rep, _ in got:
+            same("an inline request's report", rep, want_head)
+        print(f"phase 11: 4 inline requests at once (1,000 proteins each) "
+              f"wall_s={[round(s, 3) for _, s in got]} equal_to_cli=True",
+              flush=True)
+
+        t0 = time.time()
+        job_id = client.annotate_submit(fasta_path=faa, aa=True)
+        polls, delay = 0, 0.05
+        while True:
+            job = client.check_job(job_id)
+            polls += 1
+            if job.get("finished"):
+                break
+            time.sleep(delay)
+        async_s = time.time() - t0
+        if job.get("error"):
+            raise RuntimeError(f"phase 11: async job failed: {job['error']}")
+        same("the async job's report", job["result"][0]["report"].encode(),
+             want_aa)
+        print(f"phase 11: async submit+poll proteome wall_s={async_s:.3f} "
+              f"polls={polls} equal_to_sync=True", flush=True)
+
+        reset_counts()
+        rep, stream_s = timed_call(lambda: client.annotate(
+            fasta_path=reads, aa=False, backend="stream"))
+        counts = read_counts()
+        n_sync += 1
+        print(f"phase 11: annotate reads backend=stream (its lookup built "
+              f"cold: the cache held xla's) wall_s={stream_s:.3f} "
+              f"report_bytes={len(rep.encode())} launches={counts}",
+              flush=True)
+        same("the read set's report", rep.encode(), want_reads)
+        check_launches("phase 11 stream", counts, ("stream",))
+        if counts["stream"] != 2:
+            raise RuntimeError(f"phase 11: {counts['stream']} B2 launches "
+                               "for the read set, not 2")
+        proteome("after the stream request: xla's lookup rebuilt cold")
+        n_sync += 1
+
+        with urllib.request.urlopen(url + "/metrics") as r:
+            text = r.read().decode()
+        ok = {m: metric_value(text, "rpc_requests_total",
+                              {"method": m, "outcome": "ok"})
+              for m in ("warm", "annotate", "_annotate_submit",
+                        "_check_job")}
+        print(f"phase 11: /metrics ok counts {ok}", flush=True)
+        if ok != {"warm": 1, "annotate": n_sync, "_annotate_submit": 1,
+                  "_check_job": polls}:
+            raise RuntimeError(f"phase 11: /metrics ok counts {ok}")
+
+    # what any fresh process pays before its first kernel: start, import
+    # torch, create the CUDA context
+    res, floor_s = timed_call(lambda: subprocess.run(
+        [sys.executable, "-c", "import torch; torch.zeros(1, device='cuda'); "
+         "torch.cuda.synchronize()"], env=port_env(), capture_output=True,
+        text=True, timeout=300))
+    if res.returncode != 0:
+        raise RuntimeError(f"phase 11: a bare CUDA process failed: "
+                           f"{res.stderr[-2000:]}")
+    with server_process(big) as (url, start_s):
+        rep, cold_s = timed_call(lambda: KmerGutsClient(url).annotate(
+            fasta_path=faa, aa=True))
+        same("a cold server's proteome report", rep.encode(), want_aa)
+        print(f"phase 11: second server (own process, no --warm) "
+              f"start_to_serving_s={start_s:.3f} first_annotate_s="
+              f"{cold_s:.3f}; a bare process's start, torch import and "
+              f"CUDA context: {floor_s:.3f} s", flush=True)
+
+    every = "2000"
+    clear_engine_caches()
+    _, single_s = run_cli(big, faa, os.path.join(work, "single.txt"), "cuda")
+    same("the single run", read("single.txt"), want_aa)
+    clear_engine_caches()
+    out, ck = os.path.join(work, "ckpt.txt"), os.path.join(work, "ckpt.json")
+    reset_counts()
+    _, ckpt_s = run_cli(big, faa, out, "cuda",
+                        ("--checkpoint", ck, "--checkpoint-every", every))
+    counts = read_counts()
+    with open(ck) as fh:
+        state = json.load(fh)
+    batches = -(-state["groups_done"] // int(every))
+    print(f"phase 11: checkpointed run wall_s={ckpt_s:.3f} batches={batches} "
+          f"(every {every}) single_run_wall_s={single_s:.3f} (both cold) "
+          f"launches={counts} sidecar_complete={state['complete']}",
+          flush=True)
+    same("the checkpointed run", read("ckpt.txt"), want_aa)
+    check_launches("phase 11 checkpoint", counts, ("tilejoin",))
+    if not state["complete"] or state["groups_done"] != len(prots):
+        raise RuntimeError(f"phase 11: sidecar {state}")
+
+    # a crash after 3 committed batches (the 4th batch's run raises), a
+    # torn tail, and the resume in a fresh process (its lookup built cold)
+    class Crash(RuntimeError):
+        pass
+
+    out, ck = os.path.join(work, "crash.txt"), os.path.join(work, "crash.json")
+    orig, calls = Engine.run, []
+
+    def crashing(self, *a, **kw):
+        calls.append(1)
+        if len(calls) > 3:
+            raise Crash("a crash in the 4th batch")
+        return orig(self, *a, **kw)
+
+    Engine.run = crashing
+    try:
+        run_cli(big, faa, out, "cuda",
+                ("--checkpoint", ck, "--checkpoint-every", every))
+        raise RuntimeError("phase 11: the crashing run did not crash")
+    except Crash:
+        pass
+    finally:
+        Engine.run = orig
+    with open(ck) as fh:
+        crashed = json.load(fh)
+    if crashed["groups_done"] != 3 * int(every) or crashed["complete"]:
+        raise RuntimeError(f"phase 11: sidecar after the crash {crashed}")
+    with open(out, "ab") as fh:
+        fh.write(b"TORN TAIL OF THE CRASHED BATCH")
+    res, resume_s = timed_call(lambda: subprocess.run(
+        [sys.executable, "-m", "kmergutsjava_tpu_torch.cli", "-a", "-D", big,
+         "-q", faa, "-o", out, "--checkpoint", ck, "--checkpoint-every",
+         every], cwd=HERE, env=port_env(), capture_output=True, text=True,
+        timeout=600))
+    if res.returncode != 0:
+        raise RuntimeError(f"phase 11: the resume exited {res.returncode}: "
+                           f"{res.stderr[-2000:]}")
+    with open(ck) as fh:
+        state = json.load(fh)
+    print(f"phase 11: crash after {crashed['groups_done']} groups "
+          f"({crashed['out_offset']} B committed), torn tail, resume in a "
+          f"fresh process wall_s={resume_s:.3f} sidecar_complete="
+          f"{state['complete']} groups_done={state['groups_done']}",
+          flush=True)
+    same("the resumed run", read("crash.txt"), want_aa)
+    if not state["complete"]:
+        raise RuntimeError(f"phase 11: sidecar after the resume {state}")
+
+
 def kernel_bound(ms, bnd):
     """A kernel entry's bound, share and library call (none: no single
     PyTorch call computes a first-event window probe)."""
@@ -1117,12 +1442,14 @@ def main() -> int:
         if bp_err != 0:
             return fail("block probe and twin disagree on the read set")
         del values, table
-    r_err, r_ms, r_plain_ms, r_launches, r_bnd = stream_reps_phase(dev)
-    if r_err != 0:
-        return fail("the stream kernel's repetition launch and twin disagree")
-    g_err, g_ms, g_plain_ms, g_launches, g_bnd = tjgather_phase(dev)
-    if g_err != 0:
-        return fail("lane-gather kernel and twin disagree")
+        r_err, r_ms, r_plain_ms, r_launches, r_bnd = stream_reps_phase(dev)
+        if r_err != 0:
+            return fail("the stream kernel's repetition launch and twin "
+                        "disagree")
+        g_err, g_ms, g_plain_ms, g_launches, g_bnd = tjgather_phase(dev)
+        if g_err != 0:
+            return fail("lane-gather kernel and twin disagree")
+        service_phase(work, big, faa, prots, w1, tj_launches)
 
     print(json.dumps({"kernels": [{
         "name": "tilejoin_first_event",

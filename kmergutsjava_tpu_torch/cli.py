@@ -36,11 +36,12 @@ Arguments:
  --grouping IMPL - (optional) call grouping: host (the only one ported)
  --threads N - (optional) native host-stage threads (default: all cores; also env KMER_NATIVE_THREADS)
  --profile DIR - (optional) write a torch.profiler trace of the run
+ --checkpoint FILE - (optional) restartable run: commit progress to FILE after every batch and resume from it on restart (requires -q and -o, refuses -d; output is byte-identical to a single run)
+ --checkpoint-every N - (optional) sequences per committed batch (default 100000)
 """
 
 # long flags of the JAX package's CLI that this package does not run yet
-_NOT_PORTED = ("mesh", "sort-chunks", "device-sort", "platform", "checkpoint",
-               "checkpoint-every")
+_NOT_PORTED = ("mesh", "sort-chunks", "device-sort", "platform")
 
 
 def parse_args(argv: List[str]):
@@ -49,6 +50,8 @@ def parse_args(argv: List[str]):
     query: Optional[str] = None
     output: Optional[str] = None
     n_threads: Optional[int] = None
+    ckpt: Optional[str] = None
+    ckpt_every: Optional[int] = None
     params = list(argv)
     while params:
         param = params.pop(0)
@@ -76,6 +79,12 @@ def parse_args(argv: List[str]):
                     raise ValueError("--threads must be >= 1")
                 # applied by main() after a successful parse, so a later
                 # parse error can't leave the process env mutated
+            elif name == "checkpoint":
+                ckpt = params.pop(0)
+            elif name == "checkpoint-every":
+                ckpt_every = int(params.pop(0))
+                if ckpt_every < 1:
+                    raise ValueError("--checkpoint-every must be >= 1")
             elif name in _NOT_PORTED:
                 raise not_ported("--" + name)
             else:
@@ -111,14 +120,24 @@ def parse_args(argv: List[str]):
             raise ValueError("Unknown parameter: -" + name)
     if data_dir is None:
         raise ValueError("-D parameter is required")
+    if ckpt is not None:
+        if query is None or output is None:
+            raise ValueError("--checkpoint requires -q FILE and -o FILE "
+                             "(stdin/stdout runs cannot be resumed)")
+        if cfg.debug:
+            raise ValueError("--checkpoint does not support -d (debug "
+                             "writes per-run info lines into the report)")
+    elif ckpt_every is not None:
+        raise ValueError("--checkpoint-every requires --checkpoint")
     cfg.__post_init__()  # validate what the flags set
-    return cfg, data_dir, query, output, n_threads
+    return cfg, data_dir, query, output, n_threads, ckpt, ckpt_every
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
-        cfg, data_dir, query, output, n_threads = parse_args(argv)
+        (cfg, data_dir, query, output, n_threads,
+         ckpt, ckpt_every) = parse_args(argv)
     except (ValueError, IndexError) as ex:
         print("Error: " + str(ex))
         print(USAGE, end="")
@@ -128,6 +147,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         # the native stages read this per call (getenv)
         os.environ["KMER_NATIVE_THREADS"] = str(n_threads)
+    if ckpt is not None:
+        from .models.checkpoint import (DEFAULT_BATCH_GROUPS, CheckpointError,
+                                        run_with_checkpoint)
+
+        # a KernelError is no CheckpointError: it propagates with its
+        # traceback, and the sidecar stays at the last committed batch
+        try:
+            run_with_checkpoint(cfg, data_dir, query, output, ckpt,
+                                ckpt_every or DEFAULT_BATCH_GROUPS)
+        except CheckpointError as ex:
+            print("Error: " + str(ex), file=sys.stderr)
+            return 3
+        return 0
     from .models.pipeline import Engine
 
     engine = Engine(cfg)

@@ -21,3 +21,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU with torch CUDA (the test "
         "skips itself where torch.cuda.is_available() is false)")
+    config.addinivalue_line(
+        "markers", "slow: long randomized runs, left out of the tier-1 "
+        "suite (-m 'not slow')")
