@@ -8,8 +8,9 @@ Phases (one line each; the run stops with a non-zero exit at the first
 failure and then prints no result):
 
 1. the card's name and power limit (nvidia-smi); build of the CUDA kernels
-   (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu and
-   csrc/tjgather.cu, one nvcc each, started together) for sm_90a;
+   (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu,
+   csrc/tjgather.cu and csrc/kmer_windows.cu, one nvcc each, started
+   together) for sm_90a;
 2. the tile-join kernel against its plain PyTorch twin on the card: a
    seeded 40M-slot fingerprint plane at load 0.6 with planted empties,
    queried (half planted hits) at the main path's launch shape (eight
@@ -86,7 +87,22 @@ failure and then prints no result):
    ``--checkpoint --checkpoint-every 2000`` (7 batches) against a single
    run, both cold, and a crash in the 4th batch with a torn tail, resumed
    by a fresh process: both outputs must equal phase 4's cuda report.
-   Every request and run prints its wall time.
+   Every request and run prints its wall time;
+12. the fused device path (``--backend spmd``: the k-mer window kernel,
+   csrc/kmer_windows.cu, feeding the tile-join kernel) and the device
+   prepare (``--prepare jax``) on the card: the CLI with ``--backend spmd``
+   reproduces golden_aa_full on the proteome and golden_dna_full on the
+   genome (a contig past LONG_NT: the windowed entry); on phase 4's table
+   the proteome through ``--backend spmd`` and through ``--prepare jax
+   --backend xla`` gives phase 4's cuda report, and phase 7's read set
+   through ``--backend spmd`` phase 7's report; each run launches the
+   window kernel and B1 and nothing else (the values entry and B1 for
+   ``--prepare jax``). Then three rounds of cold runs in turns (the
+   engine's caches emptied before each): the proteome through spmd and
+   xla, the read set through spmd, auto and xla. Last, the window kernel
+   against its twin at its real launch shapes (a proteome bucket batch, a
+   read batch and the genome's window batch), every output equal, with its
+   device time (torch.profiler, the L2 flushed), the twin's and the bound.
 
 Each kernel's line also prints its bound (``bound_ms``: the larger of
 the bytes it must move over the card's memory rate and one integer
@@ -99,10 +115,13 @@ launch its kernels and no others. The line before the last is a JSON object with
 name, source, the TPU kernel it replaces, its launches on its path (phase
 4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
-the repetition launch, phase 10's sweep for the lane gather), its largest
+the repetition launch, phase 10's sweep for the lane gather, phase 12's
+sparse proteome spmd run for the window kernel, with B1's launches in that
+run beside them), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
-phase 7's pass; phases 8, 9 and 10), the bound and share at those shapes,
+phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch),
+the bound and share at those shapes,
 and ``library_ms`` null (no single PyTorch call computes a first-event
 window probe); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -175,23 +194,27 @@ def kernel_modules():
     """The kernel wrappers' modules, by the name their counts print under."""
     from kmergutsjava_tpu_torch.lookup import (blockprobe, stream, tilejoin,
                                                tjgather)
+    from kmergutsjava_tpu_torch.ops import kmer_windows
 
     return dict(tilejoin=tilejoin, stream=stream, blockprobe=blockprobe,
-                tjgather=tjgather)
+                tjgather=tjgather, kmer_windows=kmer_windows)
 
 
 def reset_counts():
-    """Every kernel's launch count to 0 (the repetition launch's too)."""
+    """Every kernel's launch count to 0 (the repetition launch's and the
+    window kernel's values entry's too)."""
     mods = kernel_modules()
     for m in mods.values():
         m.launches = 0
     mods["stream"].reps_launches = 0
+    mods["kmer_windows"].values_launches = 0
 
 
 def read_counts():
     mods = kernel_modules()
     got = {name: m.launches for name, m in mods.items()}
     got["stream_reps"] = mods["stream"].reps_launches
+    got["kmer_values"] = mods["kmer_windows"].values_launches
     return got
 
 
@@ -546,7 +569,8 @@ def write_proteome(prots, path):
 # the kernels each backend's cuda run must launch, and those it may launch
 # (the block probe's exact rest runs the tile join)
 BACKEND_KERNELS = {"auto": (("stream",), ()), "xla": (("tilejoin",), ()),
-                   "pallas": (("blockprobe",), ("tilejoin",))}
+                   "pallas": (("blockprobe",), ("tilejoin",)),
+                   "spmd": (("kmer_windows", "tilejoin"), ())}
 
 
 def golden_run(dev, work, prots, sig):
@@ -1352,9 +1376,200 @@ def service_phase(work, big, faa, prots, w1, tj_launches):
         raise RuntimeError(f"phase 11: sidecar after the resume {state}")
 
 
+def bound_kmer_windows(in_bytes, windows, out_per_window=6):
+    """The window kernel: its rows (and a count a row) in once, each
+    window's home and fingerprint (6 B) or value (8 B) out once; 16 integer
+    operations a window (8 to pack its 8-mer, 8 for the two residues)."""
+    return bound(in_bytes + out_per_window * windows, 16 * windows)
+
+
+def window_batches(prots, genome_fna, reads_fna):
+    """The window kernel's real launch shapes, as host arrays: one proteome
+    bucket batch (512 proteins of at most 256 residues, the fused step's
+    first bucket and batch), one read batch (512 reads in the 256-base
+    bucket) and the genome's window batch (plan_windows at WIN_NT).
+    Returns {label: (aa, ascii, counts, windowed extras or None)}."""
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.constants import K
+    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
+    from kmergutsjava_tpu_torch.models.spmd import WIN_NT
+    from kmergutsjava_tpu_torch.parallel.seq_windows import plan_windows
+
+    def rows(seqs, width):
+        mat = np.zeros((len(seqs), width), np.uint8)
+        for i, q in enumerate(seqs):
+            mat[i, :len(q)] = np.frombuffer(q.encode("latin-1"), np.uint8)
+        return mat, np.array([len(q) for q in seqs], np.int32)
+
+    short = [p.seq for p in prots if len(p.seq) <= 256][:512]
+    mat, lens = rows(short, 256)
+    out = {"proteome bucket 256 x 512": (True, mat, lens - K, None)}
+    reads = []
+    for rec in read_fasta(reads_fna):
+        reads.append(rec.seq)
+        if len(reads) == 512:
+            break
+    out["read batch 256 x 512"] = (False, *rows(reads, 256), None)
+    g = next(iter(read_fasta(genome_fna))).seq
+    plan = plan_windows(len(g), WIN_NT)
+    a = np.full((len(plan["s"]), WIN_NT), ord("N"), np.uint8)
+    gb = np.frombuffer(g.encode("latin-1"), np.uint8)
+    for i, (s0, e0) in enumerate(zip(plan["s"], plan["e"])):
+        a[i, :e0 - s0] = gb[s0:e0]
+    out[f"genome windows {WIN_NT} x {len(plan['s'])}"] = (
+        False, a, plan["len_w"].astype(np.int32),
+        tuple(plan[k].astype(np.int32)
+              for k in ("row_map", "own_start", "own_end")))
+    return out
+
+
+def window_kernel_vs_twin(dev, batches, plane, pw):
+    """The window kernel against its twin on the card at the real launch
+    shapes (homes and fingerprints at the sparse table's num_sigs, and
+    the values entry for whole rows), every output equal; B1's answer to
+    those homes and fingerprints at the fused step's full window ``pw``
+    on the sparse table's ``plane`` (off and state, invalid windows
+    included) equal to its twin's; then the window kernel's device time a
+    launch (kernel_device_ms, the L2 flushed before each), the twin's (CUDA
+    events) and the bound. Returns ({label: (max_abs_err, kernel_ms,
+    twin_ms, bound)}, B1's max_abs_err over all batches)."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import tilejoin
+    from kmergutsjava_tpu_torch.lookup.tilejoin import _widen
+    from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+
+    num_sigs = plane.numel() - pw
+    res, b1_err = {}, 0
+    for label, (aa, mat, counts, extra) in batches.items():
+        a = torch.from_numpy(mat).to(dev)
+        c = torch.from_numpy(counts).to(dev)
+        ex = [torch.from_numpy(x).to(dev) for x in extra or ()]
+        if aa:
+            def run():
+                return kw.aa_homes_fps(a, c, num_sigs)
+        else:
+            def run():
+                return kw.dna_homes_fps(a, c, num_sigs, *ex)
+        h, f = run()
+        th, tf = kw.windows_reference(a, c, aa, num_sigs, *ex)
+        torch.cuda.synchronize(dev)
+        err = max(int((h.long() - th.long()).abs().max()),
+                  int((_widen(f) - _widen(tf)).abs().max()))
+        if extra is None:
+            v = kw.window_values(a, c, aa)
+            err = max(err, int((v - kw.windows_reference(a, c, aa))
+                               .abs().max()))
+        valid = int((h >= 0).sum())
+        # B1 on these windows as the fused step calls it, against its twin
+        n = h.numel()
+        off_k, st_k = tilejoin.answer_views(tilejoin.probe_answer(
+            plane, f.view(-1), h.view(-1), pw), n)
+        off_t, st_t = tilejoin.first_event_reference(plane, f.view(-1),
+                                                     h.view(-1), pw)
+        torch.cuda.synchronize(dev)
+        e1 = max(int((off_k.int() - off_t.int()).abs().max()),
+                 int((st_k.int() - st_t.int()).abs().max()))
+        b1_err = max(b1_err, e1)
+        print(f"phase 12: B1 on the window kernel's {label} windows={n} "
+              f"pw={pw} states(0/1/2)="
+              f"{torch.bincount(st_k.long(), minlength=3).tolist()} "
+              f"max_abs_err={e1}", flush=True)
+        del off_k, st_k, off_t, st_t
+        ms, kept = kernel_device_ms(run, dev, "windows_kernel")
+        t_ms = timed(lambda: kw.windows_reference(a, c, aa, num_sigs, *ex),
+                     dev)
+        in_b = mat.nbytes + counts.nbytes + sum(x.nbytes for x in extra or ())
+        bnd = bound_kmer_windows(in_b, h.numel())
+        values = ""
+        if extra is None:  # the values entry (--prepare jax) at this shape
+            v_ms, _ = kernel_device_ms(lambda: kw.window_values(a, c, aa),
+                                       dev, "windows_kernel")
+            v_bnd = bound_kmer_windows(in_b, h.numel(), 8)
+            values = (f" values_entry_device_ms={v_ms[0]:.5f} values_"
+                      f"{bound_fields(v_ms[0], v_bnd).replace(' ', ' values_')}")
+        print(f"phase 12: window kernel {label} windows={h.numel()} "
+              f"valid={valid} max_abs_err={err} device_ms={ms[0]:.5f} "
+              f"runs_kept={kept}/5 twin_ms={t_ms:.4f} "
+              f"{bound_fields(ms[0], bnd)}{values}", flush=True)
+        res[label] = (err, ms[0], t_ms, bnd)
+        del a, c, ex, h, f, th, tf
+    return res, b1_err
+
+
+def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
+    """Phase 12: the fused path (``--backend spmd``: the window kernel
+    feeding B1) and the device prepare (``--prepare jax``) on the card:
+    the goldens, phase 4's and phase 7's reports, launches, cold wall times
+    in turns against xla and auto, and the window kernel and B1 (on the
+    kernel's windows) against their twins at the real launch shapes. Returns (the window kernel's and B1's
+    launches on the sparse proteome's spmd run, window_kernel_vs_twin's
+    result)."""
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    def gunzip(name):
+        with gzip.open(os.path.join(HERE, "tests", "data", name), "rb") as fh:
+            return fh.read()
+
+    def one(label, d, query, aa, extra, want, must):
+        reset_counts()
+        out = os.path.join(work, f"spmd_{len(os.listdir(work))}.txt")
+        info, secs = run_cli(d, query, out, "cuda", extra, aa=aa)
+        counts = read_counts()
+        got = read(out)
+        print(f"phase 12: {label} {' '.join(extra)} report_bytes={len(got)} "
+              f"identical={got == want} launches={counts} wall_s={secs:.3f} "
+              f"{phase_ms(info)}", flush=True)
+        if got != want:
+            raise RuntimeError(f"phase 12: {label} {extra} differs from "
+                               "its reference")
+        check_launches(f"phase 12 {label}", counts, must)
+        return counts, secs
+
+    spmd = ("--backend", "spmd")
+    spmd_kernels = BACKEND_KERNELS["spmd"][0]
+    one("golden_aa_full", corpus, faa, True, spmd,
+        gunzip("golden_aa_full.txt.gz"), spmd_kernels)
+    one("golden_dna_full (4.64 Mbp, windowed)", corpus, fna, False, spmd,
+        gunzip("golden_dna_full.txt.gz"), spmd_kernels)
+    want_aa = read(os.path.join(work, "big_cuda.txt"))
+    want_reads = read(os.path.join(work, "reads_auto.txt"))
+    counts, _ = one("sparse proteome", big, faa, True, spmd, want_aa,
+                    spmd_kernels)
+    launches = (counts["kmer_windows"], counts["tilejoin"])
+    print(f"phase 12: sparse proteome spmd kmer_windows_launches="
+          f"{launches[0]} b1_launches={launches[1]}", flush=True)
+    one("sparse proteome", big, faa, True,
+        ("--prepare", "jax", "--backend", "xla"), want_aa,
+        ("kmer_values", "tilejoin"))
+    one("dense read set", big, reads, False, spmd, want_reads, spmd_kernels)
+
+    # cold runs in turns: every run reads the table and builds its lookup
+    # (or the fused program) as a fresh process would
+    walls = {}
+    for _ in range(3):
+        for cell, query, aa, backends in (
+                ("sparse proteome", faa, True, ("spmd", "xla")),
+                ("dense read set", reads, False, ("spmd", "auto", "xla"))):
+            for backend in backends:
+                clear_engine_caches()
+                _, secs = run_cli(big, query, os.path.join(work, "cold.txt"),
+                                  "cuda", ("--backend", backend), aa=aa)
+                walls.setdefault((cell, backend), []).append(round(secs, 3))
+    for (cell, backend), secs in walls.items():
+        print(f"phase 12: cold wall_s {cell} backend={backend} {secs}",
+              flush=True)
+    batches = window_batches(prots, fna, reads)
+    return launches, window_kernel_vs_twin(dev, batches, plane, pw)
+
+
 def kernel_bound(ms, bnd):
     """A kernel entry's bound, share and library call (none: no single
-    PyTorch call computes a first-event window probe)."""
+    PyTorch call computes a first-event window probe, or an 8-mer's home
+    and fingerprint from ASCII rows)."""
     return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
             "library_ms": None}
 
@@ -1441,6 +1656,10 @@ def main() -> int:
             dev, table, values)
         if bp_err != 0:
             return fail("block probe and twin disagree on the read set")
+        # the fused step's plane of the sparse table, for phase 12's B1 check
+        from kmergutsjava_tpu_torch.parallel.annotate_step import table_plane
+        spmd_pw = max(8, table.max_probe)
+        spmd_plane = table_plane(table, spmd_pw, dev)
         del values, table
         r_err, r_ms, r_plain_ms, r_launches, r_bnd = stream_reps_phase(dev)
         if r_err != 0:
@@ -1450,6 +1669,17 @@ def main() -> int:
         if g_err != 0:
             return fail("lane-gather kernel and twin disagree")
         service_phase(work, big, faa, prots, w1, tj_launches)
+        (kw_launches, kw_b1_launches), (kw_cmp, kw_b1_err) = spmd_phase(
+            dev, work, corpus, faa, os.path.join(work, "genome.fna"), big,
+            os.path.join(work, "reads.fna"), prots, spmd_plane, spmd_pw)
+        del spmd_plane
+        for label, (e, *_) in kw_cmp.items():
+            if e != 0:
+                return fail(f"window kernel and twin disagree on {label}")
+        if kw_b1_err != 0:
+            return fail("B1 and its twin disagree on the window kernel's "
+                        "windows")
+        kw_err, kw_ms, kw_plain_ms, kw_bnd = next(iter(kw_cmp.values()))
 
     print(json.dumps({"kernels": [{
         "name": "tilejoin_first_event",
@@ -1457,7 +1687,7 @@ def main() -> int:
         "source": "kmergutsjava_tpu_torch/csrc/tilejoin.cu",
         "replaces": "kmergutsjava_tpu/lookup/pallas_tilejoin.py:145",
         "launches": tj_launches,
-        "max_abs_err": max([err] + [r[0] for r in cmp.values()]),
+        "max_abs_err": max([err, kw_b1_err] + [r[0] for r in cmp.values()]),
         "ms": k_ms,
         "call_ms": call_ms,
         "plain_ms": t_ms,
@@ -1502,6 +1732,18 @@ def main() -> int:
         "ms": g_ms,
         "plain_ms": g_plain_ms,
         **kernel_bound(g_ms, g_bnd),
+    }, {
+        "name": "kmer_windows",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/kmer_windows.cu",
+        "replaces": "kmergutsjava_tpu/parallel/annotate_step.py:52, :96; "
+                    "kmergutsjava_tpu/parallel/seq_windows.py:98",
+        "launches": kw_launches,
+        "b1_launches": kw_b1_launches,
+        "max_abs_err": max(r[0] for r in kw_cmp.values()),
+        "ms": kw_ms,
+        "plain_ms": kw_plain_ms,
+        **kernel_bound(kw_ms, kw_bnd),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,10 +29,10 @@ Arguments:
  -t - (optional) temporary directory (system one is used by default)
  -l - (optional) limit for input Kmer array (long, default = 20,000,000)
  --device NAME - (optional) torch device of the probe: cuda (default; the CUDA kernel) or cpu (its PyTorch twin)
- --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, pallas, parity
+ --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, spmd (fused device prepare+lookup), pallas, parity
  --probe-window N - (optional) override table-derived probe window
  --chunk N - (optional) queries per device dispatch (default 524288)
- --prepare IMPL - (optional) encode impl: native (default), numpy
+ --prepare IMPL - (optional) encode impl: native (default), numpy, jax
  --grouping IMPL - (optional) call grouping: host (the only one ported)
  --threads N - (optional) native host-stage threads (default: all cores; also env KMER_NATIVE_THREADS)
  --profile DIR - (optional) write a torch.profiler trace of the run

@@ -14,12 +14,15 @@ from typing import Optional
 
 # lookup backends: "auto" (stream vs xla by query density — both are exact,
 # so the choice only costs speed), "xla" (the sparse tile-join probe),
-# "stream" (the dense stream probe), "pallas" (the merge-join block probe;
-# "xla" and "pallas" keep the JAX package's names, so its command lines run
-# unchanged) and "parity" (the exact streaming scan). "auto" never picks
-# "pallas".
-BACKENDS = ("auto", "xla", "stream", "pallas", "parity")
-PREPARE_IMPLS = ("native", "numpy")
+# "stream" (the dense stream probe), "spmd" (the fused device path: the
+# k-mer window kernel feeding the sparse probe), "pallas" (the merge-join
+# block probe; "xla", "spmd" and "pallas" keep the JAX package's names, so
+# its command lines run unchanged) and "parity" (the exact streaming scan).
+# "auto" never picks "spmd" or "pallas".
+BACKENDS = ("auto", "xla", "stream", "spmd", "pallas", "parity")
+# "jax" (the JAX package's name) is the device prepare: the k-mer window
+# kernel's values entry on the config's device
+PREPARE_IMPLS = ("native", "numpy", "jax")
 GROUPING_IMPLS = ("host",)
 
 
@@ -43,7 +46,8 @@ class EngineConfig:
     # port extensions
     backend: str = "auto"
     # encode implementation for the feeder pipeline: "native" (C++ feeder
-    # via ctypes, default; numpy fallback if no toolchain) or "numpy"
+    # via ctypes, default; numpy fallback if no toolchain), "numpy", or
+    # "jax" (the k-mer window kernel on the device)
     prepare_impl: str = "native"
     # only "host" is ported; the field is kept so that a JAX command line's
     # --grouping scan fails with a pointer to ROADMAP.md
@@ -51,6 +55,7 @@ class EngineConfig:
     # queries per device dispatch; None = SparseLookup.DEFAULT_CHUNK
     lookup_chunk: Optional[int] = None
     probe_window: Optional[int] = None  # override table-derived window
+    length_bucket_base: int = 256  # smallest padded batch length for aa mode
     profile_dir: Optional[str] = None  # torch.profiler trace output dir
     # torch device of the fingerprint plane and the probe: "cuda" runs the
     # hand-written kernel, "cpu" its plain PyTorch twin

@@ -39,7 +39,8 @@ import torch
 from ..formats.kmer_table import KmerTable
 from .parity import LookupHits
 from .sparse import (FP_EMPTY, FP_MOD, SparseLookup, _check_int32_homes,
-                     _device_fault, _round_up_pow2, on_stream, owned_stream)
+                     _device_fault, _round_up_pow2, fingerprint_plane,
+                     on_stream, owned_stream)
 from .tilejoin import KernelError, _widen, build_cuda_library
 
 HALO = 128  # slots past the table: the largest window
@@ -178,9 +179,7 @@ class BlockProbeLookup:
         self._exact = SparseLookup(table, probe_window=probe_window,
                                    chunk=chunk, device=device)
         self.device = self._exact.device
-        fp = np.full(s + HALO, FP_EMPTY, dtype=np.uint16)
-        occ = table.occupied
-        fp[:s][occ] = (table.slots["kmer"][occ] % FP_MOD).astype(np.uint16)
+        fp = fingerprint_plane(table, s + HALO)
         self._stream = owned_stream(self.device)
         with on_stream(self._stream), _device_fault("upload", "block probe"):
             self.fp = torch.from_numpy(fp).to(self.device)

@@ -50,6 +50,16 @@ def _round_up_pow2(x: int) -> int:
     return p
 
 
+def fingerprint_plane(table: KmerTable, length: int) -> np.ndarray:
+    """The table's u16 fingerprint plane (``value % FP_MOD`` a slot, FP_EMPTY
+    for an empty one), padded with FP_EMPTY to ``length`` slots."""
+    fp = np.full(length, FP_EMPTY, dtype=np.uint16)
+    occ = table.occupied
+    fp[:table.num_sigs][occ] = (table.slots["kmer"][occ] % FP_MOD).astype(
+        np.uint16)
+    return fp
+
+
 def torch_device(name: str) -> torch.device:
     """The torch device for a config name; a CUDA name on a machine where
     torch has no CUDA raises (there is no quiet fall back to the CPU)."""
@@ -193,10 +203,8 @@ class SparseLookup(HostWindow):
         _check_int32_homes(table.num_sigs)
         super().__init__(table, probe_window)
         w1 = min(adaptive_w1(table, first_pass_window), self.full_window)
-        fp = np.full(table.num_sigs, FP_EMPTY, dtype=np.uint16)
-        occ = table.occupied
-        fp[occ] = (table.slots["kmer"][occ] % FP_MOD).astype(np.uint16)
-        self._setup(fp, w1, chunk, device)
+        self._setup(fingerprint_plane(table, table.num_sigs), w1, chunk,
+                    device)
 
     @classmethod
     def from_numpy(cls, table: KmerTable, fp_flat: np.ndarray,

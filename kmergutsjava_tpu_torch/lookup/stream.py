@@ -47,8 +47,8 @@ import torch
 
 from ..formats.kmer_table import KmerTable
 from .parity import LookupHits
-from .sparse import (FP_EMPTY, FP_MOD, HostWindow, _device_fault, on_stream,
-                     owned_stream, torch_device)
+from .sparse import (FP_EMPTY, FP_MOD, HostWindow, _device_fault,
+                     fingerprint_plane, on_stream, owned_stream, torch_device)
 from .tilejoin import KernelError, _widen, build_cuda_library
 
 CHANNELS = 4      # query channels per slot (home-collision capacity)
@@ -225,9 +225,7 @@ class StreamLookup:
         # exact path: host verification column + full-window fallback
         self._exact = HostWindow(table, probe_window)
         self.slots = -(-s // SLOT_ALIGN) * SLOT_ALIGN
-        fp = np.full(self.slots + self.w, FP_EMPTY, dtype=np.uint16)
-        occ = table.occupied
-        fp[:s][occ] = (table.slots["kmer"][occ] % FP_MOD).astype(np.uint16)
+        fp = fingerprint_plane(table, self.slots + self.w)
         # Per-slot distance to the first empty slot at or after it, capped
         # at w: stop-at-empty depends only on the table, so it is computed
         # here once and applied on the host. (The padded tail is all empty,

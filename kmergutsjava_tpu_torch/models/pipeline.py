@@ -3,11 +3,15 @@
 Three phases with wall-clock info lines, mirroring
 KmerGutsJava.java:742-820:
 
-1. prepare  — FASTA -> host 8-mer encode (6-frame translation in DNA mode)
-   -> query k-mer stream
+1. prepare  — FASTA -> 8-mer encode (6-frame translation in DNA mode) on
+   the host, or on the device with ``--prepare jax`` -> query k-mer stream
 2. lookup   — probe the signature table (sparse tile-join probe | dense
    stream probe | merge-join block probe | parity scan)
 3. group    — sequential call state machine -> report text
+
+The ``spmd`` backend fuses the first two on the device (models/spmd.py):
+raw sequence bytes go up, the k-mer window kernel and the sparse probe run
+there, and only candidates come back for host verification.
 
 Report text is bit-identical to the reference in non-debug mode; info lines
 (temp dir, phase timings, progress) follow the reference's printInfoLine
@@ -39,6 +43,7 @@ from ..lookup.sparse import SparseLookup, StreamingLookup, torch_device
 from ..lookup.store import QueryKmerStore
 from ..lookup.stream import StreamingStreamLookup, StreamLookup
 from ..lookup.tilejoin import KernelError
+from ..ops import kmer_windows
 from .prepare import Prepared
 
 # Device-resident lookups are expensive to (re)build: a host->device plane
@@ -182,12 +187,18 @@ def _cached_read_table(table_path: str):
 
 def _cached_lookup(backend: str, table_path: str, table, cfg: EngineConfig):
     """The sparse ("xla"), "stream" or block-probe ("pallas") lookup of
-    this table, from the one-slot cache keyed also by the torch device."""
+    this table, or its fused program ("spmd", per query alphabet), from the
+    one-slot cache keyed also by the torch device."""
     key = (backend, _table_ident(table_path), cfg.probe_window,
-           cfg.lookup_chunk, str(torch_device(cfg.device)))
+           cfg.aa if backend == "spmd" else cfg.lookup_chunk,
+           str(torch_device(cfg.device)))
     lk = _LOOKUP_CACHE.get(key)
     if lk is None:
-        if backend == "xla":
+        if backend == "spmd":
+            from .spmd import SpmdProgram
+
+            lk = SpmdProgram(table, cfg)
+        elif backend == "xla":
             lk = SparseLookup(table, probe_window=cfg.probe_window,
                               chunk=cfg.lookup_chunk, device=cfg.device)
         elif backend == "pallas":
@@ -276,11 +287,15 @@ class Engine:
             else:
                 self.config = cfg = _replace_backend(cfg,
                                                      choice or AUTO_SPARSE)
+        if on_cuda and (cfg.prepare_impl == "jax"
+                        or (cfg.backend == "spmd" and not table.truncated)):
+            kmer_windows.load_kernel()
         if on_cuda and not table.truncated:
             # a build failure raises here, before any work, and never
             # degrades; a deferred choice may run either kernel, and the
             # block probe's exact rest runs the tile-join kernel
-            if deferred is not None or cfg.backend in ("xla", "pallas"):
+            if deferred is not None or cfg.backend in ("xla", "pallas",
+                                                       "spmd"):
                 tilejoin.load_kernel()
             if deferred is not None or cfg.backend == "stream":
                 stream_kernel.load_kernel()
@@ -297,8 +312,21 @@ class Engine:
         t1 = time.time()
         streaming = None
         store = None
+        spmd = None
         if deferred is not None:
             streaming = feed = deferred
+        elif cfg.backend == "spmd" and not table.truncated:
+            # fused device path: raw sequence bytes go to the device; the
+            # k-mer window kernel and the sparse probe run there per batch
+            # (models/spmd.py), with no host query-k-mer stream at all
+            from .spmd import SpmdAnnotator
+
+            try:
+                spmd = SpmdAnnotator(table, cfg, program=_cached_lookup(
+                    "spmd", self._table_path, table, cfg))
+            except ValueError as ex:
+                # a probe window over 128 (or slots past int32)
+                store, feed, cfg = self._parity_fallback("spmd", ex, cfg)
         elif cfg.backend == "xla" and not table.truncated:
             try:
                 lk = _cached_lookup("xla", self._table_path, table, cfg)
@@ -327,7 +355,10 @@ class Engine:
             feed = store
         try:
             prep = None
-            if cfg.prepare_impl == "native":
+            if spmd is not None:
+                prep = spmd.consume(read_fasta(query if query is not None
+                                               else query_stream))
+            elif cfg.prepare_impl == "native":
                 # fully-native fast path: bulk parse + feeder share one
                 # buffer, no per-record Python (None = fall through)
                 from .prepare import try_prepare_bulk
@@ -342,6 +373,15 @@ class Engine:
                 if cfg.prepare_impl == "native":
                     prep = (prepare_aa_native(records, feed) if cfg.aa
                             else prepare_dna_native(records, feed))
+                elif cfg.prepare_impl == "jax":
+                    # the window kernel's values entry on the device
+                    from .prepare import prepare_aa, prepare_dna
+
+                    prep = (prepare_aa(records, feed,
+                                       min_bucket=cfg.length_bucket_base,
+                                       device=cfg.device) if cfg.aa
+                            else prepare_dna(records, feed,
+                                             device=cfg.device))
                 if prep is None:  # numpy, or no toolchain
                     prep = (prepare_aa_numpy(records, feed) if cfg.aa
                             else prepare_dna_numpy(records, feed))
@@ -363,6 +403,8 @@ class Engine:
         try:
             if streaming is not None:
                 hits = streaming.finish()
+            elif spmd is not None:
+                hits = spmd.finish()
             else:
                 hits = self._lookup(table, rec)
         except TableTruncatedError as ex:
@@ -381,6 +423,8 @@ class Engine:
             self._info("Error: " + (str(ex) or "null"), report, stdout)
             if streaming is not None:
                 hits = streaming.partial_hits()
+            elif spmd is not None:
+                hits = spmd.partial_hits()
             else:
                 hits = LookupHits.from_lists([], [], [], [], [], [], 0)
         finally:

@@ -2,12 +2,14 @@
 
 Counterpart of the reference's prepareQuery/addKmers
 (KmerGutsJava.java:1051-1074, :900-922) and of the JAX package's
-``models/prepare.py`` host paths: the native C++ feeder (bulk or per
-record) and its numpy twins encode 8-mers on the host (after 6-frame
-translation in DNA mode) and feed (value, container, pos) records to the
-lookup front end. Container creation order defines the hit container ids:
-per DNA contig +0, +1, +2, -0, -1, -2 (ref :1064-1072); one '+/0'
-container per protein (ref :1059).
+``models/prepare.py``: the native C++ feeder (bulk or per record) and its
+numpy twins encode 8-mers on the host (after 6-frame translation in DNA
+mode); ``prepare_aa``/``prepare_dna`` (``--prepare jax``, the JAX package's
+name) run the k-mer window kernel's values entry on the device
+(``ops/kmer_windows.py``) and compact the valid windows on the host. Each
+feeds (value, container, pos) records to the lookup front end. Container
+creation order defines the hit container ids: per DNA contig +0, +1, +2,
+-0, -1, -2 (ref :1064-1072); one '+/0' container per protein (ref :1059).
 """
 from __future__ import annotations
 
@@ -74,6 +76,156 @@ class Prepared:
 
 def _seq_to_ascii(seq: str) -> np.ndarray:
     return np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+# the cells (rows x padded width) one launch of the k-mer window kernel
+# takes, on the fused path and in the device prepare of contigs
+MAX_CELLS = 1 << 22
+
+
+class BucketQueue:
+    """Rows queued by power-of-two length bucket (``min_bucket`` and up),
+    as the JAX package batches them for the device: ``add`` hands back a
+    bucket's batch once it holds ``batch_rows`` rows (or ``max_cells //
+    bucket``, at least one, when ``max_cells`` is given); ``drain`` hands
+    back the rest in the order their buckets opened. A batch is (keys,
+    zero-padded rows u8[b, bucket], lengths)."""
+
+    def __init__(self, batch_rows: int, min_bucket: int, max_cells=None):
+        self.batch_rows, self.min_bucket = batch_rows, min_bucket
+        self.max_cells = max_cells
+        self._pending: Dict[int, List[Tuple[int, np.ndarray]]] = {}
+
+    def add(self, key: int, ascii_u8: np.ndarray):
+        bucket = _next_pow2(max(len(ascii_u8), self.min_bucket))
+        q = self._pending.setdefault(bucket, [])
+        q.append((key, ascii_u8))
+        cap = self.batch_rows
+        if self.max_cells is not None:
+            cap = max(1, min(cap, self.max_cells // bucket))
+        return self._batch(bucket) if len(q) >= cap else None
+
+    def drain(self):
+        for bucket in list(self._pending):
+            yield self._batch(bucket)
+
+    def _batch(self, bucket: int):
+        rows = self._pending.pop(bucket)
+        mat = np.zeros((len(rows), bucket), dtype=np.uint8)
+        lens = np.empty(len(rows), dtype=np.int64)
+        keys = np.empty(len(rows), dtype=np.int64)
+        for r, (key, ascii_u8) in enumerate(rows):
+            mat[r, : len(ascii_u8)] = ascii_u8
+            lens[r] = len(ascii_u8)
+            keys[r] = key
+        return keys, mat, lens
+
+
+class _DeviceValues:
+    """The k-mer window kernel's values entry on one device, on a stream of
+    its own: host rows in, one upload, one launch, one read-back of the
+    int64 values (-1 where a window is not valid)."""
+
+    def __init__(self, device: str):
+        from ..lookup.sparse import owned_stream, torch_device
+
+        self.device = torch_device(device)
+        self.stream = owned_stream(self.device)
+
+    def __call__(self, mat: np.ndarray, counts: np.ndarray, aa: bool
+                 ) -> np.ndarray:
+        from ..lookup.sparse import _device_fault, on_stream
+        from ..ops.kmer_windows import window_values
+        from ..parallel.annotate_step import upload
+
+        with on_stream(self.stream), _device_fault("launch",
+                                                   "device prepare"):
+            a, c = upload(self.device, mat, counts.astype(np.int32))
+            return window_values(a, c, aa).cpu().numpy()
+
+
+def prepare_aa(records: Iterable[FastaRecord], store: QueryKmerStore,
+               batch_rows: int = 512, min_bucket: int = 256,
+               device: str = "cuda") -> Prepared:
+    """Protein mode on the device: rows padded to power-of-two length
+    buckets (``min_bucket`` and up), ``batch_rows`` a launch of the window
+    kernel's values entry, valid windows compacted on the host in the JAX
+    package's order of ``add_batch`` calls."""
+    prep = Prepared()
+    values_of = _DeviceValues(device)
+    queue = BucketQueue(batch_rows, min_bucket)
+
+    def flush(batch) -> None:
+        cnt_ids, mat, lens = batch
+        # reference window bound is strictly i < len - K (ref :912): the
+        # final full window of a protein is skipped
+        values = values_of(mat, lens - K, aa=True)
+        rr, cc = np.nonzero(values >= 0)
+        store.add_batch(values[rr, cc], cnt_ids[rr], cc)
+
+    for rec in records:
+        cid = prep.new_container((rec.id, "+", 0))
+        prep.id_len[rec.id] = len(rec.seq)
+        batch = queue.add(cid, _seq_to_ascii(rec.seq))
+        if batch is not None:
+            flush(batch)
+    for batch in queue.drain():
+        flush(batch)
+    return prep
+
+
+def prepare_dna(records: Iterable[FastaRecord], store: QueryKmerStore,
+                device: str = "cuda") -> Prepared:
+    """DNA mode on the device: six-frame translation and 8-mer packing by
+    the window kernel's values entry. The JAX package launches once a
+    contig at Lpad = 3 * next_pow2(max(len//3 + 1, 16)); here consecutive
+    contigs share a launch padded to the batch's largest such Lpad (up to
+    MAX_CELLS bases), which changes no window: a row's windows past
+    its own are not valid either way. One ``add_batch`` a launch, whose
+    rows are the contigs' rows in order, each in the JAX order (frame
+    row, then position)."""
+    prep = Prepared()
+    values_of = _DeviceValues(device)
+    pending: List[Tuple[List[int], np.ndarray]] = []
+    width = 0
+
+    def flush() -> None:
+        nonlocal pending, width
+        if not pending:
+            return
+        b = len(pending)
+        mat = np.zeros((b, width), dtype=np.uint8)
+        lens = np.empty(b, dtype=np.int64)
+        cids = np.empty((b, 6), dtype=np.int64)
+        for r, (c, ascii_u8) in enumerate(pending):
+            mat[r, : len(ascii_u8)] = ascii_u8
+            lens[r] = len(ascii_u8)
+            cids[r] = c
+        values = values_of(mat, lens, aa=False)  # [b, 6, width//3 - 7]
+        rr, gg, cc = np.nonzero(values >= 0)
+        store.add_batch(values[rr, gg, cc], cids[rr, gg], cc)
+        pending, width = [], 0
+
+    for rec in records:
+        ascii_u8 = _seq_to_ascii(rec.seq)
+        length = len(ascii_u8)
+        cids = [prep.new_container((rec.id, s, f))
+                for s in ("+", "-") for f in range(3)]
+        prep.id_len[rec.id] = length
+        lpad = 3 * _next_pow2(max(length // 3 + 1, 16))
+        if pending and (len(pending) + 1) * max(width, lpad) > MAX_CELLS:
+            flush()
+        pending.append((cids, ascii_u8))
+        width = max(width, lpad)
+    flush()
+    return prep
 
 
 def prepare_aa_numpy(records: Iterable[FastaRecord],

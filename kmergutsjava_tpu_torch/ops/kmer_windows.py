@@ -1,0 +1,221 @@
+"""K-mer windows from ASCII rows (the fused device path's front half): the
+hand-written CUDA kernel ``csrc/kmer_windows.cu``, its plain PyTorch twin
+and the wrappers that pick between them by the tensors' device.
+
+Replaces the device programs that the JAX package writes in XLA for the
+TPU up to the probe: ``parallel/annotate_step.py`` ``_encode_and_probe``
+and ``_dna_encode_and_probe`` (encode, six-frame translation, 8-mer packing,
+home and fingerprint residues) and ``parallel/seq_windows.py``
+``_window_probe`` (a long contig's windows, each container masked to the
+interval its window owns). The twin is the composition of
+``ops/encode.py``, ``ops/translate.py`` and ``ops/kmerize.py``.
+
+Three entries:
+
+- ``aa_homes_fps``: protein rows ``uint8[B, Lpad]`` and ``num_starts[B]``
+  -> homes ``int32[B, W]`` and fingerprints ``uint16[B, W]``, W = Lpad - 7;
+- ``dna_homes_fps``: contig rows ``uint8[B, Lpad]`` and ``lengths[B]`` (and
+  optionally a long contig's ``row_map``, ``own_start``, ``own_end``
+  ``[B, 6]``) -> ``[B, 6, W]``, W = Lpad//3 - 7, containers in the
+  reference's order +0 +1 +2 -0 -1 -2;
+- ``window_values``: either kind of rows -> int64 values, for the device
+  prepare (``--prepare jax``).
+
+A window that is not valid has home -1 (fingerprint 0), which the sparse
+probe (``lookup/tilejoin.py``) answers as off the plane, state 0, without
+reading the plane, so no mask travels beside the windows; its value is -1.
+
+The kernel is compiled with nvcc for sm_90a into a plain-C shared library on
+first use and loaded with ctypes; nothing is built or imported for CUDA when
+this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..constants import (AA_OFF_LUT, CODON_AA_OFF, COMPL_DNA_CODE_LUT,
+                         DNA_CODE_LUT, K)
+from ..lookup.tilejoin import KernelError, build_cuda_library
+from .encode import aa_offsets
+from .kmerize import FP_MOD, kmer_windows, to_u16
+from .translate import translate_6frames
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "kmer_windows.cu")
+
+# kernel launches since import (or since a caller reset them to 0): of the
+# homes-and-fingerprints entries (the fused step's) and of the values entry
+# (the device prepare's); counted only where a wrapper launches the CUDA
+# kernel, never for the twin
+launches = 0
+values_launches = 0
+
+# the kernel's tables (struct Luts of the source), passed by value a launch
+_LUTS = np.ascontiguousarray(np.concatenate(
+    [AA_OFF_LUT, DNA_CODE_LUT, COMPL_DNA_CODE_LUT, CODON_AA_OFF]
+).astype(np.uint8))
+assert _LUTS.size == 832
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (once per process, and only when the source is newer than the
+    library) and load the kernel library. Raises KernelError."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = build_cuda_library(SOURCE)
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.kmer_windows_aa.restype = ctypes.c_int
+        lib.kmer_windows_aa.argtypes = [p, p, i64, i64, p, i64,
+                                        ctypes.c_uint64, p, p, p, p]
+        lib.kmer_windows_dna.restype = ctypes.c_int
+        lib.kmer_windows_dna.argtypes = [p, p, i64, i64, p, p, p, p, i64,
+                                         ctypes.c_uint64, p, p, p, p]
+        _lib = lib
+        return lib
+
+
+def reciprocal(d: int) -> int:
+    """The kernel's exact reciprocal of a divisor: ceil(2^66 / d), with
+    which floor(v * M / 2^66) == v // d for every v < 2^35 (all k-mer
+    values) and 5 <= d < 2^31; 0 (the kernel's plain %) below 5."""
+    return 0 if d < 5 else -(-(1 << 66) // d)
+
+
+def windows_reference(ascii_u8: torch.Tensor, counts: torch.Tensor, aa: bool,
+                      num_sigs: Optional[int] = None, row_map=None,
+                      own_start=None, own_end=None):
+    """Plain PyTorch twin of the kernel (the JAX package's ops, composed).
+    ``counts``: num_starts (aa rows) or lengths (DNA rows). Returns
+    (homes, fps) when ``num_sigs`` is given, else the values; a window that
+    is not valid has home -1, fingerprint 0, value -1."""
+    if aa:
+        values, ok = kmer_windows(aa_offsets(ascii_u8), counts)
+    else:
+        frames = translate_6frames(ascii_u8, counts)  # [B, 6, Lpad//3]
+        if row_map is None:
+            starts = (counts.to(torch.int64) // 3 - K + 1).clamp(min=0)
+            values, ok = kmer_windows(frames, starts[:, None].expand(-1, 6))
+        else:
+            r = row_map.to(torch.int64)
+            good = (r >= 0) & (r < 6)
+            sel = torch.take_along_dim(
+                frames, torch.where(good, r, 0)[:, :, None], dim=1)
+            w = max(sel.shape[-1] - K + 1, 0)
+            values, ok = kmer_windows(sel, torch.full_like(r, w))
+            jj = torch.arange(w, device=ascii_u8.device)
+            ok &= (good[..., None] & (jj >= own_start[..., None])
+                   & (jj < own_end[..., None]))
+    if num_sigs is None:
+        return torch.where(ok, values, -1)
+    homes = torch.where(ok, values % num_sigs, -1).to(torch.int32)
+    return homes, to_u16(torch.where(ok, values % FP_MOD, 0))
+
+
+def _check(ascii_u8, counts, num_sigs, extra=()) -> None:
+    dev = ascii_u8.device
+    if (ascii_u8.dtype != torch.uint8 or ascii_u8.dim() != 2
+            or not ascii_u8.is_contiguous()):
+        raise KernelError(f"ascii must be a contiguous 2-D uint8 tensor, got "
+                          f"{ascii_u8.dtype} {tuple(ascii_u8.shape)}")
+    b = ascii_u8.shape[0]
+    for name, t, shape in (("counts", counts, (b,)),
+                           *((n, x, (b, 6)) for n, x in extra)):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise KernelError(f"{name} must be a contiguous int32 tensor of "
+                              f"shape {shape}, got {t.dtype} "
+                              f"{tuple(t.shape)}")
+        if t.device != dev:
+            raise KernelError(f"{name} is on {t.device}, ascii on {dev}")
+    if num_sigs is not None and not 1 <= num_sigs < 1 << 31:
+        raise KernelError(f"num_sigs {num_sigs} outside [1, 2^31)")
+    if dev.type not in ("cpu", "cuda"):
+        raise KernelError(f"no k-mer window kernel for device {dev}")
+
+
+def _launch(aa: bool, ascii_u8, counts, num_sigs, row_map=None,
+            own_start=None, own_end=None):
+    """Allocate the outputs and launch the kernel on the current stream
+    (or, for CPU tensors, run the twin)."""
+    global launches, values_launches
+    extra = (() if row_map is None else
+             (("row_map", row_map), ("own_start", own_start),
+              ("own_end", own_end)))
+    if row_map is not None and (own_start is None or own_end is None):
+        raise KernelError("row_map needs own_start and own_end")
+    _check(ascii_u8, counts, num_sigs, extra)
+    dev = ascii_u8.device
+    if dev.type == "cpu":
+        return windows_reference(ascii_u8, counts, aa, num_sigs, row_map,
+                                 own_start, own_end)
+    b, lpad = ascii_u8.shape
+    w = max((lpad if aa else lpad // 3) - K + 1, 0)
+    shape = (b, w) if aa else (b, 6, w)
+    if num_sigs is None:
+        values = torch.empty(shape, dtype=torch.int64, device=dev)
+        outs = (None, None, values.data_ptr())
+        ns = 1
+    else:
+        homes = torch.empty(shape, dtype=torch.int32, device=dev)
+        fps = torch.empty(shape, dtype=torch.uint16, device=dev)
+        outs = (homes.data_ptr(), fps.data_ptr(), None)
+        ns = num_sigs
+    if b and w:
+        lib = load_kernel()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        luts = _LUTS.ctypes.data
+        if aa:
+            rc = lib.kmer_windows_aa(luts, ascii_u8.data_ptr(), b, lpad,
+                                     counts.data_ptr(), ns, reciprocal(ns),
+                                     *outs, stream)
+        else:
+            rc = lib.kmer_windows_dna(
+                luts, ascii_u8.data_ptr(), b, lpad, counts.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (row_map, own_start, own_end)),
+                ns, reciprocal(ns), *outs, stream)
+        if rc != 0:
+            raise KernelError(f"k-mer window kernel launch failed: CUDA "
+                              f"error {rc}")
+        with _lock:
+            if num_sigs is None:
+                values_launches += 1
+            else:
+                launches += 1
+    return values if num_sigs is None else (homes, fps)
+
+
+def aa_homes_fps(ascii_u8: torch.Tensor, num_starts: torch.Tensor,
+                 num_sigs: int):
+    """(homes int32 [B, W], fps uint16 [B, W]) of protein rows, W = Lpad
+    - 7; window j of row b is valid for j < num_starts[b] (int32 [B])."""
+    return _launch(True, ascii_u8, num_starts, num_sigs)
+
+
+def dna_homes_fps(ascii_u8: torch.Tensor, lengths: torch.Tensor,
+                  num_sigs: int, row_map=None, own_start=None, own_end=None):
+    """(homes int32 [B, 6, W], fps uint16 [B, 6, W]) of contig rows, W =
+    Lpad//3 - 7, lengths int32 [B]; with ``row_map``/``own_start``/
+    ``own_end`` (int32 [B, 6]) container g of row b reads local frame
+    row_map[b, g] and is valid in [own_start, own_end)."""
+    return _launch(False, ascii_u8, lengths, num_sigs, row_map, own_start,
+                   own_end)
+
+
+def window_values(ascii_u8: torch.Tensor, counts: torch.Tensor, aa: bool
+                  ) -> torch.Tensor:
+    """int64 values of every window (-1 where not valid): [B, W] of
+    protein rows with num_starts, or [B, 6, W] of contig rows with
+    lengths."""
+    return _launch(aa, ascii_u8, counts, None)

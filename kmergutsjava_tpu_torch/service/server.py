@@ -338,6 +338,11 @@ def make_handler(service: KmerGutsService, token: Optional[str] = None,
                                   "message": f"request body {length} B "
                                              f"exceeds limit {max_body_bytes} B"}}
                 payload = json.dumps(resp).encode()
+                # counted before the reply, so that a client's next
+                # /metrics read sees it
+                service.metrics.inc("rpc_requests_total",
+                                    {"method": "_http",
+                                     "outcome": "body_too_large"})
                 self.send_response(413)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(payload)))
@@ -345,9 +350,6 @@ def make_handler(service: KmerGutsService, token: Optional[str] = None,
                 self.end_headers()
                 self.wfile.write(payload)
                 self._log_access(413, len(payload))
-                service.metrics.inc("rpc_requests_total",
-                                    {"method": "_http",
-                                     "outcome": "body_too_large"})
                 return
             body = self.rfile.read(length)
             try:

@@ -498,9 +498,9 @@ def test_cuda_device_without_cuda_raises(corpus):
 
 
 @pytest.mark.parametrize("argv", [["-D", "x", "--backend", "replicated"],
-                                  ["-a", "-D", "x", "--backend", "spmd"],
+                                  ["-a", "-D", "x", "--backend", "routed"],
                                   ["-a", "-D", "x", "--mesh", "2x2"],
-                                  ["-a", "-D", "x", "--prepare", "jax"]])
+                                  ["-a", "-D", "x", "--grouping", "scan"]])
 def test_cli_rejects_unported_options(argv, capsys):
     assert cli.main(argv) == 2
     assert "ROADMAP.md" in capsys.readouterr().out
@@ -524,5 +524,5 @@ print(len(names), bad)
                          env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.split(" ", 1)
-    assert int(n) >= 39  # the service, checkpoint and tools modules too
+    assert int(n) >= 50  # the fused path's ops/, parallel/ and spmd too
     assert bad.strip() == "[]"

@@ -793,3 +793,286 @@ def test_cuda_tjgather_empty_launch(cuda_device):
         torch.zeros((0, 8, 1, 128), dtype=torch.int32, device=cuda_device))
     torch.cuda.synchronize()
     assert key.shape == (0, 8, 1, 128) and tjgather.launches == before
+
+
+# --- the k-mer window kernel (csrc/kmer_windows.cu, ops/kmer_windows.py) ---
+
+from kmergutsjava_tpu_torch.ops import kmer_windows  # noqa: E402
+
+AA_BYTES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY" * 4 + b"acdwyXBZJUO*-.",
+                         np.uint8)
+NT_BYTES = np.frombuffer(b"ACGT" * 8 + b"acgtuUNnRYKMSWBDHV-", np.uint8)
+
+
+def _kw_rows(aa, b, lpad, seed):
+    """Seeded rows: letters of the alphabet (lowercase, IUPAC and junk
+    among them), every fifth byte of one row in 128-255, a row of each
+    length class (0, < 8, 8: num_starts 0 for aa, the bucket's edge), zero
+    padding past each length. Returns (ascii u8 [b, lpad], counts int32 [b]: num_starts =
+    length - 8 for aa rows, lengths for DNA rows)."""
+    rng = np.random.default_rng(seed)
+    mat = rng.choice(AA_BYTES if aa else NT_BYTES, (b, lpad)).astype(
+        np.uint8)
+    mat[0, ::5] = rng.integers(128, 256, mat[0, ::5].shape)
+    lens = rng.integers(0, lpad + 1, b)
+    lens[:4] = [lpad, 0, min(5, lpad), min(8, lpad)][:b]
+    mat[np.arange(lpad)[None, :] >= lens[:, None]] = 0
+    counts = lens - 8 if aa else lens
+    return mat, counts.astype(np.int32)
+
+
+def _kw_windowed(length, win_nt, seed):
+    """One long contig cut by plan_windows: (ascii [W, win_nt], len_w,
+    row_map, own_start, own_end), numpy."""
+    from kmergutsjava_tpu_torch.parallel.seq_windows import plan_windows
+
+    rng = np.random.default_rng(seed)
+    seq = rng.choice(NT_BYTES, length).astype(np.uint8)
+    plan = plan_windows(length, win_nt)
+    a = np.full((len(plan["s"]), win_nt), ord("N"), np.uint8)
+    for i, (s, e) in enumerate(zip(plan["s"], plan["e"])):
+        a[i, :e - s] = seq[s:e]
+    return (a, *(plan[k].astype(np.int32) for k in
+                 ("len_w", "row_map", "own_start", "own_end")))
+
+
+KW_CASES = [("aa", 1, 8), ("aa", 5, 9), ("aa", 33, 256), ("aa", 7, 1100),
+            ("dna", 1, 24), ("dna", 6, 256), ("dna", 9, 301),
+            ("dna", 3, 3000), ("windowed", 1200, 150),
+            ("windowed", 40_000, 12288)]
+
+
+def _kw_call(case, num_sigs, device, values=False):
+    """One entry of the wrapper on ``device`` for a KW_CASES case."""
+    kind, x, y = case
+    if kind == "windowed":
+        a, lens, rm, os_, oe = (torch.from_numpy(t).to(device)
+                                for t in _kw_windowed(x, y, seed=x))
+        return kmer_windows.dna_homes_fps(a, lens, num_sigs, rm, os_, oe)
+    mat, counts = _kw_rows(kind == "aa", x, y, seed=x * 1000 + y)
+    a, c = torch.from_numpy(mat).to(device), torch.from_numpy(counts).to(
+        device)
+    if values:
+        return kmer_windows.window_values(a, c, kind == "aa")
+    if kind == "aa":
+        return kmer_windows.aa_homes_fps(a, c, num_sigs)
+    return kmer_windows.dna_homes_fps(a, c, num_sigs)
+
+
+@pytest.mark.parametrize("case", KW_CASES[:9])
+def test_kmer_windows_cpu_runs_twin_and_counts_no_launch(case):
+    """On the CPU each entry is the twin and launches nothing; a window
+    that is not valid has home -1, fingerprint 0, value -1, and valid
+    windows carry the residues of their values."""
+    before = kmer_windows.launches
+    homes, fps = _kw_call(case, 1_000_003, "cpu")
+    assert kmer_windows.launches == before
+    assert homes.dtype == torch.int32 and fps.dtype == torch.uint16
+    bad = homes < 0
+    assert (homes[bad] == -1).all() and (fps.view(torch.int16)[bad] == 0).all()
+    if case[0] != "windowed":
+        values = _kw_call(case, None, "cpu", values=True)
+        assert torch.equal(values < 0, bad)
+        ok = ~bad
+        assert torch.equal(homes[ok].long(), values[ok] % 1_000_003)
+        assert torch.equal(tilejoin._widen(fps)[ok].long(),
+                           values[ok] % 65535)
+
+
+@pytest.mark.parametrize("bad", ["ascii_i32", "ascii_1d", "ascii_strided",
+                                 "counts_i64", "counts_short", "ns0",
+                                 "ns_big", "rowmap_alone", "rowmap_shape"])
+def test_kmer_windows_wrapper_rejects_bad_inputs(bad):
+    a = torch.zeros((4, 30), dtype=torch.uint8)
+    c = torch.zeros(4, dtype=torch.int32)
+    six = torch.zeros((4, 6), dtype=torch.int32)
+    ns = 101
+    extra = {}
+    if bad == "ascii_i32":
+        a = a.to(torch.int32)
+    elif bad == "ascii_1d":
+        a = a.view(-1)
+    elif bad == "ascii_strided":
+        a = torch.zeros((4, 60), dtype=torch.uint8)[:, ::2]
+    elif bad == "counts_i64":
+        c = c.long()
+    elif bad == "counts_short":
+        c = c[:3]
+    elif bad == "ns0":
+        ns = 0
+    elif bad == "ns_big":
+        ns = 1 << 31
+    elif bad == "rowmap_alone":
+        extra = {"row_map": six}
+    elif bad == "rowmap_shape":
+        extra = {"row_map": six[:, :5].contiguous(), "own_start": six,
+                 "own_end": six}
+    with pytest.raises(tilejoin.KernelError):
+        kmer_windows.dna_homes_fps(a, c, ns, **extra)
+
+
+def test_kmer_windows_reciprocal_is_exact():
+    """The kernel's residue: floor(v * M / 2^66) == v // d with M =
+    ceil(2^66 / d), for every k-mer value v < 20^8 at the divisors' edges
+    (checked here in exact integers; the card's multiply-high gives the
+    same high word)."""
+    rng = np.random.default_rng(11)
+    top = 20 ** 8 - 1
+    divisors = [5, 6, 7, 11, 65535, 1_000_003, 40_009_777, 97_612_893,
+                2 ** 31 - 1, *rng.integers(5, 2 ** 31, 40).tolist()]
+    for d in divisors:
+        m = kmer_windows.reciprocal(int(d))
+        assert 0 < m < 1 << 64
+        vs = {0, 1, d - 1, d, d + 1, top, top - 1, top // d * d,
+              top // d * d - 1, *rng.integers(0, top, 200).tolist()}
+        for v in vs:
+            assert (v * m >> 64) >> 2 == v // d, (v, d)
+    assert kmer_windows.reciprocal(4) == 0  # the kernel's plain % below 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KW_CASES)
+def test_cuda_kmer_windows_match_twin(cuda_device, case):
+    """Each entry's kernel against the twin, every output equal, at a
+    small table (num_sigs 11 and 4, the plain % path) and a large one."""
+    for ns in (4, 11, 40_009_777):
+        before = kmer_windows.launches
+        got = _kw_call(case, ns, cuda_device)
+        torch.cuda.synchronize()
+        assert kmer_windows.launches == before + 1
+        want = _kw_call(case, ns, "cpu")
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu().view(torch.int16),
+                           want[1].view(torch.int16))
+    if case[0] != "windowed":
+        got = _kw_call(case, None, cuda_device, values=True)
+        assert torch.equal(got.cpu(), _kw_call(case, None, "cpu",
+                                               values=True))
+
+
+@pytest.mark.cuda
+def test_cuda_kmer_windows_empty_and_device_checks(cuda_device):
+    """No window (Lpad < 8, or no rows) launches nothing; inputs on two
+    devices raise KernelError."""
+    before = kmer_windows.launches
+    for shape in ((3, 7), (0, 64)):
+        a = torch.zeros(shape, dtype=torch.uint8, device=cuda_device)
+        c = torch.zeros(shape[0], dtype=torch.int32, device=cuda_device)
+        h, f = kmer_windows.aa_homes_fps(a, c, 101)
+        assert h.numel() == 0
+    h, f = kmer_windows.dna_homes_fps(
+        torch.zeros((2, 23), dtype=torch.uint8, device=cuda_device),
+        torch.zeros(2, dtype=torch.int32, device=cuda_device), 101)
+    assert h.shape == (2, 6, 0) and kmer_windows.launches == before
+    with pytest.raises(tilejoin.KernelError):
+        kmer_windows.aa_homes_fps(
+            torch.zeros((2, 30), dtype=torch.uint8, device=cuda_device),
+            torch.zeros(2, dtype=torch.int32), 101)
+
+
+def _kw_table(seed, n_sigs=20_000):
+    """A seeded table whose signatures include 8-mers of random proteins
+    (so candidates and hits occur), and those proteins."""
+    from kmergutsjava_tpu_torch.constants import AA_OFF_LUT, POW20
+    from kmergutsjava_tpu_torch.formats.kmer_table import build_table
+
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    prots = [rng.choice(letters, int(rng.integers(5, 900))).astype(np.uint8)
+             for _ in range(300)]
+    vals = set()
+    for p in prots[::2]:
+        o = AA_OFF_LUT[p].astype(np.int64)
+        for i in range(0, len(p) - 8, 3):
+            vals.add(int((o[i:i + 8] * POW20).sum()))
+    kmers = np.unique(np.concatenate([np.array(sorted(vals), np.int64),
+                                      rng.integers(0, 20 ** 8, n_sigs)]))
+    n = len(kmers)
+    table = build_table(kmers, rng.integers(0, 20, n).astype(np.int32),
+                        rng.integers(0, 500, n).astype(np.int32),
+                        rng.integers(0, 97, n).astype(np.int32),
+                        rng.random(n).astype(np.float32), load_factor=0.7)
+    table.compute_max_probe()
+    return table, prots
+
+
+CODON = dict(zip(b"ACDEFGHIKLMNPQRSTVWY", (
+    b"GCT", b"TGT", b"GAT", b"GAA", b"TTT", b"GGT", b"CAT", b"ATT", b"AAA",
+    b"CTT", b"ATG", b"AAT", b"CCT", b"CAA", b"CGT", b"TCT", b"ACT", b"GTT",
+    b"TGG", b"TAT")))
+
+
+def _kw_contigs(prots, seed, width=3000):
+    """Contigs coding for ``prots`` (their first 990 residues), every
+    third one reverse-complemented, behind a few random bases: rows
+    [len(prots), width] and their lengths."""
+    rng = np.random.default_rng(seed)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    mat = np.zeros((len(prots), width), np.uint8)
+    lens = np.zeros(len(prots), np.int64)
+    for i, p in enumerate(prots):
+        nt = b"".join(CODON[c] for c in p[:990].tobytes())
+        if i % 3 == 0:
+            nt = nt.translate(comp)[::-1]
+        nt = rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                        i % 4).tobytes() + nt
+        mat[i, :len(nt)] = np.frombuffer(nt, np.uint8)
+        lens[i] = len(nt)
+    return mat, lens
+
+
+def test_contigs_of_the_fused_step_test_hit():
+    """The cuda test's contigs have candidates (on the CPU, the twins)."""
+    from kmergutsjava_tpu_torch.parallel import annotate_step as st
+
+    table, prots = _kw_table(5)
+    mat, lens = _kw_contigs(prots[::2][:64], seed=9)
+    step, planes = st.make_dna_step(table, max(8, table.max_probe), "cpu")
+    idx, off = st.read_candidates(*step(planes["fp"], mat, lens))
+    assert len(off) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aa", [True, False])
+def test_cuda_fused_step_decodes_to_twin_hits(cuda_device, aa):
+    """The fused step (window kernel -> B1) on the card: its answer (off
+    and state) equals the CPU step's (the twins), and so do its decoded,
+    verified hits."""
+    from kmergutsjava_tpu_torch.ops import hostvalues
+    from kmergutsjava_tpu_torch.parallel import annotate_step as st
+    from kmergutsjava_tpu_torch.parallel.sharded_lookup import \
+        gather_hit_metadata
+
+    table, prots = _kw_table(5)
+    pw = max(8, table.max_probe)
+    if aa:
+        mat = np.zeros((len(prots), 1024), np.uint8)
+        for i, p in enumerate(prots):
+            mat[i, :len(p)] = p
+        lens = np.array([len(p) for p in prots])
+        make = st.make_annotate_step
+    else:
+        mat, lens = _kw_contigs(prots[::2][:64], seed=9)
+        make = st.make_dna_step
+    hits = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        step, planes = make(table, pw, dev)
+        before = (kmer_windows.launches, tilejoin.launches)
+        answer, shape = step(planes["fp"], mat, lens)
+        assert (kmer_windows.launches, tilejoin.launches) == (
+            (before[0] + 1, before[1] + 1) if dev.type == "cuda"
+            else before)
+        # off and state views (the bytes between them are not written)
+        hits[dev.type] = [v.clone() for v in tilejoin.answer_views(
+            answer.cpu(), int(np.prod(shape)))]
+        idx, off = st.read_candidates(answer, shape)
+        vals = (hostvalues.aa_values_at(mat, *idx) if aa else
+                hostvalues.dna_values_at(mat, lens, *idx))
+        found = gather_hit_metadata(
+            table, st.candidate_slots(vals, off, table.num_sigs),
+            values=vals, probe_window=pw)
+        hits[dev.type] += [*idx, off, *found]
+        assert found[0].sum() > 100
+    for got, want in zip(hits["cuda"], hits["cpu"]):
+        assert (torch.equal(got, want) if isinstance(got, torch.Tensor)
+                else np.array_equal(got, want))

@@ -41,7 +41,7 @@ from corpus_util import build_corpus_data_dir, load_corpus
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AA = "ACDEFGHIKLMNPQRSTVWY"
-BACKENDS = ["auto", "xla", "stream", "pallas", "parity"]
+BACKENDS = ["auto", "xla", "stream", "pallas", "parity", "spmd"]
 
 
 @contextlib.contextmanager

@@ -4,8 +4,8 @@ table (load 0.3-0.95, random weights and thinning, sometimes gzipped) and a
 random query set (aa or DNA: mutations, reverse strands, N runs, duplicate
 ids), with random grouping parameters, sometimes debug mode and sometimes a
 small ``-l`` (store spills, stream passes). The port's parity, xla, stream,
-pallas and auto backends on the CPU (from stdin or from a file, 1-4 native
-threads) and a port checkpoint run at a random batch size must each be
+pallas, auto and spmd backends on the CPU (from stdin or from a file, 1-4
+native threads) and a port checkpoint run at a random batch size must each be
 byte-equal to the JAX ``parity`` Engine (debug timing lines masked). A few
 seeds run in the tier-1 suite; ``-m slow`` runs many more."""
 import io
@@ -30,7 +30,7 @@ CODON = {"A": "GCT", "C": "TGT", "D": "GAT", "E": "GAA", "F": "TTT",
          "M": "ATG", "N": "AAT", "P": "CCT", "Q": "CAA", "R": "CGT",
          "S": "TCT", "T": "ACT", "V": "GTT", "W": "TGG", "Y": "TAT"}
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
-PORT_BACKENDS = ("parity", "xla", "stream", "pallas", "auto")
+PORT_BACKENDS = ("parity", "xla", "stream", "pallas", "auto", "spmd")
 # debug reports embed timing and progress info lines
 _DROP = re.compile(r"^(Temp\. directory:|Preparation time:|Lookup time:"
                    r"|Grouping time:|Processed: )")
