@@ -9,8 +9,8 @@ failure and then prints no result):
 
 1. the card's name and power limit (nvidia-smi); build of the CUDA kernels
    (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu,
-   csrc/tjgather.cu and csrc/kmer_windows.cu, one nvcc each, started
-   together) for sm_90a;
+   csrc/tjgather.cu, csrc/kmer_windows.cu, csrc/shard_probe.cu and
+   csrc/route_bins.cu, one nvcc each, started together) for sm_90a;
 2. the tile-join kernel against its plain PyTorch twin on the card: a
    seeded 40M-slot fingerprint plane at load 0.6 with planted empties,
    queried (half planted hits) at the main path's launch shape (eight
@@ -102,7 +102,32 @@ failure and then prints no result):
    xla, the read set through spmd, auto and xla. Last, the window kernel
    against its twin at its real launch shapes (a proteome bucket batch, a
    read batch and the genome's window batch), every output equal, with its
-   device time (torch.profiler, the L2 flushed), the twin's and the bound.
+   device time (torch.profiler, the L2 flushed), the twin's and the bound;
+13. the multi-device modes on phase 4's table (parallel/: the mesh, the
+   shard probe B12 csrc/shard_probe.cu, the routing bins B13
+   csrc/route_bins.cu). Through the CLI at ``--mesh 1x1``: the proteome
+   through ``--backend sharded``, ``routed``, ``replicated``, ``xla`` and
+   ``auto`` (which routes: the proteome is sparse), and phase 7's read set
+   through ``--backend stream``. Through the Engine with ``mesh_devices``
+   of four positions (on the one card, or on four cards where the machine
+   has them; the line prints how many distinct cards): ``sharded`` at
+   (2, 2) and (1, 4), ``routed`` over 4, ``replicated`` over 2, ``xla``
+   over 4 table shards and ``spmd`` at (2, 2) on the proteome, ``stream``
+   over 4 and ``spmd`` at (2, 2) on the read set; and the single-device
+   ``xla`` (proteome) and ``auto`` (read set) in the same conditions. Every
+   report must equal phase 4's or phase 7's; every mesh position must be a
+   CUDA device; each run launches its kernels as predicted (B12 once a
+   position a step, B13's two entries and B1 once a shard, B1 and B2 once
+   a table shard a dispatch or plane pass, B1 once a data device a
+   dispatch) and no others. Then B12 (at the sharded (2, 2) run's shape: a
+   data row's queries against each table shard) and B13 (at the routed
+   run's shape: the first shard's queries, its bins and the un-binning)
+   against their twins on the card, exact, with their device times, the
+   twins' and their bounds; and, each call taken by a spy on its wrapper,
+   B12 in the (2, 2) spmd step on phase 12's proteome bucket batch and
+   read batch (the window kernel's outputs), B1 at the routed owners (the
+   received bins) and B1 on the xla lookup's four table shards (local
+   homes), every call equal to its twin.
 
 Each kernel's line also prints its bound (``bound_ms``: the larger of
 the bytes it must move over the card's memory rate and one integer
@@ -117,10 +142,12 @@ name, source, the TPU kernel it replaces, its launches on its path (phase
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather, phase 12's
 sparse proteome spmd run for the window kernel, with B1's launches in that
-run beside them), its largest
+run beside them, phase 13's sharded (2, 2) run for B12 and routed run for
+B13), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
-phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch),
+phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch;
+phase 13's shapes),
 the bound and share at those shapes,
 and ``library_ms`` null (no single PyTorch call computes a first-event
 window probe); the last line is
@@ -195,19 +222,23 @@ def kernel_modules():
     from kmergutsjava_tpu_torch.lookup import (blockprobe, stream, tilejoin,
                                                tjgather)
     from kmergutsjava_tpu_torch.ops import kmer_windows
+    from kmergutsjava_tpu_torch.parallel import route_bins, shard_probe
 
     return dict(tilejoin=tilejoin, stream=stream, blockprobe=blockprobe,
-                tjgather=tjgather, kmer_windows=kmer_windows)
+                tjgather=tjgather, kmer_windows=kmer_windows,
+                shard_probe=shard_probe, route_bins=route_bins)
 
 
 def reset_counts():
-    """Every kernel's launch count to 0 (the repetition launch's and the
-    window kernel's values entry's too)."""
+    """Every kernel's launch count to 0 (the repetition launch's, the
+    window kernel's values entry's and the routing bins' un-binning
+    entry's too)."""
     mods = kernel_modules()
     for m in mods.values():
         m.launches = 0
     mods["stream"].reps_launches = 0
     mods["kmer_windows"].values_launches = 0
+    mods["route_bins"].unbin_launches = 0
 
 
 def read_counts():
@@ -215,6 +246,7 @@ def read_counts():
     got = {name: m.launches for name, m in mods.items()}
     got["stream_reps"] = mods["stream"].reps_launches
     got["kmer_values"] = mods["kmer_windows"].values_launches
+    got["route_unbin"] = mods["route_bins"].unbin_launches
     return got
 
 
@@ -1566,10 +1598,415 @@ def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
     return launches, window_kernel_vs_twin(dev, batches, plane, pw)
 
 
+def run_engine(data_dir, query, out_path, aa=True, **cfg):
+    """The port's Engine on the card, through its API (``mesh_devices`` is
+    not a CLI flag), the report to ``out_path``; returns (info lines,
+    seconds)."""
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), open(out_path, "w") as out:
+        Engine(EngineConfig(aa=aa, device="cuda", **cfg)).run(
+            data_dir, query, out, stdout=False)
+    return buf.getvalue(), time.time() - t0
+
+
+def cached_mesh():
+    """The mesh of the lookup (or fused program) the last run left in the
+    engine's one-slot cache, or None (a single-device lookup)."""
+    from kmergutsjava_tpu_torch.models import pipeline
+
+    return getattr(next(iter(pipeline._LOOKUP_CACHE.values())), "mesh",
+                   None)
+
+
+def bound_shard_probe(homes, answer, lo, s_loc, w):
+    """B12: each query's home and fingerprint in and its answer out (10 B),
+    and for the queries the shard owns the plane's 32-byte sectors from
+    the home to the first match (or the window's end); one operation a
+    query and a slot compared."""
+    import torch
+
+    local = homes.long() - lo
+    mine = (local >= 0) & (local < s_loc)
+    last = torch.where(answer > 0, answer.long() - lo - local, w)[mine]
+    first = local[mine]
+    sectors = int(((first + last - 1) // 16 - first // 16 + 1).sum())
+    return bound(10 * homes.numel() + min(32 * sectors, 2 * (s_loc + w)),
+                 homes.numel() + int(last.sum()))
+
+
+def bound_route_bins(n, cells):
+    """B13's binning: each query's home and fingerprint in and its cell out
+    (10 B), every cell of the bins written (6 B); one operation a query and
+    a cell."""
+    return bound(10 * n + 6 * cells, n + cells)
+
+
+def bound_route_unbin(n, answered):
+    """B13's un-binning: each query's cell in and its two answer bytes out
+    (6 B), and the two answer bytes of each answered query's cell."""
+    return bound(6 * n + 2 * answered, n)
+
+
+def mesh_devices_of_card():
+    """Phase 13's four mesh positions: on four distinct cards where the
+    machine has them, else repeated over the cards there are."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    return [f"cuda:{i % n_cards}" for i in range(4)]
+
+
+def mesh_runs(work, big, faa, reads, tj_launches, kw_launches):
+    """Phase 13's runs: the CLI at ``--mesh 1x1``, the Engine over four
+    mesh positions and two single-device runs; each report against phase
+    4's or phase 7's, each mesh on CUDA devices only, each run launching
+    its kernels (the keys of its ``predicted``) as often as predicted
+    (None: any number) and no others. Returns (B12's launches in the
+    sharded (2, 2) run, B13's binning and un-binning launches in the
+    routed run)."""
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    want = {True: read(os.path.join(work, "big_cuda.txt")),
+            False: read(os.path.join(work, "reads_auto.txt"))}
+    query = {True: faa, False: reads}
+    four = mesh_devices_of_card()
+
+    def one(label, aa, backend, predicted, cli_mesh=None, **cfg):
+        reset_counts()
+        out = os.path.join(work, f"mesh_{len(os.listdir(work))}.txt")
+        if cli_mesh:
+            info, secs = run_cli(big, query[aa], out, "cuda",
+                                 ("--backend", backend, "--mesh", cli_mesh),
+                                 aa=aa)
+        else:
+            info, secs = run_engine(big, query[aa], out, aa=aa,
+                                    backend=backend, **cfg)
+        counts = read_counts()
+        got = read(out)
+        m = cached_mesh()
+        devs = [] if m is None else [d for row in m.devices for d in row]
+        shape = None if m is None else (m.shape["data"], m.shape["table"])
+        print(f"phase 13: {label} backend={backend} mesh={shape} positions="
+              f"{len(devs)} distinct_cards={len({str(d) for d in devs})} "
+              f"report_bytes={len(got)} identical={got == want[aa]} "
+              f"launches={counts} wall_s={secs:.3f} {phase_ms(info)}",
+              flush=True)
+        if got != want[aa]:
+            raise RuntimeError(f"phase 13: {label} {backend} differs from "
+                               f"phase {4 if aa else 7}'s report")
+        if any(d.type != "cuda" for d in devs):
+            raise RuntimeError(f"phase 13: {label} placed a shard off the "
+                               f"card: {devs}")
+        check_launches(f"phase 13 {label} {backend}", counts,
+                       tuple(predicted))
+        for name, n in predicted.items():
+            if n is not None and counts[name] != n:
+                raise RuntimeError(f"phase 13: {label} {backend} launched "
+                                   f"{name} {counts[name]} times, "
+                                   f"predicted {n}")
+        return counts
+
+    routed = {"route_bins": 1, "route_unbin": 1, "tilejoin": 1}
+    # the CLI on one card at a 1x1 mesh (xla keeps its one-device lookup;
+    # auto routes, since the proteome is sparse against this table)
+    for backend, predicted in (("sharded", {"shard_probe": 1}),
+                               ("routed", routed),
+                               ("replicated", {"tilejoin": tj_launches}),
+                               ("xla", {"tilejoin": tj_launches}),
+                               ("auto", routed)):
+        one("cli --mesh 1x1 proteome", True, backend, predicted,
+            cli_mesh="1x1")
+    passes = one("cli --mesh 1x1 reads", False, "stream", {"stream": None},
+                 cli_mesh="1x1")["stream"]
+    if passes < 2:
+        raise RuntimeError(f"phase 13: {passes} plane passes for the read "
+                           "set")
+    # the Engine over four mesh positions: B12 once a position a step, B13
+    # and B1 once a shard, B1 and B2 once a table shard a dispatch or pass,
+    # B1 once a data device a dispatch (of a device's 2^19 queries)
+    b12 = one("engine proteome", True, "sharded", {"shard_probe": 4},
+              mesh_shape=(2, 2), mesh_devices=four)["shard_probe"]
+    one("engine proteome", True, "sharded", {"shard_probe": 4},
+        mesh_shape=(1, 4), mesh_devices=four)
+    counts = one("engine proteome", True, "routed",
+                 {k: 4 for k in routed}, mesh_shape=(1, 4),
+                 mesh_devices=four)
+    b13 = (counts["route_bins"], counts["route_unbin"])
+    one("engine proteome", True, "replicated",
+        {"tilejoin": 2 * -(-tj_launches // 2)}, mesh_shape=(2, 1),
+        mesh_devices=four)
+    one("engine proteome", True, "xla", {"tilejoin": 4 * tj_launches},
+        mesh_shape=(1, 4), mesh_devices=four)
+    one("engine reads", False, "stream", {"stream": 4 * passes},
+        mesh_shape=(1, 4), mesh_devices=four)
+    one("engine proteome", True, "spmd",
+        {"kmer_windows": 4 * kw_launches, "shard_probe": 4 * kw_launches},
+        mesh_shape=(2, 2), mesh_devices=four)
+    counts = one("engine reads", False, "spmd",
+                 {"kmer_windows": None, "shard_probe": None},
+                 mesh_shape=(2, 2), mesh_devices=four)
+    if counts["kmer_windows"] != counts["shard_probe"] \
+            or counts["kmer_windows"] % 4:
+        raise RuntimeError(f"phase 13: spmd on the read set launched "
+                           f"{counts}: not one window kernel and one B12 a "
+                           "position a batch")
+    # the single-device runs in the same conditions, for their wall times
+    one("engine proteome single-device", True, "xla",
+        {"tilejoin": tj_launches})
+    one("engine reads single-device", False, "auto", {"stream": passes})
+    return b12, b13
+
+
+def mesh_kernels_vs_twins(dev, big, faa):
+    """Phase 13's kernels against their twins on the card at the mesh
+    runs' shapes. B12: data row 0's queries of the sharded (2, 2) run (the
+    proteome padded to 2 x 256) against each of the two table shards. B13:
+    shard 0's queries of the routed run over 4 shards (cap 2 x its mean
+    load a bin), its bins and cells, and the un-binning of answers the
+    size of its back buffers. Every output equal; device times
+    (kernel_device_ms, the L2 flushed), the twins' (CUDA events) and the
+    bounds. Returns {"shard_probe": (...), "route_bins": (...),
+    "route_unbin": (...)}, each (max_abs_err, kernel_ms, twin_ms,
+    bound)."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.formats.kmer_table import \
+        resolve_table_files
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+    from kmergutsjava_tpu_torch.models.pipeline import _cached_read_table
+    from kmergutsjava_tpu_torch.parallel import route_bins, shard_probe
+    from kmergutsjava_tpu_torch.parallel.sharded_lookup import \
+        shard_table_planes
+
+    table = _cached_read_table(resolve_table_files(big)[0])
+    values = query_values(faa)
+    n = len(values)
+    res = {}
+
+    # B12 at the sharded (2, 2) run's shape
+    pw = max(8, table.max_probe)
+    planes = shard_table_planes(table, 2, pw)
+    s_loc = planes["s_loc"]
+    n_pad = -(-n // 512) * 512
+    v = np.zeros(n_pad, np.int64)
+    v[:n] = values
+    half = v[:n_pad // 2]
+    q = torch.from_numpy((half % FP_MOD).astype(np.uint16)).to(dev)
+    h = torch.from_numpy((half % table.num_sigs).astype(np.int32)).to(dev)
+    per_shard = []
+    for t in range(2):
+        plane = torch.from_numpy(planes["fp"][t]).to(dev)
+
+        def run():
+            return shard_probe.shard_probe(plane, q, h, t * s_loc, s_loc, pw)
+
+        got = run()
+        twin = shard_probe.shard_probe_reference(plane, q, h, t * s_loc,
+                                                 s_loc, pw)
+        torch.cuda.synchronize(dev)
+        err = int((got.long() - twin.long()).abs().max())
+        ms, kept = kernel_device_ms(run, dev, "shard_probe_kernel")
+        t_ms = timed(lambda: shard_probe.shard_probe_reference(
+            plane, q, h, t * s_loc, s_loc, pw), dev)
+        bnd = bound_shard_probe(h, got, t * s_loc, s_loc, pw)
+        owned = int(((h >= t * s_loc) & (h < (t + 1) * s_loc)).sum())
+        print(f"phase 13: B12 table shard {t} of 2 queries={h.numel()} "
+              f"owned={owned} s_loc={s_loc} pw={pw} "
+              f"candidates={int((got > 0).sum())} max_abs_err={err} "
+              f"device_ms={ms[0]:.5f} runs_kept={kept}/5 twin_ms={t_ms:.4f} "
+              f"{bound_fields(ms[0], bnd)}", flush=True)
+        per_shard.append((err, ms[0], t_ms, bnd))
+        del plane, got, twin
+    # the line's numbers are table shard 0's; its error is both shards'
+    res["shard_probe"] = (max(r[0] for r in per_shard),) + per_shard[0][1:]
+
+    # B13 at the routed run's shape (4 shards)
+    shards = 4
+    n_loc = -(-n // shards)
+    cap = max(64, int(n_loc / shards * 2.0))
+    r_s_loc = -(-table.num_sigs // shards)
+    v = np.zeros(n_loc * shards, np.int64)
+    v[:n] = values
+    q = torch.from_numpy((v[:n_loc] % FP_MOD).astype(np.uint16)).to(dev)
+    h = torch.from_numpy((v[:n_loc] % table.num_sigs).astype(
+        np.int32)).to(dev)
+
+    def bins():
+        return route_bins.bins(q, h, n, r_s_loc, shards, cap)
+
+    got = bins()
+    twin = route_bins.bins_reference(q, h, n, r_s_loc, shards, cap)
+    torch.cuda.synchronize(dev)
+    err = max(int((_u(a) - _u(b)).abs().max()) for a, b in zip(got, twin))
+    ms, kept = kernel_device_ms(bins, dev, "route_")
+    t_ms = timed(lambda: route_bins.bins_reference(q, h, n, r_s_loc, shards,
+                                                   cap), dev)
+    bnd = bound_route_bins(n_loc, shards * cap)
+    print(f"phase 13: B13 bins shard 0 of {shards} queries={n_loc} "
+          f"cap={cap} overflow={int((got[2] < 0).sum())} max_abs_err={err} "
+          f"device_ms={sum(ms):.5f} by_kernel={[round(x, 5) for x in ms]} "
+          f"runs_kept={kept}/5 twin_ms={t_ms:.4f} "
+          f"{bound_fields(sum(ms), bnd)}", flush=True)
+    res["route_bins"] = (err, sum(ms), t_ms, bnd)
+    cell = got[2]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    back = torch.randint(0, 256, (2, shards * cap), dtype=torch.uint8,
+                         device=dev, generator=gen)
+
+    def unbin():
+        return route_bins.unbin(cell, back[0], back[1])
+
+    got = unbin()
+    twin = route_bins.unbin_reference(cell, back[0], back[1])
+    torch.cuda.synchronize(dev)
+    err = max(int((a.int() - b.int()).abs().max())
+              for a, b in zip(got, twin))
+    ms, kept = kernel_device_ms(unbin, dev, "route_unbin")
+    t_ms = timed(lambda: route_bins.unbin_reference(cell, back[0], back[1]),
+                 dev)
+    bnd = bound_route_unbin(n_loc, int((cell >= 0).sum()))
+    print(f"phase 13: B13 unbin shard 0 of {shards} queries={n_loc} "
+          f"max_abs_err={err} device_ms={ms[0]:.5f} runs_kept={kept}/5 "
+          f"twin_ms={t_ms:.4f} {bound_fields(ms[0], bnd)}", flush=True)
+    res["route_unbin"] = (err, ms[0], t_ms, bnd)
+    return res
+
+
+@contextlib.contextmanager
+def spied(module, name, calls):
+    """``module.name`` wrapped for the enclosed work: each call's arguments
+    and a copy of its result (made on the caller's stream, before the path
+    can sum into it) are appended to ``calls``."""
+    real = getattr(module, name)
+
+    def spy(*args):
+        out = real(*args)
+        calls.append((args, out.clone()))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def mesh_inputs_vs_twins(big, faa, batches, four):
+    """Phase 13: B12 and B1 against their twins on the very inputs the mesh
+    paths give them, each call taken by a spy on its wrapper: B12 in the
+    (2, 2) ``spmd`` step on phase 12's proteome bucket batch and read batch
+    (the window kernel's homes and fingerprints a data slice, invalid
+    windows at home -1); B1 at the four routed owners (their received bins:
+    FP_EMPTY fill cells, homes local to the owner's slice, negative below
+    it) on the whole proteome; B1 on each of the ``xla`` lookup's four
+    table shards (homes local to the shard) for the proteome's first
+    dispatch. Every call's answer equal to its twin's (B12 int32, B1 off
+    and state). Returns (B12's max_abs_err, B1's)."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.constants import K
+    from kmergutsjava_tpu_torch.formats.kmer_table import \
+        resolve_table_files
+    from kmergutsjava_tpu_torch.lookup import tilejoin
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+    from kmergutsjava_tpu_torch.models.pipeline import _cached_read_table
+    from kmergutsjava_tpu_torch.models.spmd import SpmdProgram
+    from kmergutsjava_tpu_torch.parallel import (routed_lookup, shard_probe,
+                                                 tilejoin_shards)
+    from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
+
+    table = _cached_read_table(resolve_table_files(big)[0])
+    devs = [torch.device(d) for d in four]
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    b12_err = 0
+    for label, (aa, mat, counts, extra) in batches.items():
+        if extra is not None:  # the genome's windows: not a phase 13 input
+            continue
+        prog = SpmdProgram(table, EngineConfig(
+            aa=aa, device="cuda", mesh_shape=(2, 2), mesh_devices=four))
+        calls = []
+        with spied(shard_probe, "shard_probe", calls):
+            prog.step(prog.planes["fp"], mat,
+                      counts + K if aa else counts).read()
+        sync()
+        errs, owned, invalid, cands, n = [], 0, 0, 0, 0
+        for (plane, q, h, lo, s_loc, w), got in calls:
+            twin = shard_probe.shard_probe_reference(plane, q, h, lo, s_loc,
+                                                     w)
+            errs.append(int((got.long() - twin.long()).abs().max()))
+            owned += int(((h >= lo) & (h < lo + s_loc)).sum())
+            invalid += int((h < 0).sum())
+            cands += int((got > 0).sum())
+            n += h.numel()
+        b12_err = max([b12_err] + errs)
+        print(f"phase 13: B12 in the (2, 2) spmd step on {label}: launches="
+              f"{len(calls)} windows={n} owned={owned} invalid={invalid} "
+              f"candidates={cands} "
+              f"pw={prog.pw} max_abs_err={max(errs)}", flush=True)
+        del prog, calls
+
+    values = query_values(faa)
+    b1_err = 0
+    rl = routed_lookup.RoutedLookup(table, make_mesh(1, 4, devs),
+                                    probe_window=max(16, table.max_probe))
+    tj = tilejoin_shards.TileJoinShardedLookup(table, make_mesh(1, 4, devs))
+    first = values[:tj.chunk]
+    for label, run in (
+            ("the routed owners' received bins (whole proteome)",
+             lambda: rl.probe(values)),
+            ("the xla lookup's table shards (first dispatch)",
+             lambda: tj.resolve_probe(tj.dispatch_probe(
+                 (first % FP_MOD).astype(np.uint16),
+                 (first % table.num_sigs).astype(np.int32))))):
+        calls = []
+        with spied(tilejoin, "probe_answer", calls):
+            run()
+        sync()
+        errs, fills, below, n = [], 0, 0, 0
+        for (plane, q, h, w), answer in calls:
+            off_k, st_k = tilejoin.answer_views(answer, q.numel())
+            off_t, st_t = tilejoin.first_event_reference(plane, q, h, w)
+            errs.append(max(int((off_k.int() - off_t.int()).abs().max()),
+                            int((st_k.int() - st_t.int()).abs().max())))
+            fills += int((q.view(torch.int16) == -1).sum())
+            below += int((h < 0).sum())
+            n += q.numel()
+        b1_err = max([b1_err] + errs)
+        print(f"phase 13: B1 on {label}: launches={len(calls)} queries={n} "
+              f"fp_empty={fills} negative_homes={below} "
+              f"max_abs_err={max(errs)}", flush=True)
+        del calls
+    del rl, tj
+    return b12_err, b1_err
+
+
+def _u(x):
+    """A tensor's values as int64 (u16 storage widened)."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.tilejoin import _widen
+
+    return _widen(x).long() if x.dtype == torch.uint16 else x.long()
+
+
 def kernel_bound(ms, bnd):
     """A kernel entry's bound, share and library call (none: no single
-    PyTorch call computes a first-event window probe, or an 8-mer's home
-    and fingerprint from ASCII rows)."""
+    PyTorch call computes a first-event window probe, an 8-mer's home and
+    fingerprint from ASCII rows, a shard's first-match probe, or a stable
+    binning by owner)."""
     return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
             "library_ms": None}
 
@@ -1680,6 +2117,25 @@ def main() -> int:
             return fail("B1 and its twin disagree on the window kernel's "
                         "windows")
         kw_err, kw_ms, kw_plain_ms, kw_bnd = next(iter(kw_cmp.values()))
+        t13 = time.time()
+        b12_launches, (b13_launches, unbin_launches) = mesh_runs(
+            work, big, faa, os.path.join(work, "reads.fna"), tj_launches,
+            kw_launches)
+        mesh_cmp = mesh_kernels_vs_twins(dev, big, faa)
+        mesh_b12_err, mesh_b1_err = mesh_inputs_vs_twins(
+            big, faa, window_batches(prots, os.path.join(work, "genome.fna"),
+                                     os.path.join(work, "reads.fna")),
+            mesh_devices_of_card())
+        print(f"phase 13: wall_s={time.time() - t13:.3f}", flush=True)
+        for name, (e, *_) in mesh_cmp.items():
+            if e != 0:
+                return fail(f"{name} and its twin disagree")
+        if mesh_b12_err != 0:
+            return fail("B12 and its twin disagree on the spmd mesh step's "
+                        "windows")
+        if mesh_b1_err != 0:
+            return fail("B1 and its twin disagree on the routed owners' bins "
+                        "or the xla lookup's table shards")
 
     print(json.dumps({"kernels": [{
         "name": "tilejoin_first_event",
@@ -1687,7 +2143,8 @@ def main() -> int:
         "source": "kmergutsjava_tpu_torch/csrc/tilejoin.cu",
         "replaces": "kmergutsjava_tpu/lookup/pallas_tilejoin.py:145",
         "launches": tj_launches,
-        "max_abs_err": max([err, kw_b1_err] + [r[0] for r in cmp.values()]),
+        "max_abs_err": max([err, kw_b1_err, mesh_b1_err]
+                           + [r[0] for r in cmp.values()]),
         "ms": k_ms,
         "call_ms": call_ms,
         "plain_ms": t_ms,
@@ -1744,6 +2201,34 @@ def main() -> int:
         "ms": kw_ms,
         "plain_ms": kw_plain_ms,
         **kernel_bound(kw_ms, kw_bnd),
+    }, {
+        "name": "shard_probe",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/shard_probe.cu",
+        "replaces": "kmergutsjava_tpu/parallel/sharded_lookup.py:129",
+        "launches": b12_launches,
+        "max_abs_err": max(mesh_cmp["shard_probe"][0], mesh_b12_err),
+        "ms": mesh_cmp["shard_probe"][1],
+        "plain_ms": mesh_cmp["shard_probe"][2],
+        **kernel_bound(mesh_cmp["shard_probe"][1],
+                       mesh_cmp["shard_probe"][3]),
+    }, {
+        "name": "route_bins",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/route_bins.cu",
+        "replaces": "kmergutsjava_tpu/parallel/routed_lookup.py:43 "
+                    "(:57-81, :119-133)",
+        "launches": b13_launches,
+        "unbin_launches": unbin_launches,
+        "max_abs_err": max(mesh_cmp["route_bins"][0],
+                           mesh_cmp["route_unbin"][0]),
+        "ms": mesh_cmp["route_bins"][1],
+        "unbin_ms": mesh_cmp["route_unbin"][1],
+        "plain_ms": mesh_cmp["route_bins"][2],
+        "unbin_plain_ms": mesh_cmp["route_unbin"][2],
+        **kernel_bound(mesh_cmp["route_bins"][1],
+                       mesh_cmp["route_bins"][3]),
+        "unbin_bound_ms": mesh_cmp["route_unbin"][3][0],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

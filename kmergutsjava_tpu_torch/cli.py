@@ -29,7 +29,8 @@ Arguments:
  -t - (optional) temporary directory (system one is used by default)
  -l - (optional) limit for input Kmer array (long, default = 20,000,000)
  --device NAME - (optional) torch device of the probe: cuda (default; the CUDA kernel) or cpu (its PyTorch twin)
- --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, spmd (fused device prepare+lookup), pallas, parity
+ --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density; routed instead of xla with --mesh), xla, stream, spmd (fused device prepare+lookup), pallas, parity, replicated, sharded, routed
+ --mesh DxT - (optional) device mesh for --backend sharded/routed/replicated/stream/xla/spmd/auto, e.g. 4x2 (D x T devices: the first card, then the others)
  --probe-window N - (optional) override table-derived probe window
  --chunk N - (optional) queries per device dispatch (default 524288)
  --prepare IMPL - (optional) encode impl: native (default), numpy, jax
@@ -41,7 +42,7 @@ Arguments:
 """
 
 # long flags of the JAX package's CLI that this package does not run yet
-_NOT_PORTED = ("mesh", "sort-chunks", "device-sort", "platform")
+_NOT_PORTED = ("sort-chunks", "device-sort", "platform")
 
 
 def parse_args(argv: List[str]):
@@ -71,6 +72,9 @@ def parse_args(argv: List[str]):
                 cfg.prepare_impl = params.pop(0)
             elif name == "grouping":
                 cfg.grouping_impl = params.pop(0)
+            elif name == "mesh":
+                d, t = params.pop(0).split("x")
+                cfg.mesh_shape = (int(d), int(t))
             elif name == "profile":
                 cfg.profile_dir = params.pop(0)
             elif name == "threads":

@@ -2,24 +2,29 @@
 
 One dataclass covering the reference's CLI surface (ref
 KmerGutsJava.java:560-654: flags -a -d -m -M -O -g -D -q -o -t -l) plus the
-port's extensions: backend selection, probe/chunk sizing and the torch
-device. Values the JAX package accepts but this package does not run yet
-are rejected with a ValueError that points at ROADMAP.md.
+port's extensions: backend selection, probe/chunk sizing, the mesh and the
+torch device. Values the JAX package accepts but this package does not run
+yet are rejected with a ValueError that points at ROADMAP.md.
 """
 from __future__ import annotations
 
 import tempfile
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 # lookup backends: "auto" (stream vs xla by query density — both are exact,
 # so the choice only costs speed), "xla" (the sparse tile-join probe),
 # "stream" (the dense stream probe), "spmd" (the fused device path: the
 # k-mer window kernel feeding the sparse probe), "pallas" (the merge-join
 # block probe; "xla", "spmd" and "pallas" keep the JAX package's names, so
-# its command lines run unchanged) and "parity" (the exact streaming scan).
-# "auto" never picks "spmd" or "pallas".
-BACKENDS = ("auto", "xla", "stream", "spmd", "pallas", "parity")
+# its command lines run unchanged), "parity" (the exact streaming scan) and
+# the multi-device lookups over a mesh (parallel/): "replicated" (the plane
+# on every data device), "sharded" (slot ranges over the table axis, a sum
+# of their answers) and "routed" (each query sent to the shard that owns its
+# home). "auto" never picks "spmd" or "pallas"; with a mesh its sparse side
+# is "routed".
+BACKENDS = ("auto", "xla", "stream", "spmd", "pallas", "parity",
+            "replicated", "sharded", "routed")
 # "jax" (the JAX package's name) is the device prepare: the k-mer window
 # kernel's values entry on the config's device
 PREPARE_IMPLS = ("native", "numpy", "jax")
@@ -60,6 +65,13 @@ class EngineConfig:
     # torch device of the fingerprint plane and the probe: "cuda" runs the
     # hand-written kernel, "cpu" its plain PyTorch twin
     device: str = "cuda"
+    mesh_shape: Optional[Tuple[int, int]] = None  # (data, table) shards
+    # the devices a mesh takes, in order (the JAX package's make_mesh
+    # devices=); None: every CUDA card on "cuda", the one CPU on "cpu". A
+    # device may repeat, so that several shards share one card. API only
+    # (no CLI flag); each must be of the kind of ``device``
+    # (parallel/mesh.py mesh_devices checks it)
+    mesh_devices: Optional[Sequence[str]] = None
 
     def __post_init__(self) -> None:
         if self.backend not in BACKENDS:
@@ -73,6 +85,11 @@ class EngineConfig:
         if kind not in ("cpu", "cuda"):
             raise ValueError(f"unknown device {self.device!r} "
                              "(expected cpu, cuda or cuda:N)")
+        if self.mesh_shape is not None and (
+                len(self.mesh_shape) != 2
+                or min(int(x) for x in self.mesh_shape) < 1):
+            raise ValueError(f"mesh shape {self.mesh_shape!r} is not two "
+                             "positive sizes (data x table)")
 
     def resolved_temp_dir(self) -> str:
         return self.temp_dir if self.temp_dir is not None else tempfile.gettempdir()

@@ -131,8 +131,9 @@ def on_stream(stream):
 
 class HostWindow:
     """The host half of a lookup: the padded host k-mer column, the exact
-    window ``full_window >= max_probe``, the exact full-window pass over it
-    and contiguous copies of the table's value columns. Allocates nothing
+    window ``full_window >= max_probe``, the exact full-window pass over it,
+    contiguous copies of the table's value columns, and the verification
+    of a first-pass (off, state) answer into hits. Allocates nothing
     on a device: the stream lookup's exact fallback uses it alone (the JAX
     package's ``XlaLookup(host_only=True)``)."""
 
@@ -182,6 +183,70 @@ class HostWindow:
             off[m] = l
             found |= m
         return found, np.where(found, off, 0)
+
+    def _verify_emit(self, values, homes, off, state, cnt, pos,
+                     want_values: bool):
+        """Resolve one dispatch's (off, state) answer into compacted hit
+        columns: fingerprint-candidate verification against the full
+        k-mer values, the exact full-window pass for the unresolved tail,
+        and hit compaction (native gather_resolve_slots + emit_hits; the
+        numpy twin below is bit-identical).
+
+        Returns ((cnt, pos, otu, avg, fi, wt) compacted columns,
+        matched values or None)."""
+        from ..utils.native import load_scatter
+
+        n = len(values)
+        lib = load_scatter()
+        if lib is not None and n:
+            values = np.ascontiguousarray(values, np.int64)
+            slots = np.empty(n, np.int64)
+            k = int(lib.gather_resolve_slots(
+                values, np.ascontiguousarray(homes, np.int32),
+                np.ascontiguousarray(off, np.uint8),
+                np.ascontiguousarray(state, np.uint8), n,
+                self.host_kmer, len(self.host_kmer), self.full_window,
+                slots))
+            t_otu, t_avg, t_fi, t_wt = self._table_cols()
+            o_cnt = np.empty(k, np.int64)
+            o_pos = np.empty(k, np.int64)
+            o_otu = np.empty(k, np.int32)
+            o_avg = np.empty(k, np.int32)
+            o_fi = np.empty(k, np.int32)
+            o_wt = np.empty(k, np.float32)
+            o_val = np.empty(k, np.int64)
+            cnt = np.ascontiguousarray(
+                np.broadcast_to(np.asarray(cnt, dtype=np.int64), (n,)))
+            pos = np.ascontiguousarray(pos, np.int64)
+            lib.emit_hits(values, cnt, pos, slots, n, t_otu, t_avg, t_fi,
+                          t_wt, o_cnt, o_pos, o_otu, o_avg, o_fi, o_wt,
+                          o_val)
+            return ((o_cnt, o_pos, o_otu, o_avg, o_fi, o_wt),
+                    o_val if want_values else None)
+        off64 = off.astype(np.int64)
+        has_cand = (state & 1) != 0
+        empty_any = (state & 2) != 0
+        found = np.zeros(n, dtype=bool)
+        ci = np.nonzero(has_cand)[0]
+        slots_c = homes[ci].astype(np.int64) + off64[ci]
+        verified = self.host_kmer[slots_c] == values[ci]
+        found[ci] = verified
+        unresolved = np.zeros(n, dtype=bool)
+        unresolved[ci] = ~verified
+        unresolved[~has_cand & ~empty_any] = True
+        todo = np.nonzero(unresolved)[0]
+        if len(todo):
+            f2, o2 = self._host_full_window(values, homes, todo)
+            found[todo] = f2
+            off64[todo] = o2
+        mask = found
+        slots = homes[mask].astype(np.int64) + off64[mask]
+        t = self.table.slots
+        cntb = np.broadcast_to(np.asarray(cnt, dtype=np.int64), (n,))
+        piece = (cntb[mask].copy(), np.asarray(pos)[mask].astype(np.int64),
+                 t["otu"][slots].copy(), t["avg_from_end"][slots].copy(),
+                 t["fi"][slots].copy(), t["wt"][slots].copy())
+        return piece, (values[mask].copy() if want_values else None)
 
 
 class SparseLookup(HostWindow):
@@ -295,69 +360,6 @@ class SparseLookup(HostWindow):
                           int(np.unique(mv).size) if compute_kmers_found
                           else -1)
 
-    def _verify_emit(self, values, homes, off, state, cnt, pos,
-                     want_values: bool):
-        """Resolve one dispatch's (off, state) answer into compacted hit
-        columns: fingerprint-candidate verification against the full
-        k-mer values, the exact full-window pass for the unresolved tail,
-        and hit compaction (native gather_resolve_slots + emit_hits; the
-        numpy twin below is bit-identical).
-
-        Returns ((cnt, pos, otu, avg, fi, wt) compacted columns,
-        matched values or None)."""
-        from ..utils.native import load_scatter
-
-        n = len(values)
-        lib = load_scatter()
-        if lib is not None and n:
-            values = np.ascontiguousarray(values, np.int64)
-            slots = np.empty(n, np.int64)
-            k = int(lib.gather_resolve_slots(
-                values, np.ascontiguousarray(homes, np.int32),
-                np.ascontiguousarray(off, np.uint8),
-                np.ascontiguousarray(state, np.uint8), n,
-                self.host_kmer, len(self.host_kmer), self.full_window,
-                slots))
-            t_otu, t_avg, t_fi, t_wt = self._table_cols()
-            o_cnt = np.empty(k, np.int64)
-            o_pos = np.empty(k, np.int64)
-            o_otu = np.empty(k, np.int32)
-            o_avg = np.empty(k, np.int32)
-            o_fi = np.empty(k, np.int32)
-            o_wt = np.empty(k, np.float32)
-            o_val = np.empty(k, np.int64)
-            cnt = np.ascontiguousarray(
-                np.broadcast_to(np.asarray(cnt, dtype=np.int64), (n,)))
-            pos = np.ascontiguousarray(pos, np.int64)
-            lib.emit_hits(values, cnt, pos, slots, n, t_otu, t_avg, t_fi,
-                          t_wt, o_cnt, o_pos, o_otu, o_avg, o_fi, o_wt,
-                          o_val)
-            return ((o_cnt, o_pos, o_otu, o_avg, o_fi, o_wt),
-                    o_val if want_values else None)
-        off64 = off.astype(np.int64)
-        has_cand = (state & 1) != 0
-        empty_any = (state & 2) != 0
-        found = np.zeros(n, dtype=bool)
-        ci = np.nonzero(has_cand)[0]
-        slots_c = homes[ci].astype(np.int64) + off64[ci]
-        verified = self.host_kmer[slots_c] == values[ci]
-        found[ci] = verified
-        unresolved = np.zeros(n, dtype=bool)
-        unresolved[ci] = ~verified
-        unresolved[~has_cand & ~empty_any] = True
-        todo = np.nonzero(unresolved)[0]
-        if len(todo):
-            f2, o2 = self._host_full_window(values, homes, todo)
-            found[todo] = f2
-            off64[todo] = o2
-        mask = found
-        slots = homes[mask].astype(np.int64) + off64[mask]
-        t = self.table.slots
-        cntb = np.broadcast_to(np.asarray(cnt, dtype=np.int64), (n,))
-        piece = (cntb[mask].copy(), np.asarray(pos)[mask].astype(np.int64),
-                 t["otu"][slots].copy(), t["avg_from_end"][slots].copy(),
-                 t["fi"][slots].copy(), t["wt"][slots].copy())
-        return piece, (values[mask].copy() if want_values else None)
 
 class StreamingLookup:
     """Overlap the prepare phase with device probing.

@@ -236,6 +236,10 @@ class StreamLookup:
         nxt = np.minimum.accumulate(e_idx[::-1])[::-1]
         self.fe_plane = np.minimum(nxt - np.arange(n, dtype=np.int64),
                                    self.w).astype(np.uint8)
+        self._place_plane(fp, device)
+
+    def _place_plane(self, fp: np.ndarray, device: str) -> None:
+        """Upload the plane to ``device``, on a stream the lookup owns."""
         self.device = torch_device(device)
         self._stream = owned_stream(self.device)
         with on_stream(self._stream), _device_fault("upload", "stream probe"):

@@ -13,6 +13,12 @@ The ``spmd`` backend fuses the first two on the device (models/spmd.py):
 raw sequence bytes go up, the k-mer window kernel and the sparse probe run
 there, and only candidates come back for host verification.
 
+With a mesh (``mesh_shape``, over ``mesh_devices``: ``parallel/mesh.py``)
+the lookup spreads over several devices, in one process: the
+``replicated``, ``sharded`` and ``routed`` backends (fed by the
+bounded-RAM store, as in the JAX engine), and ``xla``, ``stream``, ``auto``
+and ``spmd`` with the plane split over the mesh's table shards.
+
 Report text is bit-identical to the reference in non-debug mode; info lines
 (temp dir, phase timings, progress) follow the reference's printInfoLine
 routing (ref :891-898): into the report only when debug, to stdout only when
@@ -44,6 +50,8 @@ from ..lookup.store import QueryKmerStore
 from ..lookup.stream import StreamingStreamLookup, StreamLookup
 from ..lookup.tilejoin import KernelError
 from ..ops import kmer_windows
+from ..parallel import route_bins, shard_probe
+from ..parallel.mesh import default_mesh_shape, mesh_devices
 from .prepare import Prepared
 
 # Device-resident lookups are expensive to (re)build: a host->device plane
@@ -57,13 +65,28 @@ _TABLE_CACHE: Dict[tuple, object] = {}
 # derived 2.5 on a TPU v5e; it is kept so that the port picks the backend
 # the JAX package picks. Both paths are exact, so it only moves speed.
 DENSITY_CROSSOVER = 2.5
-AUTO_DENSE, AUTO_SPARSE = "stream", "xla"  # the backends 'auto' picks from
+# the backends that only the store feeds (the JAX engine's _lookup)
+MESH_LOOKUPS = ("replicated", "sharded", "routed")
 
 
 def _replace_backend(cfg: EngineConfig, backend: str) -> EngineConfig:
     import dataclasses
 
     return dataclasses.replace(cfg, backend=backend)
+
+
+def _auto_candidates(cfg: EngineConfig):
+    """(dense, sparse): the backends 'auto' picks from; with a mesh the
+    sparse side is routed, and the dense side shards the stream kernel."""
+    return ("stream", "routed") if cfg.mesh_shape else ("stream", "xla")
+
+
+def _mesh_size(cfg: EngineConfig) -> int:
+    """The mesh shape's device count, or (no shape) every device the
+    config's mesh may take."""
+    if cfg.mesh_shape:
+        return cfg.mesh_shape[0] * cfg.mesh_shape[1]
+    return len(mesh_devices(cfg.device, cfg.mesh_devices))
 
 
 def _auto_backend(table, query: Optional[str], cfg: EngineConfig):
@@ -73,9 +96,12 @@ def _auto_backend(table, query: Optional[str], cfg: EngineConfig):
     count is estimated from the input size: ~1 query k-mer per FASTA byte
     in aa mode, ~2 per byte for DNA (6 frames of len/3 windows), ~3.5x for
     gzip. An unknown size (stdin) returns None: the caller defers the
-    choice to _DeferredAutoFeed, which decides from the actual count."""
+    choice to _DeferredAutoFeed, which decides from the actual count. With
+    a mesh the sparse side routes instead (the multi-device sparse path);
+    the dense side shards the stream kernel."""
     import os
 
+    dense, sparse = _auto_candidates(cfg)
     if query is None:
         return None
     try:
@@ -85,9 +111,8 @@ def _auto_backend(table, query: Optional[str], cfg: EngineConfig):
     if query.endswith(".gz"):
         size *= 3.5
     est_queries = size * (1.0 if cfg.aa else 2.0)
-    if est_queries > table.num_sigs / DENSITY_CROSSOVER:
-        return AUTO_DENSE
-    return AUTO_SPARSE
+    return dense if est_queries > table.num_sigs / DENSITY_CROSSOVER \
+        else sparse
 
 
 class _DeferredAutoFeed:
@@ -123,7 +148,7 @@ class _DeferredAutoFeed:
 
     def _upgrade(self) -> None:
         try:
-            lk = _cached_lookup(AUTO_DENSE, self.engine._table_path,
+            lk = _cached_lookup("stream", self.engine._table_path,
                                 self.table, self.cfg)
         except ValueError:
             # max_probe beyond the packed-offset budget: stay on the
@@ -137,7 +162,7 @@ class _DeferredAutoFeed:
             s.add_batch(v, c, p)
         self._chunks = []
         self._stream = s
-        self.engine.config = _replace_backend(self.cfg, AUTO_DENSE)
+        self.engine.config = _replace_backend(self.cfg, "stream")
 
     def partial_hits(self) -> LookupHits:
         if self._stream is not None:
@@ -151,7 +176,8 @@ class _DeferredAutoFeed:
             return self._stream.finish()
         from ..lookup.store import REC_DTYPE
 
-        self.engine.config = _replace_backend(self.cfg, AUTO_SPARSE)
+        self.engine.config = _replace_backend(self.cfg,
+                                              _auto_candidates(self.cfg)[1])
         rec = np.zeros(self.total_fed, dtype=REC_DTYPE)
         at = 0
         for v, c, p in self._chunks:
@@ -186,30 +212,71 @@ def _cached_read_table(table_path: str):
 
 
 def _cached_lookup(backend: str, table_path: str, table, cfg: EngineConfig):
-    """The sparse ("xla"), "stream" or block-probe ("pallas") lookup of
-    this table, or its fused program ("spmd", per query alphabet), from the
-    one-slot cache keyed also by the torch device."""
+    """The lookup of this table for ``backend``: sparse ("xla"), "stream",
+    block-probe ("pallas"), one of the mesh lookups, or the fused program
+    ("spmd", per query alphabet); from the one-slot cache keyed also by the
+    torch device, the mesh shape and the mesh's devices. Too few devices
+    for a mesh is a ValueError of the mesh lookups and of "spmd"; "xla"
+    then keeps one device, and "stream" takes the devices there are."""
     key = (backend, _table_ident(table_path), cfg.probe_window,
            cfg.aa if backend == "spmd" else cfg.lookup_chunk,
+           cfg.mesh_shape, tuple(cfg.mesh_devices or ()),
            str(torch_device(cfg.device)))
     lk = _LOOKUP_CACHE.get(key)
     if lk is None:
-        if backend == "spmd":
-            from .spmd import SpmdProgram
-
-            lk = SpmdProgram(table, cfg)
-        elif backend == "xla":
-            lk = SparseLookup(table, probe_window=cfg.probe_window,
-                              chunk=cfg.lookup_chunk, device=cfg.device)
-        elif backend == "pallas":
-            lk = BlockProbeLookup(table, probe_window=cfg.probe_window,
-                                  chunk=cfg.lookup_chunk, device=cfg.device)
-        else:
-            lk = StreamLookup(table, probe_window=cfg.probe_window,
-                              device=cfg.device)
+        lk = _build_lookup(backend, table, cfg)
         _LOOKUP_CACHE.clear()
         _LOOKUP_CACHE[key] = lk
     return lk
+
+
+def _build_lookup(backend: str, table, cfg: EngineConfig):
+    from ..parallel import (replicated_lookup, routed_lookup, sharded_lookup,
+                            stream_shards, tilejoin_shards)
+    from ..parallel.mesh import make_mesh
+
+    devices = (mesh_devices(cfg.device, cfg.mesh_devices)
+               if cfg.mesh_shape or backend in MESH_LOOKUPS else None)
+    if backend == "spmd":
+        from .spmd import SpmdProgram
+
+        return SpmdProgram(table, cfg)
+    if backend == "xla":
+        if cfg.mesh_shape and _mesh_size(cfg) > 1:
+            # --mesh on the xla backend: the sparse probe over the table
+            # axis; too few devices keeps the single-device lookup
+            try:
+                return tilejoin_shards.TileJoinShardedLookup(
+                    table, make_mesh(1, _mesh_size(cfg), devices),
+                    probe_window=cfg.probe_window, chunk=cfg.lookup_chunk)
+            except ValueError:
+                pass
+        return SparseLookup(table, probe_window=cfg.probe_window,
+                            chunk=cfg.lookup_chunk, device=cfg.device)
+    if backend == "pallas":
+        return BlockProbeLookup(table, probe_window=cfg.probe_window,
+                                chunk=cfg.lookup_chunk, device=cfg.device)
+    if backend == "stream":
+        if cfg.mesh_shape:
+            return stream_shards.StreamShardedLookup(
+                table, stream_shards.make_stream_mesh(_mesh_size(cfg),
+                                                      devices),
+                probe_window=cfg.probe_window)
+        return StreamLookup(table, probe_window=cfg.probe_window,
+                            device=cfg.device)
+    if backend == "sharded":
+        shape = cfg.mesh_shape or default_mesh_shape(len(devices))
+        return sharded_lookup.ShardedLookup(
+            table, make_mesh(*shape, devices=devices),
+            cfg.probe_window or max(8, table.max_probe))
+    if backend == "replicated":
+        return replicated_lookup.ReplicatedLookup(
+            table, make_mesh(_mesh_size(cfg), 1, devices))
+    if backend == "routed":
+        return routed_lookup.RoutedLookup(
+            table, make_mesh(1, _mesh_size(cfg), devices),
+            probe_window=max(16, table.max_probe or 16))
+    raise ValueError(f"unknown lookup backend: {backend}")
 
 
 class Engine:
@@ -285,22 +352,32 @@ class Engine:
                 # the density crossover)
                 deferred = _DeferredAutoFeed(self, table, cfg)
             else:
-                self.config = cfg = _replace_backend(cfg,
-                                                     choice or AUTO_SPARSE)
+                self.config = cfg = _replace_backend(
+                    cfg, choice or _auto_candidates(cfg)[1])
         if on_cuda and (cfg.prepare_impl == "jax"
                         or (cfg.backend == "spmd" and not table.truncated)):
             kmer_windows.load_kernel()
         if on_cuda and not table.truncated:
             # a build failure raises here, before any work, and never
-            # degrades; a deferred choice may run either kernel, and the
-            # block probe's exact rest runs the tile-join kernel
-            if deferred is not None or cfg.backend in ("xla", "pallas",
-                                                       "spmd"):
+            # degrades; a deferred choice may run either side, the block
+            # probe's exact rest runs the tile-join kernel, and so do the
+            # replicated lookup and the routed owners' probes
+            sparse = _auto_candidates(cfg)[1] if deferred is not None \
+                else cfg.backend
+            if deferred is not None or cfg.backend in (
+                    "xla", "pallas", "spmd", "replicated", "routed"):
                 tilejoin.load_kernel()
             if deferred is not None or cfg.backend == "stream":
                 stream_kernel.load_kernel()
             if cfg.backend == "pallas":
                 blockprobe.load_kernel()
+            if sparse == "routed":
+                route_bins.load_kernel()
+            if cfg.backend == "sharded" or (
+                    cfg.backend == "spmd"
+                    and tuple(cfg.mesh_shape or default_mesh_shape(
+                        _mesh_size(cfg))) != (1, 1)):
+                shard_probe.load_kernel()
 
         # --- phase 1: prepare (ref :776-795) ---
         # xla backend: the feeder streams k-mer batches straight into the
@@ -477,11 +554,18 @@ class Engine:
             return lookup_stream(table, rec["value"], rec["cnt"], rec["pos"])
         if cfg.backend == "parity":
             return lookup_stream(table, rec["value"], rec["cnt"], rec["pos"])
-        # the block probe ("pallas") is built here, inside the lookup
-        # phase's error handling: a table past its window (a ValueError)
-        # becomes the JAX engine's "Error:" line, not a parity fallback;
-        # like the JAX engine's pallas branch, it reports no progress
+        # the block probe ("pallas") and the mesh lookups are built here,
+        # inside the lookup phase's error handling: a table past its window
+        # or a mesh past the devices (a ValueError) becomes the JAX
+        # engine's "Error:" line, not a parity fallback; like the JAX
+        # engine's branches of these backends, they report no progress
         lk = _cached_lookup(cfg.backend, self._table_path, table, cfg)
+        if cfg.backend in MESH_LOOKUPS:
+            # as the JAX engine: replicated and routed count kmers_found
+            # always, sharded only in debug mode
+            return lk.lookup(rec["value"], rec["cnt"], rec["pos"],
+                             compute_kmers_found=(cfg.debug or
+                                                  cfg.backend != "sharded"))
         progress = None if cfg.backend == "pallas" else self._progress(
             len(rec))
         return lk.lookup(rec["value"], rec["cnt"], rec["pos"],

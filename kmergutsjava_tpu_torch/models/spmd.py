@@ -1,25 +1,36 @@
-"""The fused device path: the "spmd" engine backend on one card (the
-counterpart of the JAX package's ``models/spmd.py``).
+"""The fused device path: the "spmd" engine backend on one card or over a
+``data x table`` mesh (the counterpart of the JAX package's
+``models/spmd.py``).
 
 Every other backend splits the reference's phases (ref
 KmerGutsJava.java:776-803) between a host prepare and a device probe over a
 stream of query k-mers. This backend sends raw ASCII sequence bytes to the
 device, where a step (``parallel/annotate_step.py``) runs the k-mer window
 kernel (encode, six-frame translation, 8-mer packing, homes and
-fingerprints; ``ops/kmer_windows.py``) and the sparse probe B1
-(``lookup/tilejoin.py``) over power-of-two length buckets; only B1's answer
-comes back, and the host verifies its candidates. Records longer than
-LONG_AA / LONG_NT go through windows (``parallel/seq_windows.py``).
+fingerprints; ``ops/kmer_windows.py``) and a probe over power-of-two length
+buckets; only the probe's answer comes back, and the host verifies its
+candidates. Records longer than LONG_AA / LONG_NT go through windows
+(``parallel/seq_windows.py``).
+
+Which step a mesh shape takes: the mesh is ``cfg.mesh_shape`` or
+``default_mesh_shape`` of the devices (``parallel/mesh.py``; one CPU, or
+every CUDA card, or ``cfg.mesh_devices``). A (1, 1) mesh, the default on
+one card or the CPU, runs the one-device step: the window kernel, then the
+sparse probe B1 (``lookup/tilejoin.py``) at the full window. Any other
+shape runs the JAX step's body: each batch's rows split over the data
+axis, the window kernel on every position's rows and the shard probe B12
+(``parallel/shard_probe.py``) against every table shard, the answers
+summed over the table axis; that answer is the JAX step's, bit for bit.
 
 Hits come back as (container, position, metadata) columns that feed the
 standard grouping machine, so reports are byte-identical to every other
 backend's. In debug mode the matched values are recomputed on the host at
 the hit coordinates for the reference's "Kmers found" count.
 
-B1's contract is not the JAX step's ``_local_probe``, and the two give the
-same verified hits. ``_local_probe`` answers the first slot of the
-``pw``-slot window that holds the query's fingerprint and ignores empty
-slots; B1 answers the first event, a fingerprint (state 1) or an empty slot
+On a (1, 1) mesh, B1's contract is not the JAX step's ``_local_probe``,
+and the two give the same verified hits. ``_local_probe`` answers the first
+slot of the ``pw``-slot window that holds the query's fingerprint and
+ignores empty slots; B1 answers the first event, a fingerprint (state 1) or an empty slot
 (state 2), and state 0 when there is neither. The host verifies a
 candidate against the query's value and, on a fingerprint collision,
 re-probes the whole window for the value (``verify_candidates``). A table
@@ -48,8 +59,7 @@ from ..constants import (AA_OFF_LUT, CODON_AA_OFF, COMPL_DNA_CODE_LUT,
                          DNA_CODE_LUT, INVALID_AA, K, POW20)
 from ..formats.kmer_table import KmerTable
 from ..lookup.parity import LookupHits
-from ..lookup.sparse import _device_fault, on_stream, owned_stream, \
-    torch_device
+from ..lookup.sparse import _device_fault, on_stream
 from .prepare import MAX_CELLS, BucketQueue, Prepared, _seq_to_ascii
 
 LONG_AA = 8192    # proteins longer than this go through 7-aa-overlap windows
@@ -92,15 +102,18 @@ def _values_at(offs_rows: np.ndarray, cc: np.ndarray) -> np.ndarray:
 
 
 class SpmdProgram:
-    """Cacheable device state of the fused path: the table's fingerprint
-    plane on the device, the step of the run's mode, and the CUDA stream
-    all of the program's device work is issued on. Shared across engine
-    runs (a server reuses it per table, as the other backends' lookups);
-    per-run bookkeeping lives in SpmdAnnotator."""
+    """Cacheable device state of the fused path: the mesh, the table's
+    fingerprint plane on its devices, and the step of the run's mode; on a
+    (1, 1) mesh, the CUDA stream all of the program's device work is issued
+    on (a larger mesh's positions each issue on their own). Shared across
+    engine runs (a server reuses it per table, as the other backends'
+    lookups); per-run bookkeeping lives in SpmdAnnotator. Too few devices
+    for the mesh, or a window past 128, is a ValueError."""
 
     def __init__(self, table: KmerTable, cfg):
-        from ..parallel.annotate_step import make_annotate_step, \
-            make_dna_step
+        from ..parallel import annotate_step as st
+        from ..parallel.mesh import (default_mesh_shape, make_mesh,
+                                     mesh_devices)
 
         if table.max_probe is None:
             table.compute_max_probe()
@@ -115,11 +128,22 @@ class SpmdProgram:
         self.table = table
         self.aa = bool(cfg.aa)
         self.pw = pw
-        self.device = torch_device(cfg.device)
-        self.stream = owned_stream(self.device)
-        with self.device_work("plane upload"):
-            make = make_annotate_step if cfg.aa else make_dna_step
-            self.step, self.planes = make(table, pw, self.device)
+        devices = mesh_devices(cfg.device, cfg.mesh_devices)
+        self.mesh_shape = tuple(cfg.mesh_shape
+                                or default_mesh_shape(len(devices)))
+        self.mesh = make_mesh(*self.mesh_shape, devices=devices)
+        self.one_device = self.mesh_shape == (1, 1)
+        if self.one_device:
+            self.device, self.stream = self.mesh.at(0, 0)
+            with self.device_work("plane upload"):
+                make = st.make_annotate_step if cfg.aa else st.make_dna_step
+                self.step, self.planes = make(table, pw, self.device)
+        else:
+            self.stream = None
+            with self.device_work("plane upload"):
+                make = (st.make_sharded_annotate_step if cfg.aa
+                        else st.make_sharded_dna_step)
+                self.step, self.planes = make(self.mesh, table, pw)
         self._wstep = None  # windowed DNA step (built on first long contig)
         self._win_nt = None
 
@@ -131,11 +155,15 @@ class SpmdProgram:
             yield
 
     def windowed_dna(self, win_nt: int):
-        from ..parallel.seq_windows import make_windowed_dna_step
+        from ..parallel import seq_windows
 
         if self._wstep is None or self._win_nt != win_nt:
-            self._wstep = make_windowed_dna_step(self.table, self.pw,
-                                                 win_nt, self.planes)
+            if self.one_device:
+                self._wstep = seq_windows.make_windowed_dna_step(
+                    self.table, self.pw, win_nt, self.planes)
+            else:
+                self._wstep = seq_windows.make_sharded_windowed_dna_step(
+                    self.mesh, self.table, self.pw, win_nt, self.planes)
             self._win_nt = win_nt
         return self._wstep
 
@@ -186,12 +214,12 @@ class SpmdAnnotator:
 
     def _decode(self, item) -> None:
         from ..ops.hostvalues import aa_values_at, dna_values_at
-        from ..parallel.annotate_step import candidate_slots, read_candidates
+        from ..parallel.annotate_step import candidates
         from ..parallel.sharded_lookup import gather_hit_metadata
 
         bases, lens, mat, out = item
         with self.prog.device_work("read-back"):
-            idx, off = read_candidates(*out)
+            idx, slots = candidates(out, self.table.num_sigs)
         # the device answers are fingerprint CANDIDATES: recompute the
         # query values at the candidate coordinates (O(hits x K) gathers,
         # no host re-translation; ops/hostvalues.py), verify against the
@@ -206,8 +234,7 @@ class SpmdAnnotator:
             cnt = bases[rr] + gg
             vals = dna_values_at(mat, lens, rr, gg, cc)
         found, otu, avg, fi, wt = gather_hit_metadata(
-            self.table, candidate_slots(vals, off, self.table.num_sigs),
-            values=vals, probe_window=self.prog.pw)
+            self.table, slots(vals), values=vals, probe_window=self.prog.pw)
         if not found.all():
             cnt, cc, vals = cnt[found], cc[found], vals[found]
             otu, avg, fi, wt = otu[found], avg[found], fi[found], wt[found]

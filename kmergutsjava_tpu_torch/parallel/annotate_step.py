@@ -1,27 +1,36 @@
-"""The fused annotation step on one device: ASCII rows -> k-mer windows ->
-sparse probe -> candidates (the counterpart of the JAX package's
-``parallel/annotate_step.py``, without its mesh).
+"""The fused annotation step: ASCII rows -> k-mer windows -> probe ->
+candidates (the counterpart of the JAX package's
+``parallel/annotate_step.py``), on one device and on a mesh.
 
-A step uploads a batch of ASCII rows and their lengths in one copy, runs
-the k-mer window kernel (``ops/kmer_windows.py``: encode, six-frame
-translation in DNA mode, 8-mer packing, each window's home slot and u16
-fingerprint) and the sparse probe (``lookup/tilejoin.py``, B1) at the full
-window ``pw`` over the flat windows, and leaves B1's one answer buffer on the
-device; ``read_candidates`` copies it back in one copy. The host verifies
-each candidate against the query value recomputed at its coordinates
-(``ops/hostvalues.py``) and gathers the metadata
-(``parallel/sharded_lookup.py``).
+On one device (``make_annotate_step``, ``make_dna_step``: the program of a
+(1, 1) mesh) a step uploads a batch of ASCII rows and their lengths in one
+copy, runs the k-mer window kernel (``ops/kmer_windows.py``: encode,
+six-frame translation in DNA mode, 8-mer packing, each window's home slot
+and u16 fingerprint) and the sparse probe (``lookup/tilejoin.py``, B1) at
+the full window ``pw`` over the flat windows, and leaves B1's one answer
+buffer on the device; ``read_candidates`` copies it back in one copy. The
+plane is the u16 fingerprint of every slot (``value % 65535``, ``FP_EMPTY``
+for an empty slot) and ``pw`` slots of FP_EMPTY past the end, so every
+home's window lies on the plane; a window that is not valid has home -1,
+which B1 answers as off the plane.
 
-The plane is the u16 fingerprint of every slot (``value % 65535``,
-``FP_EMPTY`` for an empty slot) and ``pw`` slots of FP_EMPTY past the end,
-so every home's window lies on the plane; a window that is not valid has
-home -1, which B1 answers as off the plane. The JAX package's planes in
-overlapped 128-lane rows, sharded by slot range and merged by a psum, are
-TPU layouts for its row-gather probe and are not carried.
+On a larger ``data x table`` mesh (``make_sharded_annotate_step``,
+``make_sharded_dna_step``) the step is the JAX step's body: the rows are
+split over the data axis (padded with empty rows to a multiple of it, as
+the JAX engine pads them), every position (d, t) runs the window kernel on
+data slice d's rows and the shard probe (B12, ``parallel/shard_probe.py``)
+against table shard t's slice of the plane, and each data row's answers
+are summed (``mesh.psum``): per window the first fingerprint-match slot + 1,
+0 for none, bit for bit the JAX step's answer (``MeshAnswer``).
+
+Either way the host verifies each candidate against the query value
+recomputed at its coordinates (``ops/hostvalues.py``) and gathers the
+metadata (``parallel/sharded_lookup.py``); ``candidates`` reads either
+answer back.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +38,11 @@ import torch
 from ..constants import K
 from ..formats.kmer_table import KmerTable
 from ..lookup import tilejoin
-from ..lookup.sparse import fingerprint_plane
+from ..lookup.sparse import fingerprint_plane, on_stream
 from ..ops import kmer_windows
+from . import shard_probe
+from .mesh import DATA_AXIS, TABLE_AXIS, Mesh, fetch_global, psum, upload
+from .sharded_lookup import place_planes, shard_table_planes, split_rows
 
 
 def table_plane(table: KmerTable, probe_window: int, device) -> torch.Tensor:
@@ -38,23 +50,6 @@ def table_plane(table: KmerTable, probe_window: int, device) -> torch.Tensor:
     FP_EMPTY past its end, on ``device`` (on the current stream)."""
     return torch.from_numpy(fingerprint_plane(
         table, table.num_sigs + probe_window)).to(device)
-
-
-def upload(device, *arrays: np.ndarray):
-    """Host arrays to ``device`` in one copy of one host buffer (each
-    array at a 16-byte boundary); returns tensor views of their dtypes and
-    shapes."""
-    at, spans = 0, []
-    for a in arrays:
-        spans.append(at)
-        at += -(-a.nbytes // 16) * 16
-    host = np.empty(at, np.uint8)
-    for a, s in zip(arrays, spans):
-        host[s:s + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
-            np.uint8)
-    buf = torch.from_numpy(host).to(device)
-    return [buf[s:s + a.nbytes].view(getattr(torch, a.dtype.name)).view(
-        a.shape) for a, s in zip(arrays, spans)]
 
 
 def read_candidates(answer: torch.Tensor, shape: tuple):
@@ -74,6 +69,33 @@ def candidate_slots(values: np.ndarray, off: np.ndarray, num_sigs: int
     """The candidates' slot + 1 (the JAX step's answer) from their values
     and window offsets."""
     return values % np.int64(num_sigs) + off + 1
+
+
+class MeshAnswer(NamedTuple):
+    """A mesh step's answer: each data row's int32 slot + 1 on its first
+    position, for the first ``shape[0]`` of the padded batch's rows."""
+    mesh: Mesh
+    rows: list
+    shape: tuple
+
+    def read(self) -> np.ndarray:
+        """The answer on the host, of ``shape``."""
+        got = fetch_global(self.mesh, self.rows)
+        return got.reshape(-1, *self.shape[1:])[:self.shape[0]]
+
+
+def candidates(out, num_sigs: int):
+    """Read one step's output back -> (the coordinates of the windows with
+    a candidate, as np.nonzero gives them, and a function of their k-mer
+    values that returns their slot + 1): B1's (answer, shape) on one
+    device, or a ``MeshAnswer``."""
+    if isinstance(out, MeshAnswer):
+        slotp = out.read()
+        idx = np.nonzero(slotp)
+        chosen = slotp[idx]
+        return idx, lambda values: chosen
+    idx, off = read_candidates(*out)
+    return idx, lambda values: candidate_slots(values, off, num_sigs)
 
 
 def _encode_and_probe(fp, ascii_u8, num_starts, *, probe_window, num_sigs):
@@ -125,3 +147,75 @@ def make_dna_step(table: KmerTable, probe_window: int, device
                 (ascii_u8.shape[0], 6, w))
 
     return step, {"fp": table_plane(table, probe_window, device)}
+
+
+def sharded_planes(mesh: Mesh, table: KmerTable, probe_window: int) -> dict:
+    """The table's plane cut into the mesh's table shards, each on its
+    positions (``fp`` [d][t]), and the slots a shard owns (``s_loc``)."""
+    planes = shard_table_planes(table, mesh.shape[TABLE_AXIS], probe_window)
+    return {"fp": place_planes(mesh, planes["fp"]), "s_loc": planes["s_loc"]}
+
+
+def mesh_step(mesh: Mesh, planes: dict, probe_window: int, windows,
+              width: Callable[[int], tuple]) -> Callable:
+    """A step over the mesh: step(fp, rows, *cols) (host arrays of one
+    batch, ``rows`` uint8 [B, L], each of ``cols`` [B, ...] per row) ->
+    ``MeshAnswer`` of shape (B, *width(L)). The batch is padded with zero
+    rows (no windows) to a multiple of the data axis; position (d, t)
+    uploads data slice d, runs ``windows(rows, *cols)`` -> (homes, fps) on
+    it and B12 against table shard t; ``psum`` adds row d's answers."""
+    s_loc = planes["s_loc"]
+
+    def step(fp, rows: np.ndarray, *cols):
+        b = rows.shape[0]
+        n_data = mesh.shape[DATA_AXIS]
+        b_pad = -(-b // n_data) * n_data
+        arrays = []
+        for x in (rows, *(np.asarray(c).astype(np.int32) for c in cols)):
+            arrays.append(np.concatenate(
+                [x, np.zeros((b_pad - b, *x.shape[1:]), x.dtype)]))
+        out = []
+        for d, (a, e) in enumerate(split_rows(b_pad, n_data)):
+            parts = []
+            for t in range(mesh.shape[TABLE_AXIS]):
+                dev, stream = mesh.at(d, t)
+                with on_stream(stream):
+                    homes, fps = windows(*upload(dev, *(x[a:e]
+                                                        for x in arrays)))
+                    parts.append(shard_probe.shard_probe(
+                        fp[d][t], fps.view(-1), homes.view(-1), t * s_loc,
+                        s_loc, probe_window))
+            out.append(psum(mesh, d, parts))
+        return MeshAnswer(mesh, out, (b, *width(rows.shape[1])))
+
+    return step
+
+
+def make_sharded_annotate_step(mesh: Mesh, table: KmerTable,
+                               probe_window: int) -> Tuple[Callable, dict]:
+    """Returns (step, planes). step(fp, ascii_u8[B, L], lengths[B]) (host
+    arrays) -> ``MeshAnswer`` [B, L-7] of per-window candidate slot+1 (0 =
+    miss), B split over the data axis; num_starts = lengths - K as on one
+    device."""
+    planes = sharded_planes(mesh, table, probe_window)
+    inner = mesh_step(
+        mesh, planes, probe_window,
+        lambda a, ns: kmer_windows.aa_homes_fps(a, ns, table.num_sigs),
+        lambda width: (max(width - K + 1, 0),))
+
+    def step(fp, ascii_u8: np.ndarray, lengths: np.ndarray):
+        return inner(fp, ascii_u8, np.asarray(lengths) - K)
+
+    return step, planes
+
+
+def make_sharded_dna_step(mesh: Mesh, table: KmerTable, probe_window: int
+                          ) -> Tuple[Callable, dict]:
+    """Returns (step, planes). step(fp, ascii_u8[B, Lpad], lengths[B])
+    (host arrays) -> ``MeshAnswer`` [B, 6, Lpad//3 - 7] of per-(contig,
+    frame, window) candidate slot+1 (0 = miss)."""
+    planes = sharded_planes(mesh, table, probe_window)
+    return mesh_step(
+        mesh, planes, probe_window,
+        lambda a, lens: kmer_windows.dna_homes_fps(a, lens, table.num_sigs),
+        lambda width: (6, max(width // 3 - K + 1, 0))), planes

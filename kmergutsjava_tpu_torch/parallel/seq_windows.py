@@ -1,6 +1,6 @@
 """Long records cut into overlapping windows for the fused step (the
-counterpart of the JAX package's ``parallel/seq_windows.py``, on one
-device).
+counterpart of the JAX package's ``parallel/seq_windows.py``), on one
+device or over a mesh's data axis.
 
 The fused step pads each record to its batch's length bucket, so one very
 long contig or protein would make a bucket of its own; instead it is cut
@@ -23,7 +23,9 @@ JAX package's, whose exactness argument holds unchanged:
 
 On the device the k-mer window kernel takes each window's ``row_map``,
 ``own_start`` and ``own_end`` (``ops/kmer_windows.py``): container g of a
-window reads local frame row_map[g] and is valid on its owned interval.
+window reads local frame row_map[g] and is valid on its owned interval. On
+a mesh the windows are rows of the mesh step (``annotate_step.mesh_step``):
+split over the data axis, probed by B12 on every table shard.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ import numpy as np
 from ..constants import K
 from ..formats.kmer_table import KmerTable
 from ..ops.hostvalues import aa_values_at, dna_values_at
-from .annotate_step import (_dna_encode_and_probe, candidate_slots,
-                            read_candidates, upload)
+from ..ops import kmer_windows
+from .annotate_step import _dna_encode_and_probe, candidates, mesh_step
+from .mesh import Mesh, upload
 from .sharded_lookup import gather_hit_metadata
 
 OVERLAP_NT = 3 * K  # one aa 8-mer spans 24 bases of its strand
@@ -133,12 +136,30 @@ def make_windowed_dna_step(table: KmerTable, probe_window: int, win_nt: int,
     return step, planes
 
 
+def make_sharded_windowed_dna_step(mesh: Mesh, table: KmerTable,
+                                   probe_window: int, win_nt: int,
+                                   planes: dict) -> Tuple[Callable, dict]:
+    """The windowed DNA step over ``mesh`` on ``planes`` (the program's
+    sharded planes): the windows are split over the data axis; step(fp,
+    ascii_u8[W, win_nt], len_w[W], row_map[W, 6], own_start[W, 6],
+    own_end[W, 6]) (host arrays) -> ``MeshAnswer`` [W, 6, win_nt//3 - 7]
+    of per-(window, container, local window) slot + 1."""
+    if win_nt % 3:
+        raise ValueError("win_nt must be a multiple of 3")
+    return mesh_step(
+        mesh, planes, probe_window,
+        lambda a, lens, rm, os_, oe: kmer_windows.dna_homes_fps(
+            a, lens, table.num_sigs, rm, os_, oe),
+        lambda width: (6, max(width // 3 - K + 1, 0))), planes
+
+
 def windowed_protein_hits(step, planes, table: KmerTable,
                           seq_ascii: np.ndarray, win_aa: int,
                           probe_window: int = None):
     """Host driver: one long protein through the aa annotate step, windowed.
 
-    ``step``/``planes`` come from annotate_step.make_annotate_step; its body
+    ``step``/``planes`` come from annotate_step.make_annotate_step (or its
+    mesh form, make_sharded_annotate_step); its body
     takes num_starts as ``lengths - K``, so synthetic lengths = num_starts +
     K make the unmodified aa step enforce each window's exact global start
     count (including the reference's skip-last-window quirk at the true
@@ -151,15 +172,15 @@ def windowed_protein_hits(step, planes, table: KmerTable,
     for i in range(n_win):
         a[i, : plan["len_w"][i]] = seq_ascii[plan["s"][i]: plan["e"][i]]
     lengths = plan["num_starts"] + K
-    (wi, ji), off = read_candidates(*step(planes["fp"], a, lengths))
+    (wi, ji), slots = candidates(step(planes["fp"], a, lengths),
+                                 table.num_sigs)
     pos = plan["s"][wi] + ji
     # fingerprint-candidate protocol: recompute the query values at the
     # global positions, verify, drop resolved misses
     vals = aa_values_at(seq_ascii[None, :], np.zeros(len(pos), np.int64),
                         pos)
     found, otu, avg, fi, wt = gather_hit_metadata(
-        table, candidate_slots(vals, off, table.num_sigs), values=vals,
-        probe_window=probe_window)
+        table, slots(vals), values=vals, probe_window=probe_window)
     pos = pos[found]
     return (pos.astype(np.int64), otu[found], avg[found], fi[found],
             wt[found])
@@ -180,17 +201,16 @@ def windowed_contig_hits(step, planes, table: KmerTable,
     a = np.full((n_win, win_nt), ord("N"), np.uint8)  # invalid base pad
     for i in range(n_win):
         a[i, : plan["len_w"][i]] = seq_ascii[plan["s"][i]: plan["e"][i]]
-    (wi, gi, ji), off = read_candidates(*step(
+    (wi, gi, ji), slots = candidates(step(
         planes["fp"], a, plan["len_w"], plan["row_map"], plan["own_start"],
-        plan["own_end"]))
+        plan["own_end"]), table.num_sigs)
     pos = plan["j0"][wi, gi] + ji
     # fingerprint-candidate protocol: global container + protein position
     # map straight to nucleotide coordinates of the one contig
     vals = dna_values_at(seq_ascii[None, :], np.array([L], np.int64),
                          np.zeros(len(pos), np.int64), gi, pos)
     found, otu, avg, fi, wt = gather_hit_metadata(
-        table, candidate_slots(vals, off, table.num_sigs), values=vals,
-        probe_window=probe_window)
+        table, slots(vals), values=vals, probe_window=probe_window)
     gi, pos = gi[found], pos[found]
     return (gi.astype(np.int64), pos.astype(np.int64), otu[found],
             avg[found], fi[found], wt[found])

@@ -497,9 +497,9 @@ def test_cuda_device_without_cuda_raises(corpus):
         cli.main(["-a", "-D", d, "-q", faa, "--device", "cuda"])
 
 
-@pytest.mark.parametrize("argv", [["-D", "x", "--backend", "replicated"],
-                                  ["-a", "-D", "x", "--backend", "routed"],
-                                  ["-a", "-D", "x", "--mesh", "2x2"],
+@pytest.mark.parametrize("argv", [["-D", "x", "--sort-chunks", "1"],
+                                  ["-a", "-D", "x", "--device-sort"],
+                                  ["-a", "-D", "x", "--platform", "cpu"],
                                   ["-a", "-D", "x", "--grouping", "scan"]])
 def test_cli_rejects_unported_options(argv, capsys):
     assert cli.main(argv) == 2

@@ -2,7 +2,8 @@
 tile-join probe B1, kmergutsjava_tpu_torch/lookup/tilejoin.py; the stream
 probe B2 and its repetition launch B5, lookup/stream.py; the block
 probe B3, lookup/blockprobe.py; the lane-gather probe B4,
-lookup/tjgather.py), without JAX, so the file also runs on a GPU machine
+lookup/tjgather.py; the shard probe B12, parallel/shard_probe.py; the
+routing bins B13, parallel/route_bins.py), without JAX, so the file also runs on a GPU machine
 that has no JAX: there, from the repository root,
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -1076,3 +1077,194 @@ def test_cuda_fused_step_decodes_to_twin_hits(cuda_device, aa):
     for got, want in zip(hits["cuda"], hits["cpu"]):
         assert (torch.equal(got, want) if isinstance(got, torch.Tensor)
                 else np.array_equal(got, want))
+
+
+def _mesh_table(seed, n=200_000):
+    from kmergutsjava_tpu_torch.constants import MAX_ENCODED
+    from kmergutsjava_tpu_torch.formats.kmer_table import build_table
+
+    rng = np.random.default_rng(seed)
+    kmers = rng.choice(MAX_ENCODED, n, replace=False).astype(np.int64)
+    table = build_table(kmers, rng.integers(0, 20, n).astype(np.int32),
+                        rng.integers(0, 500, n).astype(np.int32),
+                        rng.integers(0, 97, n).astype(np.int32),
+                        rng.random(n).astype(np.float32), load_factor=0.7)
+    values = np.concatenate([rng.choice(kmers, 150_000),
+                             rng.integers(0, MAX_ENCODED, 150_001)])
+    rng.shuffle(values)
+    return table, values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_cuda_shard_probe_matches_twin(cuda_device, w, unaligned):
+    """B12 on the card equals its twin (int32, exact) for a middle shard of
+    a 300,000-slot plane: homes inside and outside its range, negative
+    ones, planted matches behind empty slots; the plane's slice starting
+    at an odd slot when ``unaligned``. One launch."""
+    from kmergutsjava_tpu_torch.parallel import shard_probe
+
+    fp = _plane(300_000, seed=w)
+    s_loc, lo = 90_001, 100_003
+    sl = slice(lo + unaligned, lo + unaligned + s_loc + w)
+    plane = torch.from_numpy(fp[sl].copy())
+    qfp, homes = _queries(fp, 400_000, w, seed=w + 1)
+    homes[::97] = -5
+    args = (torch.from_numpy(qfp), torch.from_numpy(homes))
+    want = shard_probe.shard_probe_reference(plane, *args, lo + unaligned,
+                                             s_loc, w)
+    # an odd slot's slice of a card tensor: the kernel's unaligned path
+    big = torch.from_numpy(fp[sl.start - 1:sl.stop].copy()).to(cuda_device)
+    on_card = big[1:] if unaligned else plane.to(cuda_device)
+    before = shard_probe.launches
+    got = shard_probe.shard_probe(on_card, *(a.to(cuda_device) for a in args),
+                                  lo + unaligned, s_loc, w)
+    torch.cuda.synchronize()
+    assert shard_probe.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int((want > 0).sum()) > 10_000
+
+
+@pytest.mark.cuda
+def test_cuda_shard_probe_empty_and_device_checks(cuda_device):
+    from kmergutsjava_tpu_torch.parallel import shard_probe
+
+    plane = torch.zeros(40, dtype=torch.uint16, device=cuda_device)
+    e16 = torch.zeros(0, dtype=torch.uint16, device=cuda_device)
+    e32 = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    assert shard_probe.shard_probe(plane, e16, e32, 0, 20, 16).numel() == 0
+    with pytest.raises(tilejoin.KernelError):
+        shard_probe.shard_probe(plane, e16, e32.cpu(), 0, 20, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,shards,cap", [
+    (1000, 1, 64), (100_000, 2, 100_000), (300_001, 4, 64),
+    (300_001, 8, 30_000), (70_000, 256, 200), (5, 3, 1)])
+def test_cuda_route_bins_match_twin(cuda_device, n, shards, cap):
+    """B13 on the card equals its twins exactly: the bins (fingerprints and
+    homes, FP_EMPTY and 0 in unused cells), each query's cell (-1 for an
+    overflow or a padded query) and the un-binned answers; with uniform
+    homes, homes skewed onto one shard and small caps (overflow)."""
+    from kmergutsjava_tpu_torch.parallel import route_bins
+
+    rng = np.random.default_rng(n + shards)
+    num_sigs = 1_000_003
+    homes = rng.integers(0, num_sigs, n).astype(np.int32)
+    homes[rng.random(n) < 0.3] = rng.integers(0, 1000)  # a skewed share
+    qfp = rng.integers(0, 65535, n).astype(np.uint16)
+    s_loc = -(-num_sigs // shards)
+    n_valid = n - n // 7
+    cpu = [torch.from_numpy(qfp), torch.from_numpy(homes)]
+    want = route_bins.bins_reference(*cpu, n_valid, s_loc, shards, cap)
+    before = (route_bins.launches, route_bins.unbin_launches)
+    got = route_bins.bins(*(x.to(cuda_device) for x in cpu), n_valid, s_loc,
+                          shards, cap)
+    back = torch.from_numpy(rng.integers(0, 256, (2, shards * cap)).astype(
+        np.uint8))
+    want_u = route_bins.unbin_reference(want[2], back[0], back[1])
+    got_u = route_bins.unbin(got[2], back[0].to(cuda_device),
+                             back[1].to(cuda_device))
+    torch.cuda.synchronize()
+    assert (route_bins.launches, route_bins.unbin_launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip((*got, *got_u), (*want, *want_u)):
+        assert torch.equal(a.cpu(), b)
+    assert int((want[2] < 0).sum()) >= n // 7
+
+
+def _placement(cuda_device, placement):
+    """Four mesh positions: all on the one card, or on four distinct cards
+    (skipped where the machine has fewer)."""
+    if placement == "one_card":
+        return [cuda_device] * 4
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["one_card", "distinct_cards"])
+@pytest.mark.parametrize("backend", ["sharded", "routed", "replicated",
+                                     "xla", "stream"])
+def test_cuda_mesh_lookups_match_cpu(cuda_device, backend, placement):
+    """Each mesh lookup with four positions, on the one card (each its own
+    stream) or on four cards (the collectives' copies between cards),
+    gives the CPU twins' hits, and launches its kernels."""
+    from kmergutsjava_tpu_torch.parallel import (mesh, replicated_lookup,
+                                                 route_bins, routed_lookup,
+                                                 shard_probe, sharded_lookup,
+                                                 stream_shards,
+                                                 tilejoin_shards)
+
+    table, values = _mesh_table(31)
+    cnt = np.zeros(len(values), np.int64)
+    pos = np.arange(len(values), dtype=np.int64)
+    cards = _placement(cuda_device, placement)
+    kernel = {"sharded": shard_probe, "routed": route_bins,
+              "replicated": tilejoin, "xla": tilejoin,
+              "stream": stream}[backend]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        devs = [torch.device("cpu")] * 4 if dev == "cpu" else cards
+        before = kernel.launches
+        if backend == "sharded":
+            lk = sharded_lookup.ShardedLookup(
+                table, mesh.make_mesh(2, 2, devs), max(8, table.max_probe))
+        elif backend == "routed":
+            lk = routed_lookup.RoutedLookup(
+                table, mesh.make_mesh(1, 4, devs),
+                probe_window=max(16, table.max_probe))
+        elif backend == "replicated":
+            lk = replicated_lookup.ReplicatedLookup(
+                table, mesh.make_mesh(4, 1, devs))
+        elif backend == "xla":
+            lk = tilejoin_shards.TileJoinShardedLookup(
+                table, mesh.make_mesh(1, 4, devs),
+                chunk=1 << 16)
+        else:
+            lk = stream_shards.StreamShardedLookup(
+                table, stream_shards.make_stream_mesh(4, devs))
+        got[dev] = lk.lookup(values, cnt, pos).pos
+        # four positions: four launches (a dispatch's, for xla)
+        assert kernel.launches - before == (0 if dev == "cpu" else
+                                            20 if backend == "xla" else 4)
+    assert len(got["cpu"]) > 100_000
+    np.testing.assert_array_equal(np.sort(got["cpu"]), np.sort(got["cuda"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["one_card", "distinct_cards"])
+@pytest.mark.parametrize("aa", [True, False])
+def test_cuda_spmd_mesh_step_matches_cpu(cuda_device, aa, placement):
+    """The fused step on a (2, 2) mesh (the window kernel and B12 on every
+    position, the sum over the table axis) on the card gives the CPU
+    twins' int32 answer, bit for bit, with four launches of each."""
+    from kmergutsjava_tpu_torch.parallel import annotate_step as st
+    from kmergutsjava_tpu_torch.parallel import mesh, shard_probe
+
+    table, prots = _kw_table(5)
+    pw = max(8, table.max_probe)
+    if aa:
+        mat = np.zeros((len(prots), 1024), np.uint8)
+        for i, p in enumerate(prots):
+            mat[i, :len(p)] = p
+        lens = np.array([len(p) for p in prots])
+        make = st.make_sharded_annotate_step
+    else:
+        mat, lens = _kw_contigs(prots[::2][:63], seed=9)
+        make = st.make_sharded_dna_step
+    got = {}
+    for dev in ("cpu", "cuda"):
+        devs = ([torch.device("cpu")] * 4 if dev == "cpu"
+                else _placement(cuda_device, placement))
+        m = mesh.make_mesh(2, 2, devs)
+        step, planes = make(m, table, pw)
+        before = (kmer_windows.launches, shard_probe.launches)
+        got[dev] = step(planes["fp"], mat, lens).read()
+        assert (kmer_windows.launches - before[0],
+                shard_probe.launches - before[1]) == (
+            (0, 0) if dev == "cpu" else (4, 4))
+    assert int((got["cpu"] > 0).sum()) > 1000
+    np.testing.assert_array_equal(got["cuda"], got["cpu"])

@@ -1,0 +1,199 @@
+"""The port's routed lookup (kmergutsjava_tpu_torch/parallel/
+routed_lookup.py) and its routing bins B13 (parallel/route_bins.py: on the
+CPU the kernels' plain twins) against the JAX package's ``_routed_step``
+under ``shard_map`` on its eight virtual CPU devices.
+
+- B13's bins equal the JAX step's cell for cell (its fingerprints and homes
+  just before the first ``all_to_all``, taken by a spy on that call), and
+  its overflow flags equal the step's, at the same ``cap``: uniform homes
+  over 2, 4 and 8 shards, a forced overflow (slack 0.1) and homes skewed
+  onto one shard. Exact.
+- The routed answers (after the exchange, the owner's probe and the
+  un-binning) against the step's: the overflow flags and the offsets
+  exactly, state bit 0 exactly, and bit 1 only where bit 0 is 0. The
+  owner's probe is B1's first event, where the JAX step's state is 3 for a
+  candidate with an empty slot after it; the host reads bit 0 first.
+- The verified hits equal the parity scan's, and the ``routed`` backend's
+  reports (aa and DNA) the JAX engine's byte for byte.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from kmergutsjava_tpu.parallel import routed_lookup as jax_routed
+from kmergutsjava_tpu_torch.lookup.parity import lookup_stream
+from kmergutsjava_tpu_torch.lookup.tilejoin import KernelError
+from kmergutsjava_tpu_torch.parallel import route_bins
+from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
+from kmergutsjava_tpu_torch.parallel.routed_lookup import RoutedLookup
+
+from test_lookup import canon, make_queries
+from test_torch_mesh import corpus, both  # noqa: F401  (a fixture)
+from test_torch_sharded import tables
+
+
+def jax_step_with_bins(monkeypatch, table, values, n_shards, pw, slack):
+    """The JAX routed step on ``values`` as its lookup pads them, with the
+    bins it exchanges: (off, state, over, bin_qfp [T, T, cap], bin_home
+    [T, T, cap], n_loc, cap), bins indexed by source shard."""
+    rl = jax_routed.RoutedLookup(table, jax_routed.make_routed_mesh(n_shards),
+                                 probe_window=pw, slack=slack)
+    t = n_shards
+    n = len(values)
+    n_loc = -(-n // t)
+    n_pad = n_loc * t
+    homes = np.zeros(n_pad, np.int32)
+    homes[:n] = (values % np.int64(table.num_sigs)).astype(np.int32)
+    qfp = np.full(n_pad, 65535, np.uint16)
+    qfp[:n] = (values % 65535).astype(np.uint16)
+    valid = np.zeros(n_pad, bool)
+    valid[:n] = True
+    cap = max(64, int(n_loc / t * slack))
+    sent = []
+    real = jax.lax.all_to_all
+
+    def spy(x, *a, **kw):
+        sent.append(x)
+        return real(x, *a, **kw)
+
+    def body(*args):
+        sent.clear()
+        outs = jax_routed._routed_step(
+            *args, s_loc=rl.s_loc, probe_window=pw, cap=cap, n_shards=t,
+            stride=rl.stride)
+        # the step's first two exchanges send the fingerprint and home bins
+        return outs + (sent[0][None], sent[1][None])
+
+    monkeypatch.setattr(jax.lax, "all_to_all", spy)
+    ax = jax_routed.AXIS
+    f = jax.jit(jax.shard_map(
+        body, mesh=rl.mesh,
+        in_specs=(P(ax, None, None), P(ax), P(ax), P(ax)),
+        out_specs=(P(ax), P(ax), P(ax), P(ax, None, None),
+                   P(ax, None, None))))
+    qs = NamedSharding(rl.mesh, P(ax))
+    off, state, over, bq, bh = (np.asarray(x) for x in jax.device_get(f(
+        rl.fp_shards, jax.device_put(qfp, qs), jax.device_put(homes, qs),
+        jax.device_put(valid, qs))))
+    return off, state, over, bq, bh, n_loc, cap
+
+
+CASES = {"uniform-2": (2, 2.0, False), "uniform-4": (4, 2.0, False),
+         "uniform-8": (8, 2.0, False), "overflow-4": (4, 0.1, False),
+         "skewed-4": (4, 2.0, True)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_b13_bins_and_answers_equal_jax_step(monkeypatch, case):
+    n_shards, slack, skewed = CASES[case]
+    rng, sig, jt, pt = tables(n_shards, 3000, 0.7)
+    pw = max(16, pt.max_probe)
+    if skewed:  # every query homes into the first shard's range
+        s_loc = -(-pt.num_sigs // n_shards)
+        first = sig["kmers"][sig["kmers"] % pt.num_sigs < s_loc]
+        values = np.tile(first[:50], 40).astype(np.int64)
+    else:
+        values, _, _ = make_queries(rng, sig["kmers"], 6001)
+    off, state, over, bq, bh, n_loc, cap = jax_step_with_bins(
+        monkeypatch, jt, values, n_shards, pw, slack)
+    n = len(values)
+    homes = np.zeros(n_loc * n_shards, np.int32)
+    homes[:n] = values % pt.num_sigs
+    qfp = np.full(n_loc * n_shards, 65535, np.uint16)
+    qfp[:n] = values % 65535
+    s_loc = -(-pt.num_sigs // n_shards)
+    for s in range(n_shards):
+        lo = s * n_loc
+        b_qfp, b_home, cell = route_bins.bins(
+            torch.from_numpy(qfp[lo:lo + n_loc]),
+            torch.from_numpy(homes[lo:lo + n_loc]), n - lo, s_loc, n_shards,
+            cap)
+        np.testing.assert_array_equal(b_qfp.numpy(),
+                                      bq.reshape(n_shards, n_shards, cap)[s])
+        np.testing.assert_array_equal(b_home.numpy(),
+                                      bh.reshape(n_shards, n_shards, cap)[s])
+        np.testing.assert_array_equal(cell.numpy() < 0, over[lo:lo + n_loc])
+    assert over[:n].any() == (case in ("overflow-4", "skewed-4"))
+
+    m = make_mesh(1, n_shards, [torch.device("cpu")] * 8)
+    got_off, got_state, got_over = RoutedLookup(
+        pt, m, probe_window=pw, slack=slack).probe(values)
+    np.testing.assert_array_equal(got_over, over[:n])
+    np.testing.assert_array_equal(got_off, off[:n])
+    np.testing.assert_array_equal(got_state & 1, state[:n] & 1)
+    no_cand = (state[:n] & 1) == 0
+    np.testing.assert_array_equal(got_state[no_cand], state[:n][no_cand])
+    assert ((state[:n] == 3) & (got_state == 1)).any() or case == "skewed-4"
+
+    cnt = np.zeros(n, np.int64)
+    pos = np.arange(n, dtype=np.int64)
+    hits = RoutedLookup(pt, m, probe_window=pw, slack=slack).lookup(
+        values, cnt, pos)
+    ref = lookup_stream(pt, values, cnt, pos)
+    assert canon(hits) == canon(ref)
+    assert hits.kmers_found == ref.kmers_found
+
+
+def test_b13_twin_is_a_stable_sort():
+    """The twin by its definition on a hand-made case: ranks in input order
+    within each owner, padded queries and ranks past cap overflow, unused
+    cells FP_EMPTY and home 0; un-binning gathers each query's cell."""
+    homes = torch.tensor([25, 3, 27, 12, 1, 29, 0, 5], dtype=torch.int32)
+    q = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8],
+                     dtype=torch.int32).to(torch.int16).view(torch.uint16)
+    b_qfp, b_home, cell = route_bins.bins(q, homes, 7, 10, 3, 2)
+    # owners 2, 0, 2, 1, 0, 2, 0, (padded); cap 2: ranks 0, 0, 1, 0, 1, 2, 2
+    assert cell.tolist() == [4, 0, 5, 2, 1, -1, -1, -1]
+    assert b_qfp.view(torch.int16).tolist() == [[2, 5], [4, -1], [1, 3]]
+    assert b_home.tolist() == [[3, 1], [12, 0], [25, 27]]
+    back_off = torch.arange(6, dtype=torch.uint8) + 10
+    back_state = torch.arange(6, dtype=torch.uint8) % 3
+    off, state = route_bins.unbin(cell, back_off, back_state)
+    assert off.tolist() == [14, 10, 15, 12, 11, 0, 0, 0]
+    assert state.tolist() == [1, 0, 2, 2, 1, 0, 0, 0]
+
+
+def test_cpu_wrappers_count_no_launch():
+    before = (route_bins.launches, route_bins.unbin_launches)
+    h = torch.arange(10, dtype=torch.int32)
+    _, _, cell = route_bins.bins(torch.zeros(10, dtype=torch.uint16), h, 10,
+                                 5, 2, 8)
+    route_bins.unbin(cell, torch.zeros(16, dtype=torch.uint8),
+                     torch.zeros(16, dtype=torch.uint8))
+    assert (route_bins.launches, route_bins.unbin_launches) == before
+
+
+@pytest.mark.parametrize("bad", ["homes_i64", "qfp_i16", "length",
+                                 "shards", "cell_i64", "back_i32"])
+def test_wrappers_reject_bad_inputs(bad):
+    h = torch.zeros(4, dtype=torch.int32)
+    q = torch.zeros(4, dtype=torch.uint16)
+    with pytest.raises(KernelError):
+        if bad in ("cell_i64", "back_i32"):
+            cell = torch.zeros(4, dtype=torch.int64 if bad == "cell_i64"
+                               else torch.int32)
+            back = torch.zeros(8, dtype=torch.int32 if bad == "back_i32"
+                               else torch.uint8)
+            route_bins.unbin(cell, back, back)
+        else:
+            args = dict(q_fp=q, homes=h, n_valid=4, s_loc=5, n_shards=2,
+                        cap=4)
+            args.update({"homes_i64": dict(homes=h.long()),
+                         "qfp_i16": dict(q_fp=q.view(torch.int16)),
+                         "length": dict(q_fp=q[:3]),
+                         "shards": dict(n_shards=257)}[bad])
+            route_bins.bins(**args)
+
+
+@pytest.mark.parametrize("mode", ["aa", "dna"])
+def test_routed_backend_reports_equal_jax(corpus, mode):  # noqa: F811
+    """``--backend routed`` over all eight devices and at ``--mesh 1x4``:
+    the JAX engine's report."""
+    d, texts, _ = corpus
+    for shape in (None, (1, 4)):
+        got, want = both(d, texts[mode], mode == "aa", backend="routed",
+                         mesh_shape=shape, min_hits=2)
+        assert got == want and "CALL\t" in got

@@ -5,9 +5,12 @@ random query set (aa or DNA: mutations, reverse strands, N runs, duplicate
 ids), with random grouping parameters, sometimes debug mode and sometimes a
 small ``-l`` (store spills, stream passes). The port's parity, xla, stream,
 pallas, auto and spmd backends on the CPU (from stdin or from a file, 1-4
-native threads) and a port checkpoint run at a random batch size must each be
-byte-equal to the JAX ``parity`` Engine (debug timing lines masked). A few
-seeds run in the tier-1 suite; ``-m slow`` runs many more."""
+native threads), its mesh backends (sharded on a 2x2 mesh, routed over 4
+shards, replicated over 2 devices: ``mesh_devices`` of CPU positions) and
+``auto`` with ``--mesh 2x2``, and a port checkpoint run at a random batch
+size must each be byte-equal to the JAX ``parity`` Engine (debug timing
+lines masked). A few seeds run in the tier-1 suite; ``-m slow`` runs many
+more."""
 import io
 import os
 import random
@@ -31,6 +34,11 @@ CODON = {"A": "GCT", "C": "TGT", "D": "GAT", "E": "GAA", "F": "TTT",
          "S": "TCT", "T": "ACT", "V": "GTT", "W": "TGG", "Y": "TAT"}
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
 PORT_BACKENDS = ("parity", "xla", "stream", "pallas", "auto", "spmd")
+# the mesh runs: (backend, mesh_shape, mesh_devices)
+MESH_RUNS = (("sharded", (2, 2), ["cpu"] * 4),
+             ("routed", (1, 4), ["cpu"] * 4),
+             ("replicated", (2, 1), ["cpu"] * 2),
+             ("auto", (2, 2), ["cpu"] * 4))
 # debug reports embed timing and progress info lines
 _DROP = re.compile(r"^(Temp\. directory:|Preparation time:|Lookup time:"
                    r"|Grouping time:|Processed: )")
@@ -105,16 +113,18 @@ def run_round(seed, tmp, monkeypatch):
     q = os.path.join(tmp, f"q{seed}.fa")
     with open(q, "w") as fh:
         fh.write(fasta)
-    for backend in PORT_BACKENDS:
+    runs = [(b, None, None) for b in PORT_BACKENDS] + list(MESH_RUNS)
+    for backend, shape, devices in runs:
         monkeypatch.setenv("KMER_NATIVE_THREADS", str(rng.randint(1, 4)))
         from_file = rng.random() < 0.5
         out = io.StringIO()
-        Engine(EngineConfig(backend=backend, device="cpu", **kw)).run(
+        Engine(EngineConfig(backend=backend, device="cpu", mesh_shape=shape,
+                            mesh_devices=devices, **kw)).run(
             d, q if from_file else None, out, stdout=True,
             query_stream=None if from_file else io.StringIO(fasta))
         assert _strip(out.getvalue()) == base, (
-            f"seed {seed}: port {backend} (from_file={from_file}) diverged "
-            "from the JAX parity engine")
+            f"seed {seed}: port {backend} (mesh {shape}, from_file="
+            f"{from_file}) diverged from the JAX parity engine")
     if not kw["debug"]:
         batch = rng.randint(1, 7)
         op, cp = os.path.join(tmp, f"o{seed}.txt"), os.path.join(

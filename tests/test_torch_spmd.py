@@ -10,7 +10,15 @@ tests/test_spmd_backend.py), for a probe window past 128 (the parity
 fallback) and a truncated table; ``--prepare jax`` reports equal the JAX
 engine's and its ``add_batch`` rows come in the JAX order; the CLI takes
 ``--backend spmd``; a KernelError in the prepare or the lookup phase
-propagates and is never an ``Error:`` line."""
+propagates and is never an ``Error:`` line.
+
+On a mesh (the JAX package's eight virtual CPU devices; the port's
+``mesh_devices`` of eight CPU positions) the step is the JAX step's body:
+its int32 answer equals the JAX ``make_sharded_annotate_step``'s,
+``make_sharded_dna_step``'s and ``make_windowed_dna_step``'s bit for bit at
+(2, 2) and (4, 2), and reports with ``mesh_shape`` (2, 2), (4, 2) and
+(1, 8), long records through windows and debug mode included, equal the
+JAX engine's."""
 import io
 import os
 import random
@@ -35,7 +43,8 @@ from kmergutsjava_tpu_torch.formats.table_tools import (
 from kmergutsjava_tpu_torch.lookup import tilejoin
 from kmergutsjava_tpu_torch.models import prepare, spmd
 from kmergutsjava_tpu_torch.models.pipeline import Engine
-from kmergutsjava_tpu_torch.parallel import annotate_step
+from kmergutsjava_tpu_torch.parallel import annotate_step, seq_windows
+from kmergutsjava_tpu_torch.parallel import mesh as port_mesh
 
 from test_end_to_end import _random_corpus, _strip_info
 from test_spmd_backend import CODON, _dna_corpus
@@ -289,3 +298,106 @@ def test_kernel_error_propagates(corpus, monkeypatch, phase):
             d, None, out, stdout=True,
             query_stream=io.StringIO(texts["aa"]))
     assert "Error:" not in out.getvalue()
+
+
+CPU8 = ["cpu"] * 8
+
+
+def _mesh_batch(texts, mode, width):
+    """One batch of rows as the fused step takes them: the first 13
+    records (not a multiple of the data axis, so that padding rows occur)
+    cut to ``width``."""
+    recs = _records(texts[mode])[:13]
+    mat = np.zeros((len(recs), width), np.uint8)
+    lens = np.zeros(len(recs), np.int64)
+    for i, r in enumerate(recs):
+        a = np.frombuffer(r.seq[:width].encode(), np.uint8)
+        mat[i, :len(a)] = a
+        lens[i] = len(a)
+    return mat, lens
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("mode", ["aa", "dna", "windows"])
+def test_mesh_step_answers_equal_jax_step(corpus, mode, shape):
+    """The port's mesh step (window kernel's twin and B12's twin on every
+    position, the sum over the table axis) against the JAX sharded step on
+    a mesh of the same shape: the int32 slot + 1 of every window, bit for
+    bit."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from kmergutsjava_tpu.parallel import annotate_step as jax_step
+    from kmergutsjava_tpu.parallel import seq_windows as jax_windows
+    from kmergutsjava_tpu.parallel.mesh import make_mesh
+
+    d, texts = corpus
+    path = os.path.join(d, TABLE_FILE)
+    jt, pt = jax_read_table(path), read_table(path)
+    pt.compute_max_probe()
+    pw = max(8, pt.max_probe)
+    jm = make_mesh(*shape)
+    m = port_mesh.make_mesh(*shape, devices=port_mesh.mesh_devices(
+        "cpu", CPU8))
+    if mode == "windows":
+        contig = np.frombuffer(_records(texts["dna"])[-2].seq.encode(),
+                               np.uint8)
+        plan = seq_windows.plan_windows(len(contig), 150)
+        n = len(plan["s"])
+        mat = np.full((n, 150), ord("N"), np.uint8)
+        for i in range(n):
+            mat[i, :plan["len_w"][i]] = contig[plan["s"][i]:plan["e"][i]]
+        cols = [plan[k].astype(np.int32) for k in
+                ("len_w", "row_map", "own_start", "own_end")]
+        n_pad = -(-n // shape[0]) * shape[0]
+        pad = [np.concatenate([x, np.zeros((n_pad - n, *x.shape[1:]),
+                                           x.dtype)]) for x in [mat, *cols]]
+        jstep, jplanes = jax_windows.make_windowed_dna_step(jm, jt, pw, 150)
+        specs = [P("data", None), P("data"), P("data", None),
+                 P("data", None), P("data", None)]
+        want = np.asarray(jax.device_get(jstep(jplanes["fp"], *(
+            jax.device_put(x, NamedSharding(jm, sp))
+            for x, sp in zip(pad, specs)))))[:n]
+        _, planes = annotate_step.make_sharded_dna_step(m, pt, pw)
+        step, planes = seq_windows.make_sharded_windowed_dna_step(
+            m, pt, pw, 150, planes)
+        got = step(planes["fp"], mat, *cols).read()
+    else:
+        aa = mode == "aa"
+        mat, lens = _mesh_batch(texts, mode, 256 if aa else 300)
+        make_j = (jax_step.make_sharded_annotate_step if aa
+                  else jax_step.make_sharded_dna_step)
+        jstep, jplanes = make_j(jm, jt, pw)
+        n_pad = -(-len(mat) // shape[0]) * shape[0]
+        pm = np.zeros((n_pad, mat.shape[1]), np.uint8)
+        pm[:len(mat)] = mat
+        pl = np.zeros(n_pad, np.int64)
+        pl[:len(lens)] = lens
+        want = np.asarray(jax.device_get(jstep(
+            jplanes["fp"], jax.device_put(pm, NamedSharding(jm, P("data",
+                                                                  None))),
+            jax.device_put(pl, NamedSharding(jm, P("data"))))))[:len(mat)]
+        make_p = (annotate_step.make_sharded_annotate_step if aa
+                  else annotate_step.make_sharded_dna_step)
+        step, planes = make_p(m, pt, pw)
+        got = step(planes["fp"], mat, lens).read()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).sum() > 20
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (1, 8)])
+@pytest.mark.parametrize("mode", ["aa", "dna"])
+def test_spmd_mesh_reports_equal_jax(corpus, short_long, mode, shape):
+    """``--backend spmd`` with a mesh, long records through windows: the
+    JAX engine's report with the same mesh shape; in debug mode too at
+    (2, 2)."""
+    d, texts = corpus
+    aa = mode == "aa"
+    for debug in ((False, True) if shape == (2, 2) else (False,)):
+        kw = dict(backend="spmd", mesh_shape=shape, min_hits=2, debug=debug)
+        got = _port(d, texts[mode], aa, mesh_devices=CPU8, **kw)
+        want = _jax(d, texts[mode], aa, **kw)
+        if debug:
+            got, want = _strip_info(got), _strip_info(want)
+        assert got == want and "CALL\t" in got
