@@ -9,8 +9,9 @@ failure and then prints no result):
 
 1. the card's name and power limit (nvidia-smi); build of the CUDA kernels
    (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu,
-   csrc/tjgather.cu, csrc/kmer_windows.cu, csrc/shard_probe.cu and
-   csrc/route_bins.cu, one nvcc each, started together) for sm_90a;
+   csrc/tjgather.cu, csrc/kmer_windows.cu, csrc/shard_probe.cu,
+   csrc/route_bins.cu and csrc/scan_machine.cu, one nvcc each, started
+   together) for sm_90a;
 2. the tile-join kernel against its plain PyTorch twin on the card: a
    seeded 40M-slot fingerprint plane at load 0.6 with planted empties,
    queried (half planted hits) at the main path's launch shape (eight
@@ -129,6 +130,31 @@ failure and then prints no result):
    received bins) and B1 on the xla lookup's four table shards (local
    homes), every call equal to its twin.
 
+14. ``--grouping scan`` on the card (the grouping kernel B11,
+   csrc/scan_machine.cu): the CLI on the goldens (corpus table) and on
+   phase 4's proteome and phase 7's read set, each report equal to its
+   golden or to phase 4's or 7's, one B11 launch a run (none for the
+   genome: its six containers are past 4,096 hits and take the host
+   machine, as in the JAX engine); then B11 against
+   its twin on the engine's own container batches of those two runs
+   (taken by a spy on the wrapper: flags at every step, records where a
+   step emits), with its device time, the twin's, the bound and the
+   longest container;
+15. two processes of the port under gloo (``--mp-worker``: this script,
+   one rank each), each holding two mesh positions of the one card: the
+   sharded (2, 2), routed 4 and stream-shard 4 lookups of the proteome's
+   queries against phase 4's table, each rank's hits equal to a
+   single-process lookup's; then each rank's engine over its
+   ``shard_records`` share, merged by ``merge_report_shards`` into phase
+   4's report byte for byte; each step's wall time and launches of B1,
+   B2, B12 and B13 are printed.
+
+Phase 4 also runs the proteome with ``--sort-chunks 1`` and with
+``--sort-chunks 1 --device-sort`` (each report equal to the unsorted one)
+and times B1 a dispatch with each chunk in home order, between two runs in
+the engine's order. Phase 13 also gives B12's device time a launch, bound
+and share in the (2, 2) spmd step's proteome and read batches.
+
 Each kernel's line also prints its bound (``bound_ms``: the larger of
 the bytes it must move over the card's memory rate and one integer
 operation an input element over its INT32 rate; ``bound_by``) and its
@@ -143,11 +169,11 @@ kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather, phase 12's
 sparse proteome spmd run for the window kernel, with B1's launches in that
 run beside them, phase 13's sharded (2, 2) run for B12 and routed run for
-B13), its largest
+B13, phase 14's proteome run for B11), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
 phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch;
-phase 13's shapes),
+phase 13's shapes; phase 14's proteome batch),
 the bound and share at those shapes,
 and ``library_ms`` null (no single PyTorch call computes a first-event
 window probe); the last line is
@@ -219,6 +245,7 @@ def fail(msg: str) -> int:
 
 def kernel_modules():
     """The kernel wrappers' modules, by the name their counts print under."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
     from kmergutsjava_tpu_torch.lookup import (blockprobe, stream, tilejoin,
                                                tjgather)
     from kmergutsjava_tpu_torch.ops import kmer_windows
@@ -226,7 +253,8 @@ def kernel_modules():
 
     return dict(tilejoin=tilejoin, stream=stream, blockprobe=blockprobe,
                 tjgather=tjgather, kmer_windows=kmer_windows,
-                shard_probe=shard_probe, route_bins=route_bins)
+                shard_probe=shard_probe, route_bins=route_bins,
+                scan_machine=scan_machine)
 
 
 def reset_counts():
@@ -1881,14 +1909,16 @@ def mesh_kernels_vs_twins(dev, big, faa):
 
 @contextlib.contextmanager
 def spied(module, name, calls):
-    """``module.name`` wrapped for the enclosed work: each call's arguments
-    and a copy of its result (made on the caller's stream, before the path
-    can sum into it) are appended to ``calls``."""
+    """``module.name`` wrapped for the enclosed work: each call's arguments,
+    keywords and a copy of its result (a tensor or a tuple of them, made on
+    the caller's stream, before the path can sum into it) are appended to
+    ``calls``."""
     real = getattr(module, name)
 
-    def spy(*args):
-        out = real(*args)
-        calls.append((args, out.clone()))
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, tuple(x.clone() for x in out)
+                      if isinstance(out, tuple) else out.clone()))
         return out
 
     setattr(module, name, spy)
@@ -1943,7 +1973,7 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
                       counts + K if aa else counts).read()
         sync()
         errs, owned, invalid, cands, n = [], 0, 0, 0, 0
-        for (plane, q, h, lo, s_loc, w), got in calls:
+        for (plane, q, h, lo, s_loc, w), _, got in calls:
             twin = shard_probe.shard_probe_reference(plane, q, h, lo, s_loc,
                                                      w)
             errs.append(int((got.long() - twin.long()).abs().max()))
@@ -1952,11 +1982,23 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
             cands += int((got > 0).sum())
             n += h.numel()
         b12_err = max([b12_err] + errs)
+        # the device time of these launches (each position's, in the step's
+        # order), their bound and share
+        mine = [c for c in calls if c[0][0].device == devs[0]]
+        ms, kept = kernel_device_ms(
+            lambda: [shard_probe.shard_probe(*a) for a, _, _ in mine],
+            devs[0], "shard_probe_kernel")
+        bnds = [bound_shard_probe(a[2], got, a[3], a[4], a[5])
+                for a, _, got in mine]
+        k_ms = sum(ms) / len(ms)
+        bnd = (sum(b[0] for b in bnds) / len(bnds), bnds[0][1])
         print(f"phase 13: B12 in the (2, 2) spmd step on {label}: launches="
               f"{len(calls)} windows={n} owned={owned} invalid={invalid} "
               f"candidates={cands} "
-              f"pw={prog.pw} max_abs_err={max(errs)}", flush=True)
-        del prog, calls
+              f"pw={prog.pw} max_abs_err={max(errs)} device_ms_per_launch="
+              f"{k_ms:.5f} by_launch={[round(x, 5) for x in ms]} "
+              f"runs_kept={kept}/5 {bound_fields(k_ms, bnd)}", flush=True)
+        del prog, calls, mine
 
     values = query_values(faa)
     b1_err = 0
@@ -1976,7 +2018,7 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
             run()
         sync()
         errs, fills, below, n = [], 0, 0, 0
-        for (plane, q, h, w), answer in calls:
+        for (plane, q, h, w), _, answer in calls:
             off_k, st_k = tilejoin.answer_views(answer, q.numel())
             off_t, st_t = tilejoin.first_event_reference(plane, q, h, w)
             errs.append(max(int((off_k.int() - off_t.int()).abs().max()),
@@ -1993,6 +2035,308 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
     return b12_err, b1_err
 
 
+def sorted_chunks_phase(dev, work, big, faa, table):
+    """Phase 4, the chunk home sort: the proteome through the CLI with
+    ``--sort-chunks 1`` and with ``--sort-chunks 1 --device-sort``, each
+    report equal to the unsorted cuda run's, B1 its only kernel; then B1's
+    device time a dispatch at the engine's launches with each chunk in
+    home order, between two runs in the engine's order (check_chunks, each
+    against the twin). Returns (the sorted order's device ms a full
+    dispatch, the engine order's)."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
+
+    with open(os.path.join(work, "big_cuda.txt"), "rb") as fh:
+        want = fh.read()
+    for flags in (("--sort-chunks", "1"),
+                  ("--sort-chunks", "1", "--device-sort")):
+        out = os.path.join(work, "big_sorted.txt")
+        reset_counts()
+        info, secs = run_cli(big, faa, out, "cuda", flags)
+        counts = read_counts()
+        with open(out, "rb") as fh:
+            got = fh.read()
+        print(f"phase 4: {' '.join(flags)} wall_s={secs:.3f} "
+              f"identical={got == want} launches={counts['tilejoin']} "
+              f"{phase_ms(info)}", flush=True)
+        if got != want:
+            raise RuntimeError(f"phase 4: {' '.join(flags)} changed the "
+                               "report")
+        check_launches(f"phase 4 {' '.join(flags)}", counts, ("tilejoin",))
+    values = query_values(faa)
+    lk = SparseLookup(table, device=str(dev))
+    res = {}
+    for order in ("engine", "home", "engine"):
+        chunks = engine_chunks(lk, values)
+        if order == "home":
+            chunks = [(q[o], h[o]) for q, h in chunks
+                      for o in [np.argsort(h, kind="stable")]]
+        on_card = [(torch.from_numpy(q).to(dev), torch.from_numpy(h).to(dev))
+                   for q, h in chunks]
+        err, k_ms, *_ = check_chunks(
+            dev, f"phase 4: engine dispatches in {order} order", lk.fp,
+            lk.w1, on_card, lambda: engine_launches(lk, chunks), lk.chunk)
+        if err != 0:
+            raise RuntimeError(f"phase 4: B1 and its twin disagree in "
+                               f"{order} order")
+        res.setdefault(order, []).append(k_ms)
+    print(f"phase 4: B1 device_ms a full dispatch home_order="
+          f"{res['home'][0]:.5f} engine_order={res['engine']}", flush=True)
+    return res["home"][0], res["engine"]
+
+
+def bound_scan(n_hits, n_cont, steps, emits):
+    """B11: each hit's five columns in (20 B) and the container offsets
+    (8 B each), each step's flag byte and each emitting step's record
+    (28 B) out; one operation a step (its steps are a dependent chain, so
+    the longest container may set the time instead)."""
+    return bound(20 * n_hits + 8 * (n_cont + 1) + steps + 28 * emits, steps)
+
+
+def scan_phase(dev, work, corpus, faa, fna, big, reads):
+    """Phase 14: ``--grouping scan`` on the card. The CLI on the goldens
+    (the corpus table) and on phase 4's proteome and phase 7's read set
+    (phase 4's table): each report equal to its golden or to phase 4's or
+    7's, one launch of the grouping kernel B11 a run, beside the lookup's.
+    Then B11 against its twin on the engine's own container batches of the
+    proteome and read-set runs (taken by a spy on the wrapper; flags at
+    every step, records at emitting steps), with its device time
+    (kernel_device_ms, the L2 flushed), the twin's (CUDA events), the
+    bound and the longest container. Returns (B11's launches in the
+    proteome run, {label: (max_abs_err, kernel_ms, twin_ms, bound)})."""
+    import torch
+
+    from kmergutsjava_tpu_torch.calls import scan_machine as sm
+
+    def read(path, gz=False):
+        with (gzip.open if gz else open)(path, "rb") as fh:
+            return fh.read()
+
+    golden = os.path.join(HERE, "tests", "data")
+    runs = (("golden_aa_full", corpus, faa, True,
+             read(os.path.join(golden, "golden_aa_full.txt.gz"), True)),
+            ("golden_dna_full", corpus, fna, False,
+             read(os.path.join(golden, "golden_dna_full.txt.gz"), True)),
+            ("sparse proteome", big, faa, True,
+             read(os.path.join(work, "big_cuda.txt"))),
+            ("dense read set", big, reads, False,
+             read(os.path.join(work, "reads_auto.txt"))))
+    batches, launches = {}, None
+    for label, d, query, aa, want in runs:
+        out = os.path.join(work, "scan.txt")
+        calls = []
+        reset_counts()
+        with spied(sm, "scan_containers", calls):
+            info, secs = run_cli(d, query, out, "cuda",
+                                 ("--grouping", "scan"), aa=aa)
+        counts = read_counts()
+        got = read(out)
+        print(f"phase 14: {label} --grouping scan wall_s={secs:.3f} "
+              f"identical={got == want} launches={counts} {phase_ms(info)}",
+              flush=True)
+        if got != want:
+            raise RuntimeError(f"phase 14: {label} with --grouping scan "
+                               "differs from its reference")
+        # one launch for the run's batch; a batch with no container (all
+        # past 4,096 hits: the genome's six) takes the host machine only
+        n_cont = sum(c[0][1].numel() - 1 for c in calls)
+        print(f"phase 14: {label} batch containers={n_cont} (the rest, "
+              "past 4,096 hits, on the host machine)", flush=True)
+        check_launches(f"phase 14 {label}", counts,
+                       ("scan_machine",) if n_cont else (),
+                       ("tilejoin", "stream"))
+        if counts["scan_machine"] != (1 if n_cont else 0):
+            raise RuntimeError(f"phase 14: {label} launched B11 "
+                               f"{counts['scan_machine']} times for "
+                               f"{n_cont} containers")
+        if label == "sparse proteome":
+            launches = counts["scan_machine"]
+        if label in ("sparse proteome", "dense read set"):
+            batches[label] = calls[0]
+    res = {}
+    for label, ((hits, offsets), kw, (flags, recs)) in batches.items():
+        t_flags, t_recs = sm.scan_containers_reference(hits, offsets, **kw)
+        emit = (t_flags & 2) != 0
+        err = max(int((flags.int() - t_flags.int()).abs().max()),
+                  int((recs[emit].long() - t_recs[emit].long()).abs().max())
+                  if bool(emit.any()) else 0)
+        ms, kept = kernel_device_ms(
+            lambda: sm.scan_containers(hits, offsets, **kw), dev,
+            "scan_machine_kernel")
+        t_ms = timed(lambda: sm.scan_containers_reference(hits, offsets,
+                                                          **kw), dev, reps=1)
+        lens = offsets[1:] - offsets[:-1]
+        n, c = hits.shape[0], lens.numel()
+        n_emit = int(emit.sum())
+        bnd = bound_scan(n, c, n + c, n_emit)
+        print(f"phase 14: B11 on the {label} run's batch containers={c} "
+              f"hits={n} steps={n + c} emits={n_emit} longest_container="
+              f"{int(lens.max())} mean_container={n / max(c, 1):.1f} "
+              f"{kw} max_abs_err={err} device_ms={ms[0]:.5f} runs_kept="
+              f"{kept}/5 twin_ms={t_ms:.4f} {bound_fields(ms[0], bnd)}",
+              flush=True)
+        res[label] = (err, ms[0], t_ms, bnd)
+        del t_flags, t_recs
+    del batches
+    torch.cuda.synchronize(dev)
+    return launches, res
+
+
+def multiprocess_phase(work, big, faa):
+    """Phase 15: two processes of the port on the card under gloo, each
+    holding two mesh positions of the one card (``mp_worker``). Each rank's
+    sharded (2, 2), routed 4 and stream-shard 4 hits of the proteome's
+    queries against phase 4's table equal a single-process lookup's; each
+    rank's engine report over its ``shard_records`` share, merged by
+    ``merge_report_shards``, equals phase 4's report. The ranks are
+    started together, waited for with a timeout and killed by their
+    handles. Prints each rank's lines (walls and launches)."""
+    import socket
+
+    from kmergutsjava_tpu_torch.parallel.multihost import merge_report_shards
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-worker", addr, "2",
+         str(rank), work, big, faa], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=HERE) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("phase 15"):
+                print(line, flush=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 15: rank {rank} exited "
+                               f"{p.returncode}:\n{out[-3000:]}")
+    shards = []
+    for rank in range(2):
+        with open(os.path.join(work, f"mp_report_{rank}.txt")) as fh:
+            shards.append(fh.read())
+    with open(os.path.join(work, "big_cuda.txt")) as fh:
+        want = fh.read()
+    merged = merge_report_shards(shards)
+    print(f"phase 15: merged report of 2 ranks bytes={len(merged)} "
+          f"identical_to_phase_4={merged == want} wall_s="
+          f"{time.time() - t0:.3f}", flush=True)
+    if merged != want:
+        raise RuntimeError("phase 15: the merged report differs from phase "
+                           "4's")
+
+
+def mp_worker(addr, world, rank, work, big, faa) -> int:
+    """One rank of phase 15 (``chip_smoke.py --mp-worker ADDR WORLD RANK
+    WORK BIG FAA``): gloo over ``world`` processes, ``4 // world`` mesh
+    positions on card 0."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
+    from kmergutsjava_tpu_torch.formats.kmer_table import resolve_table_files
+    from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
+    from kmergutsjava_tpu_torch.models.pipeline import (Engine,
+                                                        _cached_read_table)
+    from kmergutsjava_tpu_torch.parallel import (routed_lookup,
+                                                 sharded_lookup,
+                                                 stream_shards)
+    from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
+    from kmergutsjava_tpu_torch.parallel.multihost import (
+        initialize_distributed, shard_records)
+
+    world, rank = int(world), int(rank)
+    torch.cuda.set_device(0)
+    t0 = time.time()
+    initialize_distributed(addr, world, rank, backend="gloo", timeout_s=600)
+    devs = ["cuda:0"] * (4 // world)
+    table = _cached_read_table(resolve_table_files(big)[0])
+    values = query_values(faa)
+    n = len(values)
+    cnt = np.zeros(n, np.int64)
+    pos = np.arange(n, dtype=np.int64)
+    print(f"phase 15: rank {rank} of {world} (gloo) up with the table and "
+          f"{n} queries in {time.time() - t0:.3f} s", flush=True)
+
+    def canon(hits):
+        o = np.argsort(hits.pos, kind="stable")
+        return [np.asarray(x)[o] for x in (hits.pos, hits.otu,
+                                            hits.avg_from_end, hits.fi,
+                                            hits.wt)]
+
+    t = time.time()
+    want = canon(SparseLookup(table, device="cuda").lookup(
+        values, cnt, pos, compute_kmers_found=False))
+    print(f"phase 15: rank {rank} single-process xla lookup wall_s="
+          f"{time.time() - t:.3f} hits={len(want[0])}", flush=True)
+    names = {"tilejoin": "B1", "stream": "B2", "shard_probe": "B12",
+             "route_bins": "B13"}
+    # the kernels each step must launch at this rank's positions
+    must = {"sharded (2, 2)": ("shard_probe",),
+            "routed 4": ("route_bins", "route_unbin", "tilejoin"),
+            "stream-shards 4": ("stream",)}
+    for label, build in (
+            ("sharded (2, 2)", lambda: sharded_lookup.ShardedLookup(
+                table, make_mesh(2, 2, devs, distributed=True),
+                max(8, table.max_probe))),
+            ("routed 4", lambda: routed_lookup.RoutedLookup(
+                table, make_mesh(1, 4, devs, distributed=True),
+                probe_window=max(16, table.max_probe))),
+            ("stream-shards 4", lambda: stream_shards.StreamShardedLookup(
+                table, stream_shards.make_stream_mesh(4, devs,
+                                                      distributed=True)))):
+        reset_counts()
+        t = time.time()
+        lk = build()
+        built = time.time() - t
+        t = time.time()
+        got = canon(lk.lookup(values, cnt, pos))
+        wall = time.time() - t
+        counts = read_counts()
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        print(f"phase 15: rank {rank} {label} positions="
+              f"{len(lk.mesh.positions())} build_s={built:.3f} lookup_s="
+              f"{wall:.3f} hits={len(got[0])} identical={same} launches="
+              f"{ {names[k]: counts[k] for k in names} }", flush=True)
+        if not same:
+            raise RuntimeError(f"rank {rank}: {label} hits differ from the "
+                               "single-process lookup's")
+        check_launches(f"phase 15 rank {rank} {label}", counts, must[label])
+        del lk
+    mine = list(shard_records(read_fasta(faa), rank, world))
+    text = "".join(f">{r.id} {r.descr}\n{r.seq}\n" for r in mine)
+    reset_counts()
+    t = time.time()
+    out = io.StringIO()
+    Engine(EngineConfig(aa=True, device="cuda")).run(
+        big, None, out, stdout=True, query_stream=io.StringIO(text))
+    counts = read_counts()
+    with open(os.path.join(work, f"mp_report_{rank}.txt"), "w") as fh:
+        fh.write(out.getvalue())
+    print(f"phase 15: rank {rank} engine on its share proteins={len(mine)} "
+          f"wall_s={time.time() - t:.3f} launches="
+          f"{ {names[k]: counts[k] for k in names} }", flush=True)
+    check_launches(f"phase 15 rank {rank} engine", counts, ("tilejoin",))
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"phase 15: rank {rank} done wall_s={time.time() - t0:.3f}",
+          flush=True)
+    return 0
+
+
 def _u(x):
     """A tensor's values as int64 (u16 storage widened)."""
     import torch
@@ -2005,8 +2349,8 @@ def _u(x):
 def kernel_bound(ms, bnd):
     """A kernel entry's bound, share and library call (none: no single
     PyTorch call computes a first-event window probe, an 8-mer's home and
-    fingerprint from ASCII rows, a shard's first-match probe, or a stable
-    binning by owner)."""
+    fingerprint from ASCII rows, a shard's first-match probe, a stable
+    binning by owner, or the call-grouping state machine)."""
     return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
             "library_ms": None}
 
@@ -2077,6 +2421,7 @@ def main() -> int:
         if err != 0:
             return fail("kernel and twin disagree on the proteome's "
                         f"dispatches (w={w1})")
+        b1_home_ms, _ = sorted_chunks_phase(dev, work, big, faa, table)
         s_cmp = stream_vs_twin(dev)
         for label, (e, *_) in s_cmp.items():
             if e != 0:
@@ -2136,6 +2481,17 @@ def main() -> int:
         if mesh_b1_err != 0:
             return fail("B1 and its twin disagree on the routed owners' bins "
                         "or the xla lookup's table shards")
+        t14 = time.time()
+        scan_launches, scan_cmp = scan_phase(
+            dev, work, corpus, faa, os.path.join(work, "genome.fna"), big,
+            os.path.join(work, "reads.fna"))
+        print(f"phase 14: wall_s={time.time() - t14:.3f}", flush=True)
+        for label, (e, *_) in scan_cmp.items():
+            if e != 0:
+                return fail(f"the grouping kernel and its twin disagree on "
+                            f"the {label} run's batch")
+        clear_engine_caches()
+        multiprocess_phase(work, big, faa)
 
     print(json.dumps({"kernels": [{
         "name": "tilejoin_first_event",
@@ -2146,6 +2502,7 @@ def main() -> int:
         "max_abs_err": max([err, kw_b1_err, mesh_b1_err]
                            + [r[0] for r in cmp.values()]),
         "ms": k_ms,
+        "home_order_ms": b1_home_ms,
         "call_ms": call_ms,
         "plain_ms": t_ms,
         **kernel_bound(k_ms, tj_bnd),
@@ -2229,6 +2586,18 @@ def main() -> int:
         **kernel_bound(mesh_cmp["route_bins"][1],
                        mesh_cmp["route_bins"][3]),
         "unbin_bound_ms": mesh_cmp["route_unbin"][3][0],
+    }, {
+        "name": "scan_machine",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/scan_machine.cu",
+        "replaces": "kmergutsjava_tpu/calls/scan_machine.py:62",
+        "launches": scan_launches,
+        "max_abs_err": max(r[0] for r in scan_cmp.values()),
+        "ms": scan_cmp["sparse proteome"][1],
+        "plain_ms": scan_cmp["sparse proteome"][2],
+        "read_set_ms": scan_cmp["dense read set"][1],
+        **kernel_bound(scan_cmp["sparse proteome"][1],
+                       scan_cmp["sparse proteome"][3]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2237,4 +2606,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:  # one rank of phase 15
+        sys.exit(mp_worker(*sys.argv[2:]))
     sys.exit(main())

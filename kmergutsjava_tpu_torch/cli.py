@@ -13,7 +13,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from .config import EngineConfig, not_ported
+from .config import EngineConfig
 
 USAGE = """Usage: kmer_guts [options] -D DataDir
 Arguments:
@@ -34,15 +34,18 @@ Arguments:
  --probe-window N - (optional) override table-derived probe window
  --chunk N - (optional) queries per device dispatch (default 524288)
  --prepare IMPL - (optional) encode impl: native (default), numpy, jax
- --grouping IMPL - (optional) call grouping: host (the only one ported)
+ --grouping IMPL - (optional) call grouping: host (default) or scan (the grouping kernel on --device)
+ --sort-chunks 0|1 - (optional) home-sort each sparse probe chunk before the probe (default: 0, also env KMER_SORT_CHUNKS)
+ --device-sort - (optional) with --sort-chunks 1, run that sort on the device (also env KMER_DEVICE_SORT)
+ --platform NAME - (optional) device platform, the first of a comma list: cpu (= --device cpu), gpu or cuda (= --device cuda)
  --threads N - (optional) native host-stage threads (default: all cores; also env KMER_NATIVE_THREADS)
  --profile DIR - (optional) write a torch.profiler trace of the run
  --checkpoint FILE - (optional) restartable run: commit progress to FILE after every batch and resume from it on restart (requires -q and -o, refuses -d; output is byte-identical to a single run)
  --checkpoint-every N - (optional) sequences per committed batch (default 100000)
 """
 
-# long flags of the JAX package's CLI that this package does not run yet
-_NOT_PORTED = ("sort-chunks", "device-sort", "platform")
+# --platform names and the device each pins
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def parse_args(argv: List[str]):
@@ -53,6 +56,8 @@ def parse_args(argv: List[str]):
     n_threads: Optional[int] = None
     ckpt: Optional[str] = None
     ckpt_every: Optional[int] = None
+    platform: Optional[str] = None
+    device_given = False
     params = list(argv)
     while params:
         param = params.pop(0)
@@ -62,6 +67,7 @@ def parse_args(argv: List[str]):
             name = param[2:]
             if name == "device":
                 cfg.device = params.pop(0)
+                device_given = True
             elif name == "backend":
                 cfg.backend = params.pop(0)
             elif name == "probe-window":
@@ -89,8 +95,12 @@ def parse_args(argv: List[str]):
                 ckpt_every = int(params.pop(0))
                 if ckpt_every < 1:
                     raise ValueError("--checkpoint-every must be >= 1")
-            elif name in _NOT_PORTED:
-                raise not_ported("--" + name)
+            elif name == "sort-chunks":
+                cfg.sort_chunks = params.pop(0) == "1"
+            elif name == "device-sort":
+                cfg.device_sort = True
+            elif name == "platform":
+                platform = params.pop(0)
             else:
                 raise ValueError("Unknown parameter: --" + name)
             continue
@@ -124,6 +134,17 @@ def parse_args(argv: List[str]):
             raise ValueError("Unknown parameter: -" + name)
     if data_dir is None:
         raise ValueError("-D parameter is required")
+    if platform is not None:
+        name = platform.split(",")[0]
+        if name not in PLATFORMS:
+            raise ValueError(f"--platform {platform}: no such platform here "
+                             "(cpu, gpu or cuda)")
+        kind = cfg.device.split(":", 1)[0]
+        if device_given and kind != PLATFORMS[name]:
+            raise ValueError(f"--platform {platform} contradicts --device "
+                             f"{cfg.device}")
+        if not device_given:
+            cfg.device = PLATFORMS[name]
     if ckpt is not None:
         if query is None or output is None:
             raise ValueError("--checkpoint requires -q FILE and -o FILE "

@@ -2,9 +2,10 @@
 
 One dataclass covering the reference's CLI surface (ref
 KmerGutsJava.java:560-654: flags -a -d -m -M -O -g -D -q -o -t -l) plus the
-port's extensions: backend selection, probe/chunk sizing, the mesh and the
-torch device. Values the JAX package accepts but this package does not run
-yet are rejected with a ValueError that points at ROADMAP.md.
+port's extensions: backend selection, probe/chunk sizing and its home
+sort, call grouping, the mesh and the torch device. An unknown backend,
+prepare or grouping is rejected with a ValueError that points at
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -28,7 +29,9 @@ BACKENDS = ("auto", "xla", "stream", "spmd", "pallas", "parity",
 # "jax" (the JAX package's name) is the device prepare: the k-mer window
 # kernel's values entry on the config's device
 PREPARE_IMPLS = ("native", "numpy", "jax")
-GROUPING_IMPLS = ("host",)
+# "scan" is the call-grouping kernel (B11, calls/scan_machine.py) on the
+# config's device; debug runs and min_hits < 2 keep the host machine
+GROUPING_IMPLS = ("host", "scan")
 
 
 def not_ported(what: str) -> ValueError:
@@ -54,14 +57,20 @@ class EngineConfig:
     # via ctypes, default; numpy fallback if no toolchain), "numpy", or
     # "jax" (the k-mer window kernel on the device)
     prepare_impl: str = "native"
-    # only "host" is ported; the field is kept so that a JAX command line's
-    # --grouping scan fails with a pointer to ROADMAP.md
+    # call grouping: "host" (the native machine) or "scan" (the grouping
+    # kernel on ``device``)
     grouping_impl: str = "host"
     # queries per device dispatch; None = SparseLookup.DEFAULT_CHUNK
     lookup_chunk: Optional[int] = None
     probe_window: Optional[int] = None  # override table-derived window
     length_bucket_base: int = 256  # smallest padded batch length for aa mode
     profile_dir: Optional[str] = None  # torch.profiler trace output dir
+    # home sort of each sparse probe chunk before B1 (None: env
+    # KMER_SORT_CHUNKS, else off), on the device with device_sort (None:
+    # env KMER_DEVICE_SORT); the JAX package's defaults for its tile-join
+    # probe. Reports are the same either way
+    sort_chunks: Optional[bool] = None
+    device_sort: Optional[bool] = None
     # torch device of the fingerprint plane and the probe: "cuda" runs the
     # hand-written kernel, "cpu" its plain PyTorch twin
     device: str = "cuda"

@@ -129,6 +129,24 @@ def on_stream(stream):
     return torch.cuda.stream(stream)
 
 
+def probe_answer_sorted(fp: torch.Tensor, q_fp: torch.Tensor,
+                        homes: torch.Tensor, w: int) -> torch.Tensor:
+    """``tilejoin.probe_answer`` with the queries in home order on their
+    device: a stable sort of the homes, B1 on the permuted queries, and its
+    off and state scattered back to the queries' order, in an answer
+    buffer of the same layout (the JAX probe's ``device_sort``)."""
+    n = homes.numel()
+    order = torch.sort(homes, stable=True).indices
+    # u16 storage has few operators: gather the fingerprints as int16
+    q_sorted = q_fp.view(torch.int16)[order].view(torch.uint16)
+    ans = tilejoin.probe_answer(fp, q_sorted, homes[order], w)
+    out = torch.empty_like(ans)
+    for got, dst in zip(tilejoin.answer_views(ans, n),
+                        tilejoin.answer_views(out, n)):
+        dst[order] = got
+    return out
+
+
 class HostWindow:
     """The host half of a lookup: the padded host k-mer column, the exact
     window ``full_window >= max_probe``, the exact full-window pass over it,
@@ -304,24 +322,26 @@ class SparseLookup(HostWindow):
         with on_stream(self._stream):
             self.fp = torch.from_numpy(plane).to(self.device)
 
-    def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray):
+    def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray,
+                       device_sort: bool = False):
         """Upload one chunk and start its pass-1 probe; returns the pending
         (answer buffer on the device, query count) for resolve_probe. The
         homes and fingerprints go up in one copy of one host buffer (homes
         at byte 0, fingerprints at the next 16-byte boundary), which the
-        kernel reads through two views. A device fault surfacing here (an
-        earlier launch's asynchronous error shows at the next CUDA call,
-        such as this chunk's upload) is a KernelError."""
+        kernel reads through two views. With ``device_sort`` B1 takes the
+        chunk in home order (``probe_answer_sorted``). A device fault
+        surfacing here (an earlier launch's asynchronous error shows at the
+        next CUDA call, such as this chunk's upload) is a KernelError."""
         n = len(homes)
         at = -(-4 * n // 16) * 16  # the fingerprints' byte offset
         host = np.empty(at + 2 * n, np.uint8)
         host[:4 * n].view(np.int32)[:] = homes
         host[at:].view(np.uint16)[:] = q_fp
+        probe = probe_answer_sorted if device_sort else tilejoin.probe_answer
         with on_stream(self._stream), _device_fault("dispatch"):
             buf = torch.from_numpy(host).to(self.device)
-            return tilejoin.probe_answer(
-                self.fp, buf[at:].view(torch.uint16),
-                buf[:4 * n].view(torch.int32), self.w1), n
+            return probe(self.fp, buf[at:].view(torch.uint16),
+                         buf[:4 * n].view(torch.int32), self.w1), n
 
     def resolve_probe(self, pending):
         """Copy one dispatch_probe answer back, in one copy -> (off, state)
@@ -380,11 +400,23 @@ class StreamingLookup:
 
     MAX_IN_FLIGHT = 4
 
-    def __init__(self, lk: SparseLookup, compute_kmers_found: bool = False):
+    def __init__(self, lk: SparseLookup, compute_kmers_found: bool = False,
+                 sort_chunks: Optional[bool] = None,
+                 device_sort: Optional[bool] = None):
+        import os
         import queue
         import threading
 
         self.lk = lk
+        # the JAX package's defaults for its tile-join probe: no home sort
+        # unless asked, by argument or environment
+        if sort_chunks is None:
+            sort_chunks = os.environ.get("KMER_SORT_CHUNKS") == "1"
+        if device_sort is None:
+            device_sort = os.environ.get("KMER_DEVICE_SORT", "") == "1"
+        self.sort_chunks = sort_chunks
+        # the sort on the device, the answers un-permuted there
+        self.device_sort = bool(device_sort and sort_chunks)
         self.compute_kmers_found = compute_kmers_found
         self._buf: list = []
         self._count = 0
@@ -465,8 +497,13 @@ class StreamingLookup:
 
     def _dispatch_chunk(self, values, cnt, pos) -> None:
         homes = (values % np.int64(self.lk.num_sigs)).astype(np.int32)
+        if self.sort_chunks and not self.device_sort and len(values) > 1:
+            order = np.argsort(homes, kind="stable")
+            values, cnt, pos, homes = (values[order], cnt[order], pos[order],
+                                       homes[order])
         q_fp = (values % FP_MOD).astype(np.uint16)
-        out = self.lk.dispatch_probe(q_fp, homes)
+        out = (self.lk.dispatch_probe(q_fp, homes, device_sort=True)
+               if self.device_sort else self.lk.dispatch_probe(q_fp, homes))
         self._put_checked(self._queue, (values, cnt, pos, homes, out))
 
     def _resolve_item(self, values, cnt, pos, homes, out) -> None:

@@ -7,7 +7,8 @@ KmerGutsJava.java:742-820:
    the host, or on the device with ``--prepare jax`` -> query k-mer stream
 2. lookup   — probe the signature table (sparse tile-join probe | dense
    stream probe | merge-join block probe | parity scan)
-3. group    — sequential call state machine -> report text
+3. group    — sequential call state machine -> report text (on the host,
+   or with ``grouping_impl="scan"`` the grouping kernel on the device)
 
 The ``spmd`` backend fuses the first two on the device (models/spmd.py):
 raw sequence bytes go up, the k-mer window kernel and the sparse probe run
@@ -33,6 +34,7 @@ from typing import Dict, Optional, TextIO
 
 import numpy as np
 
+from ..calls import scan_machine
 from ..calls.grouping import (GroupingParams, Report, process_aa_seq,
                               process_dna_seq)
 from ..config import EngineConfig
@@ -354,6 +356,8 @@ class Engine:
             else:
                 self.config = cfg = _replace_backend(
                     cfg, choice or _auto_candidates(cfg)[1])
+        if on_cuda and cfg.grouping_impl == "scan":
+            scan_machine.load_kernel()
         if on_cuda and (cfg.prepare_impl == "jax"
                         or (cfg.backend == "spmd" and not table.truncated)):
             kmer_windows.load_kernel()
@@ -413,7 +417,8 @@ class Engine:
                 store, feed, cfg = self._parity_fallback("xla", ex, cfg)
             else:
                 streaming = feed = StreamingLookup(
-                    lk, compute_kmers_found=cfg.debug)
+                    lk, compute_kmers_found=cfg.debug,
+                    sort_chunks=cfg.sort_chunks, device_sort=cfg.device_sort)
         elif cfg.backend == "stream" and not table.truncated:
             try:
                 lk = _cached_lookup("stream", self._table_path, table, cfg)
@@ -519,7 +524,10 @@ class Engine:
             min_hits=cfg.min_hits, min_weighted_hits=cfg.min_weighted_hits,
             max_gap=cfg.max_gap, order_constraint=cfg.order_constraint,
             debug=cfg.debug)
-        if not cfg.debug and cfg.min_hits >= 2:
+        scan = (cfg.grouping_impl == "scan" and not cfg.debug
+                and cfg.min_hits >= 2)
+        if (not cfg.debug and cfg.min_hits >= 2
+                and cfg.grouping_impl == "host"):
             # fully-native grouping phase: sort + state machine + report
             # text in three C calls, no per-sequence Python (falls through
             # to the general path when the library is unavailable)
@@ -531,13 +539,79 @@ class Engine:
                            % int((time.time() - t3) * 1000), report, stdout)
                 return
         container_hits = self._bucket_hits(prep, hits, functions, params)
-        process_seq = process_aa_seq if cfg.aa else process_dna_seq
-        for query_id, seq_len in prep.id_len.items():
-            process_seq(query_id, seq_len, container_hits, functions, report,
-                        params)
-            report.flush()
+        if scan:
+            self._group_scan(prep, container_hits, functions, report, params)
+        else:
+            process_seq = process_aa_seq if cfg.aa else process_dna_seq
+            for query_id, seq_len in prep.id_len.items():
+                process_seq(query_id, seq_len, container_hits, functions,
+                            report, params)
+                report.flush()
         self._info("Grouping time: %d ms." % int((time.time() - t3) * 1000),
                    report, stdout)
+
+    # containers of more hits than this go to the host machine, as in the
+    # JAX engine (there they would set its padded batch's length)
+    SCAN_BIG = 4096
+
+    def _group_scan(self, prep, container_hits, functions, report, params):
+        """Device grouping: every container of at most SCAN_BIG hits
+        through the grouping kernel in one launch on the config's device
+        (``calls/scan_machine.py``), then the report text and each
+        sequence's OTU folds on the host, in record order."""
+        from ..calls.grouping import tabulate_otu_data
+
+        cfg = self.config
+        order = []  # container keys in output order
+        batch = []
+        big_keys = set()
+        for query_id in prep.id_len:
+            keys = ([(query_id, "+", 0)] if cfg.aa else
+                    [(query_id, s, f) for s in ("+", "-") for f in range(3)])
+            for key in keys:
+                pos, otu, avg, fi, wt = container_hits[key][:5]
+                if len(pos) > self.SCAN_BIG:
+                    big_keys.add(key)
+                    continue
+                batch.append((pos, otu, avg, fi, wt))
+                order.append(key)
+        results = scan_machine.gather_hits_scan_batch(
+            batch, functions, params, device=cfg.device)
+        by_key = dict(zip(order, results))
+        for query_id, seq_len in prep.id_len.items():
+            oi_counts = []
+            if cfg.aa:
+                report.println("PROTEIN-ID\t%s\t%d" % (query_id, seq_len))
+                self._emit_scan_container(
+                    (query_id, "+", 0), by_key, big_keys, container_hits,
+                    functions, oi_counts, report, params)
+            else:
+                report.println("processing %s[%d]" % (query_id, seq_len))
+                for strand in ("+", "-"):
+                    for frame in range(3):
+                        report.println("TRANSLATION\t%s\t%d\t%s\t%d"
+                                       % (query_id, seq_len, strand, frame))
+                        self._emit_scan_container(
+                            (query_id, strand, frame), by_key, big_keys,
+                            container_hits, functions, oi_counts, report,
+                            params)
+            tabulate_otu_data(query_id, seq_len, oi_counts, report)
+            report.flush()
+
+    @staticmethod
+    def _emit_scan_container(key, by_key, big_keys, container_hits, functions,
+                             oi_counts, report, params):
+        from ..calls.grouping import _gather_dispatch, _otu_add_batch
+
+        if key in big_keys:
+            _gather_dispatch(container_hits[key], functions, oi_counts,
+                             report, params)
+            return
+        lines, updates = by_key[key]
+        for ln in lines:
+            report.println(ln)
+        for o, inc in updates:
+            _otu_add_batch(oi_counts, o, inc)
 
     def _lookup(self, table, rec) -> LookupHits:
         """One-shot lookup of buffered queries: the parity scan (and every
@@ -617,7 +691,8 @@ class Engine:
         bounds = np.append(starts, len(cnt_s))
         counts = np.diff(bounds)
 
-        batch_ok = not params.debug and params.min_hits >= 2
+        batch_ok = (not params.debug and params.min_hits >= 2
+                    and self.config.grouping_impl == "host")
         from ..calls.batch_native import native_available
         use_native = batch_ok and native_available()
         pre = {}

@@ -152,6 +152,7 @@ def make_dna_step(table: KmerTable, probe_window: int, device
 def sharded_planes(mesh: Mesh, table: KmerTable, probe_window: int) -> dict:
     """The table's plane cut into the mesh's table shards, each on its
     positions (``fp`` [d][t]), and the slots a shard owns (``s_loc``)."""
+    mesh.one_process("the fused step")
     planes = shard_table_planes(table, mesh.shape[TABLE_AXIS], probe_window)
     return {"fp": place_planes(mesh, planes["fp"]), "s_loc": planes["s_loc"]}
 

@@ -22,7 +22,8 @@ from ..lookup import tilejoin
 from ..lookup.parity import LookupHits
 from ..lookup.sparse import (FIRST_PASS_WINDOW, FP_EMPTY, HostWindow,
                              SparseLookup, _check_int32_homes, _device_fault,
-                             adaptive_w1, fingerprint_plane, on_stream)
+                             adaptive_w1, fingerprint_plane, on_stream,
+                             probe_answer_sorted)
 from .mesh import DATA_AXIS, Mesh, upload
 from .sharded_lookup import split_rows
 
@@ -35,6 +36,7 @@ class ReplicatedLookup(SparseLookup):
     def __init__(self, table: KmerTable, mesh: Mesh,
                  chunk: Optional[int] = None):
         _check_int32_homes(table.num_sigs)
+        mesh.one_process("the replicated lookup")
         HostWindow.__init__(self, table)
         self.mesh = mesh
         self.n_dev = mesh.shape[DATA_AXIS]
@@ -50,10 +52,12 @@ class ReplicatedLookup(SparseLookup):
                     self.planes.append(torch.from_numpy(plane).to(dev))
             mesh.synchronize()
 
-    def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray):
+    def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray,
+                       device_sort: bool = False):
         """Start B1 on one dispatch: padded to a multiple of the data axis
         (fingerprint FP_EMPTY, home 0) and split ``D`` ways, one launch a
-        data device; returns the pending (answers, spans, query count)."""
+        data device (each slice in home order with ``device_sort``);
+        returns the pending (answers, spans, query count)."""
         n = len(homes)
         n_pad = -(-max(n, 1) // self.n_dev) * self.n_dev
         qfp = np.full(n_pad, FP_EMPTY, np.uint16)
@@ -61,14 +65,14 @@ class ReplicatedLookup(SparseLookup):
         h_pad = np.zeros(n_pad, np.int32)
         h_pad[:n] = homes
         spans = split_rows(n_pad, self.n_dev)
+        probe = probe_answer_sorted if device_sort else tilejoin.probe_answer
         answers = []
         with _device_fault("dispatch"):
             for d, (a, b) in enumerate(spans):
                 dev, stream = self.mesh.at(d, 0)
                 with on_stream(stream):
                     h, q = upload(dev, h_pad[a:b], qfp[a:b])
-                    answers.append(tilejoin.probe_answer(
-                        self.planes[d], q, h, self.w1))
+                    answers.append(probe(self.planes[d], q, h, self.w1))
         return answers, spans, n
 
     def resolve_probe(self, pending):

@@ -36,7 +36,7 @@ from ..lookup.parity import LookupHits
 from ..lookup.sparse import (FP_EMPTY, FP_MOD, HostWindow, _device_fault,
                              on_stream)
 from . import route_bins
-from .mesh import TABLE_AXIS, Mesh, all_to_all, upload
+from .mesh import TABLE_AXIS, Mesh, all_to_all, gather_host, upload
 from .sharded_lookup import place_planes, shard_table_planes
 
 
@@ -64,7 +64,11 @@ class RoutedLookup(HostWindow):
         """Each query's (off, state, overflow) from the routed exchange,
         in order: the batch padded to ``T * n_loc`` (fingerprint FP_EMPTY,
         home 0, not valid), shard s binning queries [s * n_loc, (s+1) *
-        n_loc) at ``cap = max(64, n_loc / T * slack)``."""
+        n_loc) at ``cap = max(64, n_loc / T * slack)``. On a mesh over
+        processes each rank bins, probes and un-bins at its own shards,
+        the exchanges cross the processes, and the shards' answers are
+        all-gathered, so every rank returns the whole answer (every rank
+        gives the same values)."""
         t_n = self.n_shards
         n = len(values)
         n_loc = -(-n // t_n)
@@ -75,33 +79,35 @@ class RoutedLookup(HostWindow):
         qfp[:n] = (values % FP_MOD).astype(np.uint16)
         cap = max(64, int(n_loc / t_n * self.slack))
         at = self.mesh.at
+        mine = [t for t in range(t_n) if self.mesh.local(0, t)]
+        sends, cells = [None] * t_n, [None] * t_n
+        recv = [None] * t_n
         with _device_fault("dispatch", "routed probe"):
-            sends, cells = [], []
-            for s in range(t_n):
+            for s in mine:
                 dev, stream = at(0, s)
                 lo = s * n_loc
                 with on_stream(stream):
                     h, q = upload(dev, homes[lo:lo + n_loc],
                                   qfp[lo:lo + n_loc])
-                    b_qfp, b_home, cell = route_bins.bins(
+                    b_qfp, b_home, cells[s] = route_bins.bins(
                         q, h, n - lo, self.s_loc, t_n, cap)
-                sends.append((b_qfp, b_home))
-                cells.append(cell)
-            recv = []
-            for t in range(t_n):
+                sends[s] = (b_qfp, b_home)
+            for t in mine:
                 dev, stream = at(0, t)
                 with on_stream(stream):
-                    recv.append((
+                    recv[t] = (
                         torch.empty((t_n, cap), dtype=torch.uint16,
                                     device=dev),
                         torch.empty((t_n, cap), dtype=torch.int32,
-                                    device=dev)))
+                                    device=dev))
             for k in range(2):  # fingerprints, then homes
-                all_to_all(self.mesh, [[x[k][t] for t in range(t_n)]
-                                       for x in sends],
-                           [r[k] for r in recv])
-            answers = []
-            for t, (r_qfp, r_home) in enumerate(recv):
+                all_to_all(self.mesh, [
+                    None if x is None else [x[k][t] for t in range(t_n)]
+                    for x in sends], [None if r is None else r[k]
+                                      for r in recv])
+            answers = [None] * t_n
+            for t in mine:
+                r_qfp, r_home = recv[t]
                 dev, stream = at(0, t)
                 with on_stream(stream):
                     local = r_home.view(-1) - t * self.s_loc
@@ -109,31 +115,33 @@ class RoutedLookup(HostWindow):
                         self.planes[t], r_qfp.view(-1), local,
                         self.probe_window)
                     off, state = tilejoin.answer_views(answer, t_n * cap)
-                    answers.append((off.view(t_n, cap),
-                                    state.view(t_n, cap)))
+                    answers[t] = (off.view(t_n, cap), state.view(t_n, cap))
                     # the mirrored exchange's receive buffers
-                    back = torch.empty((2, t_n, cap), dtype=torch.uint8,
-                                       device=dev)
-                recv[t] = back
+                    recv[t] = torch.empty((2, t_n, cap), dtype=torch.uint8,
+                                          device=dev)
             for k in range(2):  # offsets, then states
-                all_to_all(self.mesh, [[a[k][s] for s in range(t_n)]
-                                       for a in answers],
-                           [b[k] for b in recv])
-            outs = []
-            for s in range(t_n):
+                all_to_all(self.mesh, [
+                    None if a is None else [a[k][s] for s in range(t_n)]
+                    for a in answers], [None if b is None else b[k]
+                                        for b in recv])
+            outs = {}
+            for s in mine:
                 with on_stream(at(0, s)[1]):
-                    outs.append(route_bins.unbin(cells[s], recv[s][0],
-                                                 recv[s][1]))
-        off = np.empty(n_pad, np.uint8)
-        state = np.empty(n_pad, np.uint8)
-        over = np.empty(n_pad, bool)
+                    outs[s] = route_bins.unbin(cells[s], recv[s][0],
+                                               recv[s][1])
+        parts = {}
         with _device_fault("read-back", "routed probe"):
-            for s, ((o, st), cell) in enumerate(zip(outs, cells)):
-                lo = s * n_loc
+            for s in mine:
+                (o, st), cell = outs[s], cells[s]
                 with on_stream(at(0, s)[1]):
-                    off[lo:lo + n_loc] = o.cpu().numpy()
-                    state[lo:lo + n_loc] = st.cpu().numpy()
-                    over[lo:lo + n_loc] = cell.cpu().numpy() < 0
+                    parts[s] = np.concatenate([
+                        o.cpu().numpy(), st.cpu().numpy(),
+                        (cell.cpu().numpy() < 0).view(np.uint8)])
+            if self.mesh.distributed:  # every rank gets the whole answer
+                parts = gather_host(self.mesh, parts, range(t_n), np.uint8)
+        got = np.concatenate([parts[s].reshape(3, n_loc)
+                              for s in range(t_n)], axis=1)
+        off, state, over = got[0], got[1], got[2].view(bool)
         return off[:n], state[:n], over[:n]
 
     def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,

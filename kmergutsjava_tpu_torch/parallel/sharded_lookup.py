@@ -62,8 +62,9 @@ def shard_table_planes(table: KmerTable, n_shards: int, probe_window: int
 
 
 def place_planes(mesh: Mesh, fp: np.ndarray) -> List[List[torch.Tensor]]:
-    """Table shard t's plane slice ``fp[t]`` on every position (d, t) of the
-    mesh, each uploaded on its position's stream; waits for the uploads."""
+    """Table shard t's plane slice ``fp[t]`` on every position (d, t) of
+    this process (None at other processes'), each uploaded on its
+    position's stream; waits for the uploads."""
     out = [[None] * mesh.shape[TABLE_AXIS]
            for _ in range(mesh.shape[DATA_AXIS])]
     for d, t in mesh.positions():
@@ -86,7 +87,9 @@ def make_sharded_lookup(mesh: Mesh, table: KmerTable, probe_window: int
 
     Returns (step, planes): step(fp, qfp, homes) (host arrays, their
     length a multiple of the data axis) -> each data row's candidate slot+1
-    (0 = miss) on its first position, for ``fetch_global``. Data slice d's
+    (0 = miss) on its first position, for ``fetch_global``. On a mesh over
+    processes each rank probes at its own positions only (its rows' other
+    entries are None), with the same arrays on every rank. Data slice d's
     fingerprints and homes (6 B a query) go up to every position (d, t),
     B12 probes them against table shard t there, and ``psum`` adds the
     answers of row d. The host verifies candidates and gathers metadata
@@ -98,13 +101,15 @@ def make_sharded_lookup(mesh: Mesh, table: KmerTable, probe_window: int
         rows = []
         for d, (a, b) in enumerate(split_rows(len(homes),
                                               mesh.shape[DATA_AXIS])):
-            parts = []
+            parts = [None] * mesh.shape[TABLE_AXIS]
             for t in range(mesh.shape[TABLE_AXIS]):
+                if not mesh.local(d, t):
+                    continue  # another process's position
                 dev, stream = mesh.at(d, t)
                 with on_stream(stream):
                     h, q = upload(dev, homes[a:b], qfp[a:b])
-                    parts.append(shard_probe.shard_probe(
-                        fp[d][t], q, h, t * s_loc, s_loc, probe_window))
+                    parts[t] = shard_probe.shard_probe(
+                        fp[d][t], q, h, t * s_loc, s_loc, probe_window)
             rows.append(psum(mesh, d, parts))
         return rows
 

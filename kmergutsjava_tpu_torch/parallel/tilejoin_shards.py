@@ -23,7 +23,7 @@ from ..formats.kmer_table import KmerTable
 from ..lookup import tilejoin
 from ..lookup.sparse import (FIRST_PASS_WINDOW, HostWindow, SparseLookup,
                              _check_int32_homes, _device_fault, adaptive_w1,
-                             on_stream)
+                             on_stream, probe_answer_sorted)
 from .mesh import TABLE_AXIS, Mesh, upload
 from .sharded_lookup import place_planes, shard_table_planes
 
@@ -36,6 +36,7 @@ class TileJoinShardedLookup(SparseLookup):
                  probe_window: Optional[int] = None,
                  chunk: Optional[int] = None):
         _check_int32_homes(table.num_sigs)
+        mesh.one_process("the sharded sparse probe")
         HostWindow.__init__(self, table, probe_window)
         self.mesh = mesh
         self.n_shards = mesh.shape[TABLE_AXIS]
@@ -48,18 +49,21 @@ class TileJoinShardedLookup(SparseLookup):
         with _device_fault("plane upload"):
             self.planes = place_planes(mesh, planes["fp"])[0]
 
-    def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray):
+    def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray,
+                       device_sort: bool = False):
         """Route one chunk's queries to their owner shards (a stable sort by
         owner), upload each shard's homes, local to its slice, and
         fingerprints in one copy, and start its probe; returns the pending
         (per shard: answer buffer and query count, the sort order, the
-        query count) for resolve_probe."""
+        query count) for resolve_probe. With ``device_sort`` each shard's
+        queries are probed in home order."""
         homes = np.asarray(homes, np.int32)
         # int16 owners: numpy's stable sort of them is a radix sort
         owner = np.clip(homes // self.s_loc, 0,
                         self.n_shards - 1).astype(np.int16)
         order = np.argsort(owner, kind="stable")
         bounds = np.searchsorted(owner[order], np.arange(self.n_shards + 1))
+        probe = probe_answer_sorted if device_sort else tilejoin.probe_answer
         answers = []
         with _device_fault("dispatch"):
             for t in range(self.n_shards):
@@ -68,8 +72,8 @@ class TileJoinShardedLookup(SparseLookup):
                 with on_stream(stream):
                     h, q = upload(dev, homes[sel] - np.int32(t * self.s_loc),
                                   np.asarray(q_fp, np.uint16)[sel])
-                    answers.append((tilejoin.probe_answer(
-                        self.planes[t], q, h, self.w1), len(sel)))
+                    answers.append((probe(self.planes[t], q, h, self.w1),
+                                    len(sel)))
         return answers, order, len(homes)
 
     def resolve_probe(self, pending):

@@ -497,13 +497,86 @@ def test_cuda_device_without_cuda_raises(corpus):
         cli.main(["-a", "-D", d, "-q", faa, "--device", "cuda"])
 
 
-@pytest.mark.parametrize("argv", [["-D", "x", "--sort-chunks", "1"],
-                                  ["-a", "-D", "x", "--device-sort"],
-                                  ["-a", "-D", "x", "--platform", "cpu"],
-                                  ["-a", "-D", "x", "--grouping", "scan"]])
+@pytest.mark.parametrize("argv", [["-D", "x", "--platform", "tpu"],
+                                  ["-a", "-D", "x", "--device", "cpu",
+                                   "--platform", "gpu,cpu"],
+                                  ["-a", "-D", "x", "--platform", "cpu",
+                                   "--device", "cuda:0"],
+                                  ["-a", "-D", "x", "--grouping", "tree"]])
 def test_cli_rejects_unported_options(argv, capsys):
+    """Every flag of the JAX CLI is parsed now; what the port cannot run
+    is a usage error (exit 2, an Error: line and the usage): a platform
+    other than the CPU or the card, a --platform that contradicts
+    --device, a grouping other than host or scan."""
     assert cli.main(argv) == 2
-    assert "ROADMAP.md" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert out.startswith("Error: ") and "Usage: kmer_guts" in out
+    assert ("platform" in out.splitlines()[0]
+            or "ROADMAP.md" in out.splitlines()[0])
+
+
+@pytest.mark.parametrize("argv, device", [
+    (["--platform", "cpu"], "cpu"), (["--platform", "cpu,tpu"], "cpu"),
+    (["--platform", "gpu"], "cuda"), (["--platform", "cuda"], "cuda"),
+    (["--device", "cuda:1", "--platform", "gpu"], "cuda:1"),
+    (["--platform", "cpu", "--device", "cpu"], "cpu"), ([], "cuda")])
+def test_cli_platform_pins_the_device(argv, device):
+    cfg = cli.parse_args(["-D", "x"] + argv)[0]
+    assert cfg.device == device
+
+
+@pytest.mark.parametrize("argv, sort, dsort", [
+    ([], None, None), (["--sort-chunks", "1"], True, None),
+    (["--sort-chunks", "0"], False, None), (["--sort-chunks", "yes"], False,
+                                            None),
+    (["--sort-chunks", "1", "--device-sort"], True, True),
+    (["--device-sort"], None, True)])
+def test_cli_sort_flags_set_the_config(argv, sort, dsort):
+    """As the JAX CLI: --sort-chunks X is X == "1", --device-sort sets the
+    device sort (it acts only with the chunk sort)."""
+    cfg = cli.parse_args(["-D", "x"] + argv)[0]
+    assert (cfg.sort_chunks, cfg.device_sort) == (sort, dsort)
+
+
+@pytest.mark.parametrize("flags", [["--sort-chunks", "1"],
+                                   ["--sort-chunks", "1", "--device-sort"],
+                                   ["--sort-chunks", "0", "--device-sort"],
+                                   ["--platform", "cpu"]])
+def test_cli_sort_and_platform_flags_keep_the_report(corpus, tmp_path,
+                                                     capsys, flags):
+    """The proteome through xla in chunks of 4,096 queries, each home-sorted
+    on the host or on the device: the golden report, as without the flags;
+    --platform cpu runs on the CPU (no --device given)."""
+    d, _, faa, golden = corpus
+    device = [] if "--platform" in flags else ["--device", "cpu"]
+    assert cli.main(["-a", "-D", d, "-q", faa, "--backend", "xla",
+                     "--chunk", "4096"] + device + flags) == 0
+    assert capsys.readouterr().out == golden
+
+
+def test_sorted_chunks_reach_the_probe_in_home_order(corpus, monkeypatch):
+    """--sort-chunks 1 hands B1 each chunk in (stable) home order, from the
+    host sort or, with --device-sort, from the device's; without it the
+    engine's order. Reports are equal in all three."""
+    from kmergutsjava_tpu_torch.lookup import sparse
+
+    seen = []
+    real = sparse.tilejoin.probe_answer
+
+    def spy(fp, q_fp, homes, w):
+        seen.append(homes.clone())
+        return real(fp, q_fp, homes, w)
+
+    monkeypatch.setattr(sparse.tilejoin, "probe_answer", spy)
+    d, fasta, _, golden = corpus
+    for kw, ordered in ((dict(), False), (dict(sort_chunks=True), True),
+                        (dict(sort_chunks=True, device_sort=True), True)):
+        seen.clear()
+        assert _port(d, fasta, backend="xla", lookup_chunk=4096,
+                     **kw) == golden
+        assert len(seen) > 3
+        assert all(bool((h[1:] >= h[:-1]).all()) == ordered or len(h) < 2
+                   for h in seen[:-1])
 
 
 def test_port_imports_no_jax():

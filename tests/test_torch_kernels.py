@@ -3,7 +3,8 @@ tile-join probe B1, kmergutsjava_tpu_torch/lookup/tilejoin.py; the stream
 probe B2 and its repetition launch B5, lookup/stream.py; the block
 probe B3, lookup/blockprobe.py; the lane-gather probe B4,
 lookup/tjgather.py; the shard probe B12, parallel/shard_probe.py; the
-routing bins B13, parallel/route_bins.py), without JAX, so the file also runs on a GPU machine
+routing bins B13, parallel/route_bins.py; the grouping kernel B11,
+calls/scan_machine.py), without JAX, so the file also runs on a GPU machine
 that has no JAX: there, from the repository root,
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -1268,3 +1269,184 @@ def test_cuda_spmd_mesh_step_matches_cpu(cuda_device, aa, placement):
             (0, 0) if dev == "cpu" else (4, 4))
     assert int((got["cpu"] > 0).sum()) > 1000
     np.testing.assert_array_equal(got["cuda"], got["cpu"])
+
+
+def _scan_batch(seed, n_cont=400, cap_container=False):
+    """Seeded containers of position-sorted hits for the grouping kernel
+    (B11): lengths 0-300 (empty ones too), one to four functions, gaps
+    around the tested max_gap; with ``cap_container`` a first container of
+    40,030 hits of one function but for its last 20 (past the append cap)."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
+
+    rng = np.random.default_rng(seed)
+    cs = []
+    if cap_container:
+        n = 40_030
+        fi = np.zeros(n, np.int32)
+        fi[-20:] = rng.integers(0, 3, 20)
+        cs.append((np.arange(n, dtype=np.int64) * 2,
+                   rng.integers(0, 5, n).astype(np.int32),
+                   rng.integers(0, 300, n).astype(np.int32), fi,
+                   rng.choice([0.25, 1.0], n).astype(np.float32)))
+    for _ in range(n_cont):
+        n = int(rng.choice([0, rng.integers(1, 40), rng.integers(40, 300)]))
+        pos = np.sort(rng.choice(4000, n, replace=False)).astype(np.int64)
+        cs.append((pos, rng.integers(0, 5, n).astype(np.int32),
+                   rng.integers(0, 300, n).astype(np.int32),
+                   rng.integers(0, int(rng.integers(1, 5)), n).astype(
+                       np.int32),
+                   rng.choice([0.1, 0.25, 1.0, 2.5, 1 / 3], n).astype(
+                       np.float32)))
+    return scan_machine.pack_containers(cs)
+
+
+def _scan_equal(got, want):
+    """Flags equal everywhere, records at the emitting steps."""
+    flags, recs = (x.cpu() for x in got)
+    assert torch.equal(flags, want[0])
+    emit = (want[0] & 2) != 0
+    assert torch.equal(recs[emit], want[1][emit])
+    return int(emit.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order_constraint", [False, True])
+@pytest.mark.parametrize("min_weighted", [0, 3])
+@pytest.mark.parametrize("min_hits", [2, 5])
+def test_cuda_scan_machine_matches_twin(cuda_device, order_constraint,
+                                        min_weighted, min_hits):
+    """B11 on the card equals its twin on a ragged batch of 400 containers
+    (flags at every step, records where a step emits); one launch."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
+
+    hits, offsets = _scan_batch(7 + min_hits)
+    kw = dict(min_hits=min_hits, min_weighted=min_weighted, max_gap=60,
+              order_constraint=order_constraint)
+    cpu = [torch.from_numpy(hits), torch.from_numpy(offsets)]
+    want = scan_machine.scan_containers_reference(*cpu, **kw)
+    before = scan_machine.launches
+    got = scan_machine.scan_containers(*(x.to(cuda_device) for x in cpu),
+                                       **kw)
+    torch.cuda.synchronize()
+    assert scan_machine.launches == before + 1
+    assert _scan_equal(got, want) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_scan_machine_past_the_append_cap(cuda_device):
+    """A container of 40,030 hits (the append cap is 39,998) and a few
+    short ones: B11 equals its twin; the empty batch launches nothing."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
+
+    hits, offsets = _scan_batch(3, n_cont=20, cap_container=True)
+    kw = dict(min_hits=2, min_weighted=0, max_gap=200,
+              order_constraint=False)
+    cpu = [torch.from_numpy(hits), torch.from_numpy(offsets)]
+    want = scan_machine.scan_containers_reference(*cpu, **kw)
+    got = scan_machine.scan_containers(*(x.to(cuda_device) for x in cpu),
+                                       **kw)
+    assert _scan_equal(got, want) > 0
+    before = scan_machine.launches
+    empty = scan_machine.scan_containers(
+        torch.zeros((0, 5), dtype=torch.int32, device=cuda_device),
+        torch.zeros(1, dtype=torch.int64, device=cuda_device), **kw)
+    assert scan_machine.launches == before
+    assert empty[0].numel() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aa", [True, False])
+def test_cuda_scan_grouping_report_matches_cpu(cuda_device, aa, tmp_path):
+    """The engine with grouping_impl="scan" on the card writes the CPU
+    run's report (and the host grouping's), through one B11 launch."""
+    import io
+
+    from kmergutsjava_tpu_torch.calls import scan_machine
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.formats.table_tools import (
+        signatures_from_proteins, write_data_dir)
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+
+    rng = np.random.default_rng(21)
+    alpha = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    prots = [alpha[rng.integers(0, 20, int(n))].tobytes().decode()
+             for n in rng.integers(15, 200, 300)]
+    d = str(tmp_path / "d")
+    write_data_dir(d, signatures_from_proteins(
+        [(p, i % 7, i % 11) for i, p in enumerate(prots)]),
+        [f"f{i}" for i in range(7)])
+    if aa:
+        fasta = "".join(f">p{i}\n{p}\n" for i, p in enumerate(prots))
+    else:
+        dna = np.frombuffer(b"ACGT", np.uint8)
+        fasta = "".join(f">c{i}\n{dna[rng.integers(0, 4, 600)].tobytes().decode()}\n"
+                        for i in range(40))
+    out = {}
+    for dev, impl in (("cpu", "host"), ("cpu", "scan"), ("cuda", "scan")):
+        buf = io.StringIO()
+        before = scan_machine.launches
+        Engine(EngineConfig(aa=aa, min_hits=2, grouping_impl=impl,
+                            device=dev, backend="xla")).run(
+            d, None, buf, stdout=True, query_stream=io.StringIO(fasta))
+        assert scan_machine.launches - before == (dev == "cuda")
+        out[dev, impl] = buf.getvalue()
+    assert out["cuda", "scan"] == out["cpu", "scan"] == out["cpu", "host"]
+    assert "CALL\t" in out["cpu", "host"] or not aa
+
+
+@pytest.mark.cuda
+def test_cuda_device_sort_probe_matches_unsorted(cuda_device):
+    """B1 on a chunk in home order on the card (``probe_answer_sorted``:
+    the sort and the un-permutation on the device) answers as the plain
+    probe does in the queries' order; one B1 launch."""
+    from kmergutsjava_tpu_torch.lookup.sparse import probe_answer_sorted
+
+    fp = _plane(400_000, seed=11)
+    qfp, homes = _queries(fp, 300_000, 16, seed=12)
+    t = [x.to(cuda_device) for x in (_plane_t(fp, 16), torch.from_numpy(qfp),
+                                     torch.from_numpy(homes))]
+    want = tilejoin.probe_answer(*t, 16)
+    before = tilejoin.launches
+    got = probe_answer_sorted(*t, 16)
+    assert tilejoin.launches == before + 1
+    n = homes.size
+    for a, b in zip(tilejoin.answer_views(got, n),
+                    tilejoin.answer_views(want, n)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_cuda_multi_process_lookups(cuda_device, tmp_path, backend):
+    """tests/test_torch_multiprocess.py's worker on the cards: four ranks
+    of one card each under NCCL (the mesh's collectives on the cards), or
+    two ranks sharing card 0 under gloo (staged through the host). Every
+    rank's sharded (2, 2), routed 4 and stream-shard 4 hits are the parity
+    scan's, each launching its kernels, and the merged engine shards are
+    the single run's report."""
+    import io
+
+    import test_torch_multiprocess as mp
+
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+    from kmergutsjava_tpu_torch.parallel.multihost import merge_report_shards
+
+    if backend == "nccl" and torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (NCCL takes one rank a card)")
+    world = 4 if backend == "nccl" else 2
+    mp.write_corpus(str(tmp_path))
+    outs = mp.run_ranks(str(tmp_path), world, backend, "cuda", timeout=300)
+    mp.check_ranks(outs)
+    for _, out in outs:  # every rank holds positions of these meshes
+        for line in out.splitlines():
+            if line.startswith(("MP-OK sharded", "MP-OK routed 4",
+                                "MP-OK stream")):
+                assert "{'B1': 0, 'B2': 0, 'B12': 0, 'B13': 0}" not in line
+    single = io.StringIO()
+    Engine(EngineConfig(aa=True, min_hits=2)).run(
+        str(tmp_path / "d"), str(tmp_path / "corpus.faa"), single,
+        stdout=True)
+    assert merge_report_shards([
+        (tmp_path / f"report_{r}.txt").read_text()
+        for r in range(world)]) == single.getvalue()

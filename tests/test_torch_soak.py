@@ -7,9 +7,10 @@ small ``-l`` (store spills, stream passes). The port's parity, xla, stream,
 pallas, auto and spmd backends on the CPU (from stdin or from a file, 1-4
 native threads), its mesh backends (sharded on a 2x2 mesh, routed over 4
 shards, replicated over 2 devices: ``mesh_devices`` of CPU positions) and
-``auto`` with ``--mesh 2x2``, and a port checkpoint run at a random batch
-size must each be byte-equal to the JAX ``parity`` Engine (debug timing
-lines masked). A few seeds run in the tier-1 suite; ``-m slow`` runs many
+``auto`` with ``--mesh 2x2``, ``auto`` with ``--grouping scan``, ``xla`` with
+``--sort-chunks 1`` (with ``--device-sort`` half the time), and a port
+checkpoint run at a random batch size must each be byte-equal to the JAX
+``parity`` Engine (debug timing lines masked). A few seeds run in the tier-1 suite; ``-m slow`` runs many
 more."""
 import io
 import os
@@ -39,6 +40,11 @@ MESH_RUNS = (("sharded", (2, 2), ["cpu"] * 4),
              ("routed", (1, 4), ["cpu"] * 4),
              ("replicated", (2, 1), ["cpu"] * 2),
              ("auto", (2, 2), ["cpu"] * 4))
+# the runs of the grouping kernel (host grouping in debug rounds and at
+# min_hits < 2, as in the JAX engine) and of the sparse probe with its
+# chunks home-sorted
+EXTRA_RUNS = (("auto", dict(grouping_impl="scan")),
+              ("xla", dict(sort_chunks=True)))
 # debug reports embed timing and progress info lines
 _DROP = re.compile(r"^(Temp\. directory:|Preparation time:|Lookup time:"
                    r"|Grouping time:|Processed: )")
@@ -113,18 +119,22 @@ def run_round(seed, tmp, monkeypatch):
     q = os.path.join(tmp, f"q{seed}.fa")
     with open(q, "w") as fh:
         fh.write(fasta)
-    runs = [(b, None, None) for b in PORT_BACKENDS] + list(MESH_RUNS)
-    for backend, shape, devices in runs:
+    runs = ([(b, None, None, {}) for b in PORT_BACKENDS]
+            + [(b, shape, devs, {}) for b, shape, devs in MESH_RUNS]
+            + [(b, None, None, extra) for b, extra in EXTRA_RUNS])
+    for backend, shape, devices, extra in runs:
         monkeypatch.setenv("KMER_NATIVE_THREADS", str(rng.randint(1, 4)))
         from_file = rng.random() < 0.5
+        if extra.get("sort_chunks"):  # on the host or the device
+            extra = dict(extra, device_sort=rng.random() < 0.5)
         out = io.StringIO()
         Engine(EngineConfig(backend=backend, device="cpu", mesh_shape=shape,
-                            mesh_devices=devices, **kw)).run(
+                            mesh_devices=devices, **extra, **kw)).run(
             d, q if from_file else None, out, stdout=True,
             query_stream=None if from_file else io.StringIO(fasta))
         assert _strip(out.getvalue()) == base, (
-            f"seed {seed}: port {backend} (mesh {shape}, from_file="
-            f"{from_file}) diverged from the JAX parity engine")
+            f"seed {seed}: port {backend} (mesh {shape}, {extra}, "
+            f"from_file={from_file}) diverged from the JAX parity engine")
     if not kw["debug"]:
         batch = rng.randint(1, 7)
         op, cp = os.path.join(tmp, f"o{seed}.txt"), os.path.join(

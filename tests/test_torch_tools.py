@@ -179,7 +179,8 @@ def test_package_data_holds_every_kernel_source_and_header():
         "kmergutsjava_tpu_torch"]
     pkg = os.path.join(REPO, "kmergutsjava_tpu_torch")
     sources = glob.glob(os.path.join(pkg, "csrc", "*.cu"))
-    assert len(sources) == 7  # kmer_windows, shard_probe, route_bins too
+    assert len(sources) == 8  # kmer_windows, shard_probe, route_bins,
+    # scan_machine too
     for path in (*sources, *tilejoin.HEADERS):
         rel = os.path.relpath(path, pkg)
         assert os.path.exists(path), rel
