@@ -10,8 +10,8 @@ failure and then prints no result):
 1. the card's name and power limit (nvidia-smi); build of the CUDA kernels
    (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu,
    csrc/tjgather.cu, csrc/kmer_windows.cu, csrc/shard_probe.cu,
-   csrc/route_bins.cu and csrc/scan_machine.cu, one nvcc each, started
-   together) for sm_90a;
+   csrc/route_bins.cu, csrc/scan_machine.cu and csrc/fused_probe.cu, one
+   nvcc each, started together) for sm_90a;
 2. the tile-join kernel against its plain PyTorch twin on the card: a
    seeded 40M-slot fingerprint plane at load 0.6 with planted empties,
    queried (half planted hits) at the main path's launch shape (eight
@@ -89,21 +89,27 @@ failure and then prints no result):
    run, both cold, and a crash in the 4th batch with a torn tail, resumed
    by a fresh process: both outputs must equal phase 4's cuda report.
    Every request and run prints its wall time;
-12. the fused device path (``--backend spmd``: the k-mer window kernel,
-   csrc/kmer_windows.cu, feeding the tile-join kernel) and the device
-   prepare (``--prepare jax``) on the card: the CLI with ``--backend spmd``
-   reproduces golden_aa_full on the proteome and golden_dna_full on the
-   genome (a contig past LONG_NT: the windowed entry); on phase 4's table
-   the proteome through ``--backend spmd`` and through ``--prepare jax
-   --backend xla`` gives phase 4's cuda report, and phase 7's read set
-   through ``--backend spmd`` phase 7's report; each run launches the
-   window kernel and B1 and nothing else (the values entry and B1 for
-   ``--prepare jax``). Then three rounds of cold runs in turns (the
-   engine's caches emptied before each): the proteome through spmd and
-   xla, the read set through spmd, auto and xla. Last, the window kernel
-   against its twin at its real launch shapes (a proteome bucket batch, a
-   read batch and the genome's window batch), every output equal, with its
-   device time (torch.profiler, the L2 flushed), the twin's and the bound;
+12. the fused device path (``--backend spmd``: one launch a batch of the
+   fused kernel, csrc/fused_probe.cu: k-mer windows and the tile-join
+   kernel's first event) and the device prepare (``--prepare jax``: the
+   values entry of the window kernel, csrc/kmer_windows.cu) on the card:
+   the CLI with ``--backend spmd`` reproduces golden_aa_full on the
+   proteome and golden_dna_full on the genome (a contig past LONG_NT: the
+   windowed entry); on phase 4's table the proteome through ``--backend
+   spmd`` and through ``--prepare jax --backend xla`` gives phase 4's cuda
+   report, and phase 7's read set through ``--backend spmd`` phase 7's
+   report; each spmd run launches the fused kernel and nothing else (the
+   values entry and B1 for ``--prepare jax``). Then three rounds of cold
+   runs in turns (the engine's caches emptied before each): the proteome
+   through spmd and xla, the read set through spmd, auto and xla. Last,
+   at the real launch shapes (a proteome bucket batch, a read batch and
+   the genome's window batch): the window kernel against its twin, every
+   output equal, and B1 on its windows against B1's twin, with the window
+   kernel's device time (torch.profiler, the L2 flushed), the twin's and
+   the bound; then the fused kernel against its twin and against the
+   window kernel followed by B1, every off and state equal, with its
+   device time a launch in turns with theirs, its twin's time and its
+   bound (``bound_fused_step``);
 13. the multi-device modes on phase 4's table (parallel/: the mesh, the
    shard probe B12 csrc/shard_probe.cu, the routing bins B13
    csrc/route_bins.cu). Through the CLI at ``--mesh 1x1``: the proteome
@@ -120,15 +126,18 @@ failure and then prints no result):
    CUDA device; each run launches its kernels as predicted (B12 once a
    position a step, B13's two entries and B1 once a shard, B1 and B2 once
    a table shard a dispatch or plane pass, B1 once a data device a
-   dispatch) and no others. Then B12 (at the sharded (2, 2) run's shape: a
+   dispatch, the fused kernel once a position a batch) and no others.
+   Then B12 (at the sharded (2, 2) run's shape: a
    data row's queries against each table shard) and B13 (at the routed
    run's shape: the first shard's queries, its bins and the un-binning)
    against their twins on the card, exact, with their device times, the
    twins' and their bounds; and, each call taken by a spy on its wrapper,
-   B12 in the (2, 2) spmd step on phase 12's proteome bucket batch and
-   read batch (the window kernel's outputs), B1 at the routed owners (the
-   received bins) and B1 on the xla lookup's four table shards (local
-   homes), every call equal to its twin.
+   the fused kernel's shard form in the (2, 2) spmd step on phase 12's
+   proteome bucket batch and read batch (a data slice's rows against a
+   table shard), equal to its twin and to the window kernel followed by
+   B12, with its device time a launch in turns with theirs and its bound;
+   B1 at the routed owners (the received bins) and B1 on the xla lookup's
+   four table shards (local homes), every call equal to its twin.
 
 14. ``--grouping scan`` on the card (the grouping kernel B11,
    csrc/scan_machine.cu): the CLI on the goldens (corpus table) and on
@@ -152,8 +161,7 @@ failure and then prints no result):
 Phase 4 also runs the proteome with ``--sort-chunks 1`` and with
 ``--sort-chunks 1 --device-sort`` (each report equal to the unsorted one)
 and times B1 a dispatch with each chunk in home order, between two runs in
-the engine's order. Phase 13 also gives B12's device time a launch, bound
-and share in the (2, 2) spmd step's proteome and read batches.
+the engine's order.
 
 Each kernel's line also prints its bound (``bound_ms``: the larger of
 the bytes it must move over the card's memory rate and one integer
@@ -167,12 +175,15 @@ name, source, the TPU kernel it replaces, its launches on its path (phase
 4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather, phase 12's
-sparse proteome spmd run for the window kernel, with B1's launches in that
-run beside them, phase 13's sharded (2, 2) run for B12 and routed run for
-B13, phase 14's proteome run for B11), its largest
+``--prepare jax`` run for the window kernel (its values entry), phase
+12's sparse proteome spmd run for the fused kernel (its (2, 2) run in
+phase 13 beside it), phase 13's sharded (2, 2) run for B12 and routed run
+for B13, phase 14's proteome run for B11), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
-phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch;
+phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch for
+the window kernel's values entry and the fused kernel, the latter with
+the window kernel plus B1 beside it and its (2, 2) position's time;
 phase 13's shapes; phase 14's proteome batch),
 the bound and share at those shapes,
 and ``library_ms`` null (no single PyTorch call computes a first-event
@@ -249,12 +260,13 @@ def kernel_modules():
     from kmergutsjava_tpu_torch.lookup import (blockprobe, stream, tilejoin,
                                                tjgather)
     from kmergutsjava_tpu_torch.ops import kmer_windows
-    from kmergutsjava_tpu_torch.parallel import route_bins, shard_probe
+    from kmergutsjava_tpu_torch.parallel import (fused_probe, route_bins,
+                                                 shard_probe)
 
     return dict(tilejoin=tilejoin, stream=stream, blockprobe=blockprobe,
                 tjgather=tjgather, kmer_windows=kmer_windows,
                 shard_probe=shard_probe, route_bins=route_bins,
-                scan_machine=scan_machine)
+                scan_machine=scan_machine, fused_probe=fused_probe)
 
 
 def reset_counts():
@@ -318,8 +330,9 @@ L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 
 
 def kernel_device_ms(run, dev, marker, reps=5):
-    """Device milliseconds of each kernel whose name holds ``marker``, in
-    the order one ``run()`` launches them, averaged over ``reps`` runs:
+    """Device milliseconds of each kernel whose name holds ``marker`` (or
+    one of a tuple of markers), in the order one ``run()`` launches them,
+    averaged over ``reps`` runs:
     the kernel events (CUPTI's device timestamps) of a torch.profiler
     trace, read from its Chrome trace as chip_profile.py reads it. Before
     each run a 256 MB write evicts the L2 and the card is synchronised, so
@@ -341,7 +354,7 @@ def kernel_device_ms(run, dev, marker, reps=5):
         except RuntimeError as ex:
             print(f"kernel_device_ms: trace {attempt + 1} of 3: {ex}",
                   flush=True)
-    raise RuntimeError(f"no whole trace of *{marker}* kernels in 3 tries")
+    raise RuntimeError(f"no whole trace of {marker} kernels in 3 tries")
 
 
 def _traced_runs(run, dev, marker, reps, flush):
@@ -350,6 +363,7 @@ def _traced_runs(run, dev, marker, reps, flush):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    markers = (marker,) if isinstance(marker, str) else tuple(marker)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -361,7 +375,8 @@ def _traced_runs(run, dev, marker, reps, flush):
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
-            kernels = sorted((e["ts"], e["dur"], marker in e.get("name", ""))
+            kernels = sorted((e["ts"], e["dur"],
+                              any(m in e.get("name", "") for m in markers))
                              for e in json.load(fh)["traceEvents"]
                              if e.get("ph") == "X"
                              and e.get("cat") in ("kernel", "gpu_memset"))
@@ -376,7 +391,7 @@ def _traced_runs(run, dev, marker, reps, flush):
     whole = [r for r in per_run if len(r) == k]
     if k == 0 or 2 * len(whole) < reps:
         raise RuntimeError(f"the trace holds runs of {counts} kernels "
-                           f"named *{marker}* for {reps} runs")
+                           f"named {markers} for {reps} runs")
     return [sum(r[i] for r in whole) / len(whole) / 1000.0
             for i in range(k)], len(whole)
 
@@ -630,7 +645,7 @@ def write_proteome(prots, path):
 # (the block probe's exact rest runs the tile join)
 BACKEND_KERNELS = {"auto": (("stream",), ()), "xla": (("tilejoin",), ()),
                    "pallas": (("blockprobe",), ("tilejoin",)),
-                   "spmd": (("kmer_windows", "tilejoin"), ())}
+                   "spmd": (("fused_probe",), ())}
 
 
 def golden_run(dev, work, prots, sig):
@@ -1443,6 +1458,43 @@ def bound_kmer_windows(in_bytes, windows, out_per_window=6):
     return bound(in_bytes + out_per_window * windows, 16 * windows)
 
 
+def bound_fused_step(in_bytes, windows, out_per_window, first, reads,
+                     plane_slots):
+    """The fused kernel: its rows and counts (and a long contig's row_map,
+    own_start and own_end) in once, each window's answer out once (2 B in
+    B1's form, 4 B in B12's), and for each valid window (at a mesh position,
+    each owned one; ``first`` its home in the plane, ``reads`` the slots up
+    to and including its first event, or the window) the plane's 32-byte
+    sectors under those slots, as bound_shard_probe counts them, at most
+    the whole plane; 16 integer operations a window (packing, residues)
+    and one a slot compared."""
+    sectors = int(((first + reads - 1) // 16 - first // 16 + 1).sum())
+    return bound(in_bytes + out_per_window * windows
+                 + min(32 * sectors, 2 * plane_slots),
+                 16 * windows + int(reads.sum()))
+
+
+def first_event_reads(plane, homes, fps, w, chunk=1 << 20):
+    """For each valid window whose w-slot window lies on ``plane`` (B1's
+    form reads nothing for the rest): its home and the slots B1 reads, up
+    to and including its first candidate or empty slot, else w."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.tilejoin import FP_EMPTY, _widen
+
+    homes, fps = homes.reshape(-1), fps.reshape(-1)
+    ok = (homes >= 0) & (homes.long() + w <= plane.numel())
+    h, q = homes[ok].long(), _widen(fps)[ok]  # no uint16 mask on cuda
+    slots = _widen(plane)
+    rel = torch.arange(w, device=plane.device)
+    reads = []
+    for s in range(0, h.numel(), chunk):
+        win = slots[h[s:s + chunk, None] + rel]
+        ev = (win == q[s:s + chunk, None]) | (win == FP_EMPTY)
+        reads.append(torch.where(ev.any(1), ev.int().argmax(1) + 1, w))
+    return h, torch.cat(reads) if reads else h
+
+
 def window_batches(prots, genome_fna, reads_fna):
     """The window kernel's real launch shapes, as host arrays: one proteome
     bucket batch (512 proteins of at most 256 residues, the fused step's
@@ -1490,18 +1542,27 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
     the values entry for whole rows), every output equal; B1's answer to
     those homes and fingerprints at the fused step's full window ``pw``
     on the sparse table's ``plane`` (off and state, invalid windows
-    included) equal to its twin's; then the window kernel's device time a
-    launch (kernel_device_ms, the L2 flushed before each), the twin's (CUDA
-    events) and the bound. Returns ({label: (max_abs_err, kernel_ms,
-    twin_ms, bound)}, B1's max_abs_err over all batches)."""
+    included) equal to its twin's; the window kernel's device time a
+    launch (kernel_device_ms, the L2 flushed before each) of both entries,
+    the twins' (CUDA events) and the bounds. Then the fused kernel's
+    first-event entry (one launch a batch of the fused step on one card)
+    against its twin and against the two launches it replaces (the window
+    kernel, then B1), every off and state equal, and its device time a
+    launch in turns with those two launches' (fused, two, fused, two),
+    its twin's time and its bound. Returns ({label: the window kernel's
+    (max_abs_err, homes_ms, homes_twin_ms, homes_bound, values_ms,
+    values_twin_ms, values_bound), the values None for a long contig's
+    windows}, {label: the fused kernel's (max_abs_err, ms, twin_ms, bound,
+    two_launch_ms)}, B1's max_abs_err over all batches)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import tilejoin
     from kmergutsjava_tpu_torch.lookup.tilejoin import _widen
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+    from kmergutsjava_tpu_torch.parallel import fused_probe as fp
 
     num_sigs = plane.numel() - pw
-    res, b1_err = {}, 0
+    res, fused, b1_err = {}, {}, 0
     for label, (aa, mat, counts, extra) in batches.items():
         a = torch.from_numpy(mat).to(dev)
         c = torch.from_numpy(counts).to(dev)
@@ -1522,7 +1583,8 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
             err = max(err, int((v - kw.windows_reference(a, c, aa))
                                .abs().max()))
         valid = int((h >= 0).sum())
-        # B1 on these windows as the fused step calls it, against its twin
+        # B1 on these windows as the old fused step called it, against its
+        # twin
         n = h.numel()
         off_k, st_k = tilejoin.answer_views(tilejoin.probe_answer(
             plane, f.view(-1), h.view(-1), pw), n)
@@ -1532,39 +1594,82 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
         e1 = max(int((off_k.int() - off_t.int()).abs().max()),
                  int((st_k.int() - st_t.int()).abs().max()))
         b1_err = max(b1_err, e1)
+        states = torch.bincount(st_k.long(), minlength=3).tolist()
         print(f"phase 12: B1 on the window kernel's {label} windows={n} "
-              f"pw={pw} states(0/1/2)="
-              f"{torch.bincount(st_k.long(), minlength=3).tolist()} "
-              f"max_abs_err={e1}", flush=True)
+              f"pw={pw} states(0/1/2)={states} max_abs_err={e1}", flush=True)
         del off_k, st_k, off_t, st_t
         ms, kept = kernel_device_ms(run, dev, "windows_kernel")
         t_ms = timed(lambda: kw.windows_reference(a, c, aa, num_sigs, *ex),
                      dev)
         in_b = mat.nbytes + counts.nbytes + sum(x.nbytes for x in extra or ())
-        bnd = bound_kmer_windows(in_b, h.numel())
-        values = ""
+        bnd = bound_kmer_windows(in_b, n)
+        values, vals = "", (None, None, None)
         if extra is None:  # the values entry (--prepare jax) at this shape
             v_ms, _ = kernel_device_ms(lambda: kw.window_values(a, c, aa),
                                        dev, "windows_kernel")
-            v_bnd = bound_kmer_windows(in_b, h.numel(), 8)
-            values = (f" values_entry_device_ms={v_ms[0]:.5f} values_"
+            v_t_ms = timed(lambda: kw.windows_reference(a, c, aa), dev)
+            v_bnd = bound_kmer_windows(in_b, n, 8)
+            vals = (v_ms[0], v_t_ms, v_bnd)
+            values = (f" values_entry_device_ms={v_ms[0]:.5f} values_twin_ms="
+                      f"{v_t_ms:.4f} values_"
                       f"{bound_fields(v_ms[0], v_bnd).replace(' ', ' values_')}")
-        print(f"phase 12: window kernel {label} windows={h.numel()} "
+        print(f"phase 12: window kernel {label} windows={n} "
               f"valid={valid} max_abs_err={err} device_ms={ms[0]:.5f} "
               f"runs_kept={kept}/5 twin_ms={t_ms:.4f} "
               f"{bound_fields(ms[0], bnd)}{values}", flush=True)
-        res[label] = (err, ms[0], t_ms, bnd)
-        del a, c, ex, h, f, th, tf
-    return res, b1_err
+        res[label] = (err, ms[0], t_ms, bnd, *vals)
+
+        # the fused kernel (first-event form) against its twin and the two
+        # launches it replaces, on the same rows
+        def fused_run():
+            return fp.first_event(plane, a, c, aa, num_sigs, pw, *ex)
+
+        def two_launches():
+            hh, ff = run()
+            return tilejoin.probe_answer(plane, ff.view(-1), hh.view(-1), pw)
+
+        views = [tilejoin.answer_views(x, n) for x in (
+            fused_run(), fp.first_event_reference(plane, a, c, aa, num_sigs,
+                                                  pw, *ex), two_launches())]
+        torch.cuda.synchronize(dev)
+        f_err = max(int((views[0][k].int() - other[k].int()).abs().max())
+                    for other in views[1:] for k in range(2))
+        f_states = torch.bincount(views[0][1].long(), minlength=3).tolist()
+        del views
+        turns = []
+        for _ in range(2):
+            turns.append(kernel_device_ms(fused_run, dev,
+                                          "fused_probe_kernel")[0])
+            turns.append(kernel_device_ms(two_launches, dev, (
+                "windows_kernel", "first_event_kernel"))[0])
+        f_ms = (turns[0][0] + turns[2][0]) / 2
+        two_ms = (sum(turns[1]) + sum(turns[3])) / 2
+        f_t_ms = timed(lambda: fp.first_event_reference(
+            plane, a, c, aa, num_sigs, pw, *ex), dev)
+        first, reads = first_event_reads(plane, th, tf, pw)
+        f_bnd = bound_fused_step(in_b, n, 2, first, reads, plane.numel())
+        print(f"phase 12: fused kernel first-event {label} windows={n} "
+              f"valid={valid} pw={pw} states(0/1/2)={f_states} "
+              f"max_abs_err={f_err} (twin and window kernel + B1) "
+              f"device_ms={f_ms:.5f} by_turn={[round(t[0], 5) for t in turns[::2]]} "
+              f"two_launch_device_ms={two_ms:.5f} by_turn="
+              f"{[[round(x, 5) for x in t] for t in turns[1::2]]} "
+              f"twin_ms={f_t_ms:.4f} {bound_fields(f_ms, f_bnd)} "
+              f"two_launch_share={f_bnd[0] / two_ms:.3f}", flush=True)
+        fused[label] = (f_err, f_ms, f_t_ms, f_bnd, two_ms)
+        del a, c, ex, h, f, th, tf, first, reads
+    return res, fused, b1_err
 
 
 def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
-    """Phase 12: the fused path (``--backend spmd``: the window kernel
-    feeding B1) and the device prepare (``--prepare jax``) on the card:
-    the goldens, phase 4's and phase 7's reports, launches, cold wall times
-    in turns against xla and auto, and the window kernel and B1 (on the
-    kernel's windows) against their twins at the real launch shapes. Returns (the window kernel's and B1's
-    launches on the sparse proteome's spmd run, window_kernel_vs_twin's
+    """Phase 12: the fused path (``--backend spmd``: one launch of the
+    fused kernel a batch) and the device prepare (``--prepare jax``: the
+    window kernel's values entry) on the card: the goldens, phase 4's and
+    phase 7's reports, launches, cold wall times in turns against xla and
+    auto, and the window kernel, B1 on its windows and the fused kernel
+    against their twins at the real launch shapes. Returns (the fused
+    kernel's launches on the sparse proteome's spmd run, the values
+    entry's on its ``--prepare jax`` run), window_kernel_vs_twin's
     result)."""
     def read(path):
         with open(path, "rb") as fh:
@@ -1599,12 +1704,14 @@ def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
     want_reads = read(os.path.join(work, "reads_auto.txt"))
     counts, _ = one("sparse proteome", big, faa, True, spmd, want_aa,
                     spmd_kernels)
-    launches = (counts["kmer_windows"], counts["tilejoin"])
-    print(f"phase 12: sparse proteome spmd kmer_windows_launches="
-          f"{launches[0]} b1_launches={launches[1]}", flush=True)
-    one("sparse proteome", big, faa, True,
-        ("--prepare", "jax", "--backend", "xla"), want_aa,
-        ("kmer_values", "tilejoin"))
+    fused_launches = counts["fused_probe"]
+    print(f"phase 12: sparse proteome spmd fused_probe_launches="
+          f"{fused_launches} (one a batch; window kernel "
+          f"{counts['kmer_windows']}, B1 {counts['tilejoin']})", flush=True)
+    counts, _ = one("sparse proteome", big, faa, True,
+                    ("--prepare", "jax", "--backend", "xla"), want_aa,
+                    ("kmer_values", "tilejoin"))
+    launches = (fused_launches, counts["kmer_values"])
     one("dense read set", big, reads, False, spmd, want_reads, spmd_kernels)
 
     # cold runs in turns: every run reads the table and builds its lookup
@@ -1688,14 +1795,15 @@ def mesh_devices_of_card():
     return [f"cuda:{i % n_cards}" for i in range(4)]
 
 
-def mesh_runs(work, big, faa, reads, tj_launches, kw_launches):
+def mesh_runs(work, big, faa, reads, tj_launches, fused_launches):
     """Phase 13's runs: the CLI at ``--mesh 1x1``, the Engine over four
     mesh positions and two single-device runs; each report against phase
     4's or phase 7's, each mesh on CUDA devices only, each run launching
     its kernels (the keys of its ``predicted``) as often as predicted
     (None: any number) and no others. Returns (B12's launches in the
     sharded (2, 2) run, B13's binning and un-binning launches in the
-    routed run)."""
+    routed run, the fused kernel's launches in the (2, 2) spmd run of the
+    proteome)."""
     def read(path):
         with open(path, "rb") as fh:
             return fh.read()
@@ -1757,7 +1865,8 @@ def mesh_runs(work, big, faa, reads, tj_launches, kw_launches):
                            "set")
     # the Engine over four mesh positions: B12 once a position a step, B13
     # and B1 once a shard, B1 and B2 once a table shard a dispatch or pass,
-    # B1 once a data device a dispatch (of a device's 2^19 queries)
+    # B1 once a data device a dispatch (of a device's 2^19 queries), the
+    # fused kernel once a position a batch
     b12 = one("engine proteome", True, "sharded", {"shard_probe": 4},
               mesh_shape=(2, 2), mesh_devices=four)["shard_probe"]
     one("engine proteome", True, "sharded", {"shard_probe": 4},
@@ -1773,22 +1882,20 @@ def mesh_runs(work, big, faa, reads, tj_launches, kw_launches):
         mesh_shape=(1, 4), mesh_devices=four)
     one("engine reads", False, "stream", {"stream": 4 * passes},
         mesh_shape=(1, 4), mesh_devices=four)
-    one("engine proteome", True, "spmd",
-        {"kmer_windows": 4 * kw_launches, "shard_probe": 4 * kw_launches},
-        mesh_shape=(2, 2), mesh_devices=four)
-    counts = one("engine reads", False, "spmd",
-                 {"kmer_windows": None, "shard_probe": None},
-                 mesh_shape=(2, 2), mesh_devices=four)
-    if counts["kmer_windows"] != counts["shard_probe"] \
-            or counts["kmer_windows"] % 4:
-        raise RuntimeError(f"phase 13: spmd on the read set launched "
-                           f"{counts}: not one window kernel and one B12 a "
+    spmd = (one("engine proteome", True, "spmd",
+                {"fused_probe": 4 * fused_launches}, mesh_shape=(2, 2),
+                mesh_devices=four)["fused_probe"],
+            one("engine reads", False, "spmd", {"fused_probe": None},
+                mesh_shape=(2, 2), mesh_devices=four)["fused_probe"])
+    if spmd[1] % 4:
+        raise RuntimeError(f"phase 13: spmd on the read set launched the "
+                           f"fused kernel {spmd[1]} times: not once a "
                            "position a batch")
     # the single-device runs in the same conditions, for their wall times
     one("engine proteome single-device", True, "xla",
         {"tilejoin": tj_launches})
     one("engine reads single-device", False, "auto", {"stream": passes})
-    return b12, b13
+    return b12, b13, spmd[0]
 
 
 def mesh_kernels_vs_twins(dev, big, faa):
@@ -1929,16 +2036,21 @@ def spied(module, name, calls):
 
 
 def mesh_inputs_vs_twins(big, faa, batches, four):
-    """Phase 13: B12 and B1 against their twins on the very inputs the mesh
-    paths give them, each call taken by a spy on its wrapper: B12 in the
-    (2, 2) ``spmd`` step on phase 12's proteome bucket batch and read batch
-    (the window kernel's homes and fingerprints a data slice, invalid
-    windows at home -1); B1 at the four routed owners (their received bins:
-    FP_EMPTY fill cells, homes local to the owner's slice, negative below
-    it) on the whole proteome; B1 on each of the ``xla`` lookup's four
-    table shards (homes local to the shard) for the proteome's first
-    dispatch. Every call's answer equal to its twin's (B12 int32, B1 off
-    and state). Returns (B12's max_abs_err, B1's)."""
+    """Phase 13: the fused kernel and B1 against their twins on the very
+    inputs the mesh paths give them, each call taken by a spy on its
+    wrapper: the fused kernel's shard entry in the (2, 2) ``spmd`` step on
+    phase 12's proteome bucket batch and read batch (a data slice's rows
+    against a table shard, a position a launch), each answer equal to its
+    twin's and to the two launches it replaces (the window kernel, then
+    B12), with its device time a launch in turns with theirs (fused, two,
+    fused, two) and its bound; B1 at the four routed owners (their
+    received bins: FP_EMPTY fill cells, homes local to the owner's slice,
+    negative below it) on the whole proteome; B1 on each of the ``xla``
+    lookup's four table shards (homes local to the shard) for the
+    proteome's first dispatch. Every call's answer equal to its twin's
+    (int32 slots; B1 off and state). Returns (the fused kernel's
+    max_abs_err, B1's, {label: the fused kernel's (ms a launch, twin_ms,
+    bound, two_launch_ms)})."""
     import numpy as np
     import torch
 
@@ -1950,7 +2062,9 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
     from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
     from kmergutsjava_tpu_torch.models.pipeline import _cached_read_table
     from kmergutsjava_tpu_torch.models.spmd import SpmdProgram
-    from kmergutsjava_tpu_torch.parallel import (routed_lookup, shard_probe,
+    from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+    from kmergutsjava_tpu_torch.parallel import (fused_probe, routed_lookup,
+                                                 shard_probe,
                                                  tilejoin_shards)
     from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
 
@@ -1961,44 +2075,76 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
 
-    b12_err = 0
+    def two_launches(plane, a, counts, aa, num_sigs, lo, s_loc, w, *extra):
+        """The window kernel, then B12: the old step at a position."""
+        h, f = (kw.aa_homes_fps(a, counts, num_sigs) if aa else
+                kw.dna_homes_fps(a, counts, num_sigs, *extra))
+        return shard_probe.shard_probe(plane, f.view(-1), h.view(-1), lo,
+                                       s_loc, w)
+
+    fused_err, shard_res = 0, {}
     for label, (aa, mat, counts, extra) in batches.items():
         if extra is not None:  # the genome's windows: not a phase 13 input
             continue
         prog = SpmdProgram(table, EngineConfig(
             aa=aa, device="cuda", mesh_shape=(2, 2), mesh_devices=four))
         calls = []
-        with spied(shard_probe, "shard_probe", calls):
+        with spied(fused_probe, "shard_first_match", calls):
             prog.step(prog.planes["fp"], mat,
                       counts + K if aa else counts).read()
         sync()
-        errs, owned, invalid, cands, n = [], 0, 0, 0, 0
-        for (plane, q, h, lo, s_loc, w), _, got in calls:
-            twin = shard_probe.shard_probe_reference(plane, q, h, lo, s_loc,
-                                                     w)
-            errs.append(int((got.long() - twin.long()).abs().max()))
-            owned += int(((h >= lo) & (h < lo + s_loc)).sum())
-            invalid += int((h < 0).sum())
+        errs, owned, invalid, cands, n, bnds = [], 0, 0, 0, 0, []
+        for args, _, got in calls:
+            plane, a, c, _, num_sigs, lo, s_loc, w = args[:8]
+            twin = fused_probe.shard_first_match_reference(*args)
+            old = two_launches(*args)
+            sync()
+            errs += [int((got.long() - twin.long()).abs().max()),
+                     int((got.long() - old.long()).abs().max())]
+            homes, fps = kw.windows_reference(a, c, aa, num_sigs)
+            homes = homes.reshape(-1)
+            local = homes.long() - lo
+            mine = (homes >= 0) & (local >= 0) & (local < s_loc)
+            owned += int(mine.sum())
+            invalid += int((homes < 0).sum())
             cands += int((got > 0).sum())
-            n += h.numel()
-        b12_err = max([b12_err] + errs)
-        # the device time of these launches (each position's, in the step's
-        # order), their bound and share
-        mine = [c for c in calls if c[0][0].device == devs[0]]
-        ms, kept = kernel_device_ms(
-            lambda: [shard_probe.shard_probe(*a) for a, _, _ in mine],
-            devs[0], "shard_probe_kernel")
-        bnds = [bound_shard_probe(a[2], got, a[3], a[4], a[5])
-                for a, _, got in mine]
-        k_ms = sum(ms) / len(ms)
+            n += homes.numel()
+            reads = torch.where(got[mine] > 0,
+                                got[mine].long() - lo - local[mine], w)
+            bnds.append(bound_fused_step(
+                a.numel() + 4 * c.numel(), homes.numel(), 4, local[mine],
+                reads, s_loc + w))
+        fused_err = max([fused_err] + errs)
+        # the device time of one position's launch, in the step's order
+        # (each position's on its own card), in turns with the two launches
+        mine_calls = [c for c in calls if c[0][0].device == devs[0]]
+        turns = []
+        for _ in range(2):
+            turns.append(kernel_device_ms(
+                lambda: [fused_probe.shard_first_match(*a)
+                         for a, _, _ in mine_calls],
+                devs[0], "fused_probe_kernel")[0])
+            turns.append(kernel_device_ms(
+                lambda: [two_launches(*a) for a, _, _ in mine_calls],
+                devs[0], ("windows_kernel", "shard_probe_kernel"))[0])
+        k_ms = (sum(turns[0]) + sum(turns[2])) / (2 * len(mine_calls))
+        two_ms = (sum(turns[1]) + sum(turns[3])) / (2 * len(mine_calls))
+        t_ms = timed(lambda: [fused_probe.shard_first_match_reference(*a)
+                              for a, _, _ in mine_calls],
+                     devs[0]) / len(mine_calls)
         bnd = (sum(b[0] for b in bnds) / len(bnds), bnds[0][1])
-        print(f"phase 13: B12 in the (2, 2) spmd step on {label}: launches="
-              f"{len(calls)} windows={n} owned={owned} invalid={invalid} "
-              f"candidates={cands} "
-              f"pw={prog.pw} max_abs_err={max(errs)} device_ms_per_launch="
-              f"{k_ms:.5f} by_launch={[round(x, 5) for x in ms]} "
-              f"runs_kept={kept}/5 {bound_fields(k_ms, bnd)}", flush=True)
-        del prog, calls, mine
+        print(f"phase 13: fused kernel shard form in the (2, 2) spmd step on "
+              f"{label}: launches={len(calls)} windows={n} owned={owned} "
+              f"invalid={invalid} candidates={cands} pw={prog.pw} "
+              f"max_abs_err={max(errs)} (twin and window kernel + B12) "
+              f"device_ms_per_launch={k_ms:.5f} by_launch="
+              f"{[round(x, 5) for x in turns[0]]} "
+              f"two_launch_device_ms_per_position={two_ms:.5f} by_kernel="
+              f"{[round(x, 5) for x in turns[1]]} twin_ms_per_launch="
+              f"{t_ms:.4f} {bound_fields(k_ms, bnd)} two_launch_share="
+              f"{bnd[0] / two_ms:.3f}", flush=True)
+        shard_res[label] = (k_ms, t_ms, bnd, two_ms)
+        del prog, calls, mine_calls
 
     values = query_values(faa)
     b1_err = 0
@@ -2032,7 +2178,7 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
               f"max_abs_err={max(errs)}", flush=True)
         del calls
     del rl, tj
-    return b12_err, b1_err
+    return fused_err, b1_err, shard_res
 
 
 def sorted_chunks_phase(dev, work, big, faa, table):
@@ -2348,9 +2494,9 @@ def _u(x):
 
 def kernel_bound(ms, bnd):
     """A kernel entry's bound, share and library call (none: no single
-    PyTorch call computes a first-event window probe, an 8-mer's home and
-    fingerprint from ASCII rows, a shard's first-match probe, a stable
-    binning by owner, or the call-grouping state machine)."""
+    PyTorch call computes a first-event window probe, an 8-mer's value,
+    home or fingerprint from ASCII rows, a shard's first-match probe, a
+    stable binning by owner, or the call-grouping state machine)."""
     return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
             "library_ms": None}
 
@@ -2451,9 +2597,11 @@ def main() -> int:
         if g_err != 0:
             return fail("lane-gather kernel and twin disagree")
         service_phase(work, big, faa, prots, w1, tj_launches)
-        (kw_launches, kw_b1_launches), (kw_cmp, kw_b1_err) = spmd_phase(
-            dev, work, corpus, faa, os.path.join(work, "genome.fna"), big,
-            os.path.join(work, "reads.fna"), prots, spmd_plane, spmd_pw)
+        (fused_launches, kv_launches), (kw_cmp, fused_cmp, kw_b1_err) = \
+            spmd_phase(dev, work, corpus, faa,
+                       os.path.join(work, "genome.fna"), big,
+                       os.path.join(work, "reads.fna"), prots, spmd_plane,
+                       spmd_pw)
         del spmd_plane
         for label, (e, *_) in kw_cmp.items():
             if e != 0:
@@ -2461,13 +2609,20 @@ def main() -> int:
         if kw_b1_err != 0:
             return fail("B1 and its twin disagree on the window kernel's "
                         "windows")
-        kw_err, kw_ms, kw_plain_ms, kw_bnd = next(iter(kw_cmp.values()))
+        for label, (e, *_) in fused_cmp.items():
+            if e != 0:
+                return fail(f"the fused kernel disagrees with its twin or "
+                            f"the window kernel and B1 on {label}")
+        # the window kernel's line: its values entry (--prepare jax, the
+        # path that launches it) at the proteome bucket batch
+        kw_row = next(iter(kw_cmp.values()))
+        f_row = next(iter(fused_cmp.values()))
         t13 = time.time()
-        b12_launches, (b13_launches, unbin_launches) = mesh_runs(
-            work, big, faa, os.path.join(work, "reads.fna"), tj_launches,
-            kw_launches)
+        b12_launches, (b13_launches, unbin_launches), spmd_mesh_launches = \
+            mesh_runs(work, big, faa, os.path.join(work, "reads.fna"),
+                      tj_launches, fused_launches)
         mesh_cmp = mesh_kernels_vs_twins(dev, big, faa)
-        mesh_b12_err, mesh_b1_err = mesh_inputs_vs_twins(
+        mesh_fused_err, mesh_b1_err, shard_cmp = mesh_inputs_vs_twins(
             big, faa, window_batches(prots, os.path.join(work, "genome.fna"),
                                      os.path.join(work, "reads.fna")),
             mesh_devices_of_card())
@@ -2475,9 +2630,10 @@ def main() -> int:
         for name, (e, *_) in mesh_cmp.items():
             if e != 0:
                 return fail(f"{name} and its twin disagree")
-        if mesh_b12_err != 0:
-            return fail("B12 and its twin disagree on the spmd mesh step's "
-                        "windows")
+        if mesh_fused_err != 0:
+            return fail("the fused kernel's shard form disagrees with its "
+                        "twin or the window kernel and B12 in the spmd mesh "
+                        "step")
         if mesh_b1_err != 0:
             return fail("B1 and its twin disagree on the routed owners' bins "
                         "or the xla lookup's table shards")
@@ -2550,21 +2706,38 @@ def main() -> int:
         "name": "kmer_windows",
         "route": "cuda",
         "source": "kmergutsjava_tpu_torch/csrc/kmer_windows.cu",
-        "replaces": "kmergutsjava_tpu/parallel/annotate_step.py:52, :96; "
-                    "kmergutsjava_tpu/parallel/seq_windows.py:98",
-        "launches": kw_launches,
-        "b1_launches": kw_b1_launches,
+        "replaces": "kmergutsjava_tpu/models/prepare.py:100 (:121), "
+                    ":285 (:302); kmergutsjava_tpu/ops/kmerize.py:29",
+        "launches": kv_launches,
         "max_abs_err": max(r[0] for r in kw_cmp.values()),
-        "ms": kw_ms,
-        "plain_ms": kw_plain_ms,
-        **kernel_bound(kw_ms, kw_bnd),
+        "ms": kw_row[4],
+        "plain_ms": kw_row[5],
+        "homes_entry_ms": kw_row[1],
+        **kernel_bound(kw_row[4], kw_row[6]),
+    }, {
+        "name": "fused_probe",
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/fused_probe.cu",
+        "replaces": "kmergutsjava_tpu/parallel/annotate_step.py:52, :96 "
+                    "(with kmergutsjava_tpu/parallel/sharded_lookup.py:129); "
+                    "kmergutsjava_tpu/parallel/seq_windows.py:98",
+        "launches": fused_launches,
+        "mesh_launches": spmd_mesh_launches,
+        "max_abs_err": max([mesh_fused_err]
+                           + [r[0] for r in fused_cmp.values()]),
+        "ms": f_row[1],
+        "plain_ms": f_row[2],
+        "two_launch_ms": f_row[4],
+        "shard_ms": next(iter(shard_cmp.values()))[0],
+        "shard_two_launch_ms": next(iter(shard_cmp.values()))[3],
+        **kernel_bound(f_row[1], f_row[3]),
     }, {
         "name": "shard_probe",
         "route": "cuda",
         "source": "kmergutsjava_tpu_torch/csrc/shard_probe.cu",
         "replaces": "kmergutsjava_tpu/parallel/sharded_lookup.py:129",
         "launches": b12_launches,
-        "max_abs_err": max(mesh_cmp["shard_probe"][0], mesh_b12_err),
+        "max_abs_err": mesh_cmp["shard_probe"][0],
         "ms": mesh_cmp["shard_probe"][1],
         "plain_ms": mesh_cmp["shard_probe"][2],
         **kernel_bound(mesh_cmp["shard_probe"][1],

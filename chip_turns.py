@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Sources of the sparse first-event probe (B1, csrc/tilejoin.cu) timed
 against each other in turns on one NVIDIA GPU, at the engine's cases: the
-source of PERF.md's in-turns tables for B1.
+source of PERF.md's in-turns tables for B1 and the fused step's kernel.
 
     python3 chip_turns.py --variant parent=build/parent/tilejoin.cu \\
         [--variant LABEL=PATH ...] [--b3 LABEL=PATH ...] \\
-        [--rounds 2] [--out turns.json]
+        [--fused LABEL=PATH ...] [--rounds 2] [--out turns.json]
 
 The repository's csrc/tilejoin.cu is the variant ``new``; each
 ``--variant`` is another source with the same C entry, such as the parent
@@ -16,14 +16,20 @@ machine code is printed as the same as ``new``'s or not. Each
 variant's answers on every case are held against the twin and printed as
 equal or not (a copy that leaves out part of the work differs); the
 repository's own source must equal the twin, or the script exits 1.
-``--b3`` does the same for the block probe (csrc/block_probe.cu, ``new``).
+``--b3`` does the same for the block probe (csrc/block_probe.cu, ``new``)
+and ``--fused`` for the fused step's kernel (csrc/fused_probe.cu,
+``new``; ``--fused-only`` leaves B1's turns out).
 
 B1 cases: ``engine``, chip_smoke phase 4's launches (the 24M-signature
 table, the E. coli proteome's eight dispatches through
 SparseLookup.dispatch_probe and resolve_probe); ``synth8``, phase 2's eight
 dispatches of 2^19 synthetic queries at w=16; ``synth4m``, 4M synthetic
 queries in one launch at w=16. B3 cases: the proteome's 4.04M queries on
-the same plane at w=16, in prepare's order and sorted by home. Each time is
+the same plane at w=16, in prepare's order and sorted by home. Fused
+cases: chip_smoke phase 12's batches (a proteome bucket batch, a read
+batch, the genome's windows) in the first-event form on the fused step's
+plane, and the first two in the shard form at the (2, 2) step's
+position (0, 0) (the batch's first half against table shard 0). Each time is
 a kernel's device time from chip_smoke.kernel_device_ms (a torch.profiler
 trace, the L2 flushed before each run): a full dispatch's mean for
 ``engine`` and ``synth8``. The variants run in the given order, then in
@@ -150,10 +156,62 @@ def equal(got, want):
                for g, w in zip(got, want))
 
 
+def fused_cases(table, batches, dev):
+    """{case: (run, the twin's answer, the answer's defined views)} of the
+    fused kernel at chip_smoke phase 12's batches (first-event form on the
+    fused step's plane: off and state, not the bytes between them) and at
+    the (2, 2) step's position (0, 0) for the whole-row batches (shard
+    form: the batch's first half against table shard 0)."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import tilejoin
+    from kmergutsjava_tpu_torch.parallel import fused_probe
+    from kmergutsjava_tpu_torch.parallel.annotate_step import table_plane
+    from kmergutsjava_tpu_torch.parallel.sharded_lookup import \
+        shard_table_planes
+
+    pw = max(8, table.max_probe)
+    ns = table.num_sigs
+    plane = table_plane(table, pw, dev)
+    shards = shard_table_planes(table, 2, pw)
+    shard0, s_loc = torch.from_numpy(shards["fp"][0]).to(dev), shards["s_loc"]
+    cases = {}
+    for label, (aa, mat, counts, extra) in batches.items():
+        a = torch.from_numpy(mat).to(dev)
+        c = torch.from_numpy(counts).to(dev)
+        ex = [torch.from_numpy(x).to(dev) for x in extra or ()]
+        name = label.split()[0]
+
+        def first(a=a, c=c, aa=aa, ex=ex):
+            return fused_probe.first_event(plane, a, c, aa, ns, pw, *ex)
+
+        n = a.shape[0] * (a.shape[1] - 7 if aa else 6 * (a.shape[1] // 3
+                                                          - 7))
+        cases["first-event " + name] = (
+            first, fused_probe.first_event_reference(plane, a, c, aa, ns, pw,
+                                                     *ex),
+            lambda ans, n=n: tilejoin.answer_views(ans, n))
+        if extra is None:
+            h = -(-len(mat) // 2)
+            a0, c0 = a[:h].contiguous(), c[:h].contiguous()
+
+            def shard(a0=a0, c0=c0, aa=aa):
+                return fused_probe.shard_first_match(shard0, a0, c0, aa, ns,
+                                                     0, s_loc, pw)
+
+            cases["shard " + name] = (
+                shard, fused_probe.shard_first_match_reference(
+                    shard0, a0, c0, aa, ns, 0, s_loc, pw),
+                lambda ans: [ans])
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--b3", action="append", default=[])
+    ap.add_argument("--fused", action="append", default=[])
+    ap.add_argument("--fused-only", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out")
@@ -165,6 +223,7 @@ def main() -> int:
         return smoke.fail("torch.cuda.is_available() is false")
     from kmergutsjava_tpu_torch.lookup import blockprobe, tilejoin
     from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
+    from kmergutsjava_tpu_torch.parallel import fused_probe
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -173,7 +232,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     b1 = parse_variants(args.variant, tilejoin.SOURCE)
     b3 = parse_variants(args.b3, blockprobe.SOURCE) if args.b3 else []
-    paths = build_all(b1 + [("b3_" + label, src) for label, src in b3])
+    fused = (parse_variants(args.fused, fused_probe.SOURCE) if args.fused
+             or args.fused_only else [])
+    paths = build_all(b1 + [("b3_" + label, src) for label, src in b3]
+                      + [("fused_" + label, src) for label, src in fused])
     libs = {label: load(paths[label], "tilejoin_first_event")
             for label, _ in b1}
     b3_libs = {label: load(paths["b3_" + label], "block_probe")
@@ -182,6 +244,11 @@ def main() -> int:
     if b3:
         compare_sass({"b3_" + label: paths["b3_" + label]
                       for label, _ in b3}, "b3_new")
+    fused_libs = {label: fused_probe.bind(ctypes.CDLL(paths["fused_" + label]))
+                  for label, _ in fused}
+    if fused:
+        compare_sass({"fused_" + label: paths["fused_" + label]
+                      for label, _ in fused}, "fused_new")
 
     with tempfile.TemporaryDirectory(prefix="kmer_turns_") as work:
         prots = smoke.load_proteome()
@@ -190,6 +257,12 @@ def main() -> int:
         faa = os.path.join(work, "proteome.faa")
         smoke.write_proteome(prots, faa)
         values = smoke.query_values(faa)
+        batches = {}
+        if fused:
+            fna = os.path.join(work, "genome.fna")
+            reads = os.path.join(work, "reads.fna")
+            smoke.write_reads(reads, smoke.write_genome(fna))
+            batches = smoke.window_batches(prots, fna, reads)
     lk = SparseLookup(table, device=str(dev))
     chunk = lk.chunk
     host_chunks = smoke.engine_chunks(lk, values)
@@ -228,6 +301,16 @@ def main() -> int:
               f"the twin on {list(cases)}", flush=True)
         if label == "new" and not same:
             return smoke.fail("the repository's B1 differs from the twin")
+    f_cases = fused_cases(table, batches, dev) if fused else {}
+    for label, _ in fused:
+        with swapped(fused_probe, fused_libs[label]):
+            same = all(equal(view(run()), view(want))
+                       for run, want, view in f_cases.values())
+        print(f"check fused {label}: {'equal to' if same else 'DIFFERS from'}"
+              f" the twin on {list(f_cases)}", flush=True)
+        if label == "new" and not same:
+            return smoke.fail("the repository's fused kernel differs from "
+                              "the twin")
     for label, _ in b3:
         with swapped(blockprobe, b3_libs[label]):
             same = all(equal(blockprobe.block_probe(lk.fp, q, h, 16),
@@ -240,7 +323,8 @@ def main() -> int:
             return smoke.fail("the repository's B3 differs from the twin")
 
     rows = []
-    for turn, (label, _) in enumerate(in_turns(b1, args.rounds)):
+    for turn, (label, _) in enumerate(in_turns(
+            [] if args.fused_only else b1, args.rounds)):
         with swapped(tilejoin, libs[label]):
             for name, (_, _, chunks, run) in cases.items():
                 ms, kept = smoke.kernel_device_ms(run, dev, "first_event",
@@ -258,6 +342,15 @@ def main() -> int:
                     lambda: blockprobe.block_probe(lk.fp, q, h, 16), dev,
                     "block_probe", reps=args.reps)
                 rows.append(dict(kernel="B3", turn=turn, variant=label,
+                                 case=name, ms=ms[0], runs_kept=kept))
+                print("turn " + json.dumps(rows[-1]), flush=True)
+
+    for turn, (label, _) in enumerate(in_turns(fused, args.rounds)):
+        with swapped(fused_probe, fused_libs[label]):
+            for name, (run, _, _) in f_cases.items():
+                ms, kept = smoke.kernel_device_ms(
+                    run, dev, "fused_probe_kernel", reps=args.reps)
+                rows.append(dict(kernel="fused", turn=turn, variant=label,
                                  case=name, ms=ms[0], runs_kept=kept))
                 print("turn " + json.dumps(rows[-1]), flush=True)
 

@@ -1,7 +1,8 @@
 // K-mer windows from ASCII rows, for Hopper (sm_90a): encode, six-frame
-// translation and 8-mer packing of the fused device path, ending in each
-// window's home slot and u16 fingerprint (the sparse probe's inputs) or
-// its packed value.
+// translation and 8-mer packing, ending in each window's home slot and u16
+// fingerprint (the sparse probe's inputs) or its packed value (the device
+// prepare's). The fused step computes the same windows and probes for them
+// in one launch (csrc/fused_probe.cu, which shares kmer_common.cuh).
 //
 // Replaces the device programs that the JAX package writes in XLA for the
 // TPU: kmergutsjava_tpu/parallel/annotate_step.py _encode_and_probe (:52)
@@ -61,26 +62,16 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "kmer_common.cuh"  // Luts, residue, pack_window, kK
+
 namespace {
 
-constexpr int kK = 8;
 constexpr int kThreads = 256;             // windows a block: one row's tile
 constexpr int kSpan = kThreads + kK - 1;  // aa offsets a tile reads
 // nucleotides of one strand a DNA tile reads: frame f <= 2, codon
 // j0 + jj with jj <= kSpan - 1, base t <= 2
 constexpr int kNt = 2 + 3 * (kSpan - 1) + 2 + 1;
-constexpr uint8_t kInvalidDna = 4, kInvalidAa = 20, kTerminator = 21;
-constexpr uint64_t kFpMod = 65535;
 static_assert(kThreads == 256, "a block copies one table entry a thread");
-
-// The reference's tables, copied from the wrapper a launch (by value, as a
-// kernel argument) into shared memory by each block.
-struct Luts {
-  uint8_t aa[256];     // ASCII -> amino-acid offset (20 = invalid)
-  uint8_t dna[256];    // ASCII -> base code (4 = invalid)
-  uint8_t compl_[256]; // ASCII -> base code of its complement
-  uint8_t codon[64];   // codon index -> amino-acid offset
-};
 
 struct Out {
   int32_t* homes;   // null in values mode
@@ -90,30 +81,16 @@ struct Out {
   uint64_t magic;   // ceil(2^66 / ns), or 0 for ns < 5
 };
 
-__device__ __forceinline__ uint32_t residue(uint64_t v, const Out& o) {
-  if (o.magic == 0) return static_cast<uint32_t>(v % o.ns);
-  const uint64_t q = __umul64hi(v, o.magic) >> 2;
-  return static_cast<uint32_t>(v - q * o.ns);
-}
-
 // One window from its 8 offsets in shared memory: its value, or its home
 // and fingerprint, written at ``at``; -1 (home 0 fingerprint) when it is
 // not valid.
 __device__ __forceinline__ void emit(const uint8_t* a, bool ok, const Out& o,
                                      int64_t at) {
-  uint32_t hi = 0, lo = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    ok &= a[k] < 20;
-    ok &= a[k + 4] < 20;
-    hi = hi * 20 + a[k];
-    lo = lo * 20 + a[k + 4];
-  }
-  const uint64_t v = static_cast<uint64_t>(hi) * 160000u + lo;
+  const uint64_t v = pack_window(a, ok);
   if (o.values) {
     o.values[at] = ok ? static_cast<int64_t>(v) : -1;
   } else if (ok) {
-    o.homes[at] = static_cast<int32_t>(residue(v, o));
+    o.homes[at] = static_cast<int32_t>(residue(v, o.ns, o.magic));
     o.fps[at] = static_cast<uint16_t>(v % kFpMod);
   } else {
     o.homes[at] = -1;

@@ -1,7 +1,8 @@
 // Device helpers shared by the window probes of the u16 fingerprint plane:
-// csrc/tilejoin.cu (the sparse first-event probe, B1) and
-// csrc/block_probe.cu (the block probe, B3). A window is read as aligned
-// 16-byte vectors of 8 slots and compared two slots a 32-bit word.
+// csrc/tilejoin.cu (the sparse first-event probe, B1), csrc/block_probe.cu
+// (the block probe, B3), and through probe_answers.cuh csrc/shard_probe.cu
+// (B12) and csrc/fused_probe.cu. A window is read as aligned 16-byte
+// vectors of 8 slots and compared two slots a 32-bit word.
 
 #pragma once
 

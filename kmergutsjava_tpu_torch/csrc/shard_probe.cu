@@ -34,38 +34,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "probe_common.cuh"  // zero_halves, slot_flags, load_vec, Plane
+#include "probe_answers.cuh"  // first_match (probe_common.cuh)
 
 namespace {
 
 constexpr int kMaxWindow = 128;  // the sharded lookup's largest window
 constexpr int kThreads = 256;
-
-// The fingerprint-match flags of one vector's 8 slots, as bits 0..7.
-__device__ __forceinline__ uint32_t match_bits(uint4 a, uint32_t qq) {
-  return slot_flags(zero_halves(a.x ^ qq), zero_halves(a.y ^ qq),
-                    zero_halves(a.z ^ qq), zero_halves(a.w ^ qq));
-}
-
-// The window offset of the first match in [local, local + w), or -1.
-__device__ __forceinline__ int first_match(const Plane& P, int64_t local,
-                                           uint32_t q) {
-  const uint32_t qq = q * 0x10001u;
-  const int64_t e0 = local + P.shift;
-  const int lead = static_cast<int>(e0 & 7);  // slots before the home
-  const int64_t k0 = e0 >> 3;
-  const int span = lead + P.w;  // slots from the first vector's start
-  for (int from = 0; from < span; from += 8) {
-    uint32_t m = match_bits(load_vec(P.abase, k0 + (from >> 3), P.shift,
-                                     P.len), qq);
-    // keep the window's slots [lead, span) among bits from..from+7
-    const int lo = max(lead - from, 0);
-    const int hi = min(span - from, 8);
-    m &= (0xFFu >> (8 - hi)) & (0xFFu << lo);
-    if (m) return from + __ffs(m) - 1 - lead;
-  }
-  return -1;
-}
 
 __global__ void __launch_bounds__(kThreads)
 shard_probe_kernel(Plane P, const uint16_t* __restrict__ q_fp,

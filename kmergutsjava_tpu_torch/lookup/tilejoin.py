@@ -47,7 +47,8 @@ MAX_WINDOW = 256  # window offsets travel as u8
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "tilejoin.cu")
 # headers the kernel sources include: a newer one rebuilds every library
-HEADERS = (os.path.join(_PKG_DIR, "csrc", "probe_common.cuh"),)
+HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", h) for h in (
+    "probe_common.cuh", "probe_answers.cuh", "kmer_common.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -5,22 +5,23 @@
 Every other backend splits the reference's phases (ref
 KmerGutsJava.java:776-803) between a host prepare and a device probe over a
 stream of query k-mers. This backend sends raw ASCII sequence bytes to the
-device, where a step (``parallel/annotate_step.py``) runs the k-mer window
-kernel (encode, six-frame translation, 8-mer packing, homes and
-fingerprints; ``ops/kmer_windows.py``) and a probe over power-of-two length
-buckets; only the probe's answer comes back, and the host verifies its
-candidates. Records longer than LONG_AA / LONG_NT go through windows
+device, where a step (``parallel/annotate_step.py``) runs one launch of the
+fused kernel a batch of a power-of-two length bucket (encode, six-frame
+translation, 8-mer packing, homes and fingerprints, and the probe;
+``parallel/fused_probe.py``); only the probe's answer comes back, and the
+host verifies its candidates. Records longer than LONG_AA / LONG_NT go through windows
 (``parallel/seq_windows.py``).
 
 Which step a mesh shape takes: the mesh is ``cfg.mesh_shape`` or
 ``default_mesh_shape`` of the devices (``parallel/mesh.py``; one CPU, or
 every CUDA card, or ``cfg.mesh_devices``). A (1, 1) mesh, the default on
-one card or the CPU, runs the one-device step: the window kernel, then the
-sparse probe B1 (``lookup/tilejoin.py``) at the full window. Any other
-shape runs the JAX step's body: each batch's rows split over the data
-axis, the window kernel on every position's rows and the shard probe B12
-(``parallel/shard_probe.py``) against every table shard, the answers
-summed over the table axis; that answer is the JAX step's, bit for bit.
+one card or the CPU, runs the one-device step: the fused kernel in the
+sparse probe B1's form (``lookup/tilejoin.py``) at the full window. Any
+other shape runs the JAX step's body: each batch's rows split over the
+data axis, the fused kernel in the shard probe B12's form
+(``parallel/shard_probe.py``) on every position's rows against its table
+shard, the answers summed over the table axis; that answer is the JAX
+step's, bit for bit.
 
 Hits come back as (container, position, metadata) columns that feed the
 standard grouping machine, so reports are byte-identical to every other

@@ -1,6 +1,9 @@
-"""K-mer windows from ASCII rows (the fused device path's front half): the
-hand-written CUDA kernel ``csrc/kmer_windows.cu``, its plain PyTorch twin
-and the wrappers that pick between them by the tensors' device.
+"""K-mer windows from ASCII rows: the hand-written CUDA kernel
+``csrc/kmer_windows.cu``, its plain PyTorch twin and the wrappers that pick
+between them by the tensors' device. The fused step runs the same windows
+and their probe in one launch (``parallel/fused_probe.py``, whose twin
+starts from this one); this kernel's values entry is the device prepare's,
+and its homes entries give the windows alone.
 
 Replaces the device programs that the JAX package writes in XLA for the
 TPU up to the probe: ``parallel/annotate_step.py`` ``_encode_and_probe``
@@ -50,9 +53,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "kmer_windows.cu")
 
 # kernel launches since import (or since a caller reset them to 0): of the
-# homes-and-fingerprints entries (the fused step's) and of the values entry
-# (the device prepare's); counted only where a wrapper launches the CUDA
-# kernel, never for the twin
+# homes-and-fingerprints entries and of the values entry (the device
+# prepare's); counted only where a wrapper launches the CUDA kernel, never
+# for the twin
 launches = 0
 values_launches = 0
 

@@ -4,24 +4,25 @@ candidates (the counterpart of the JAX package's
 
 On one device (``make_annotate_step``, ``make_dna_step``: the program of a
 (1, 1) mesh) a step uploads a batch of ASCII rows and their lengths in one
-copy, runs the k-mer window kernel (``ops/kmer_windows.py``: encode,
-six-frame translation in DNA mode, 8-mer packing, each window's home slot
-and u16 fingerprint) and the sparse probe (``lookup/tilejoin.py``, B1) at
-the full window ``pw`` over the flat windows, and leaves B1's one answer
+copy and runs one launch of the fused kernel (``parallel/fused_probe.py``
+``first_event``: encode, six-frame translation in DNA mode, 8-mer packing,
+each window's home slot and u16 fingerprint, and the sparse probe B1's
+first event at the full window ``pw``), which leaves B1's one answer
 buffer on the device; ``read_candidates`` copies it back in one copy. The
 plane is the u16 fingerprint of every slot (``value % 65535``, ``FP_EMPTY``
 for an empty slot) and ``pw`` slots of FP_EMPTY past the end, so every
-home's window lies on the plane; a window that is not valid has home -1,
-which B1 answers as off the plane.
+home's window lies on the plane; a window that is not valid is answered as
+off the plane (state 0) without a read.
 
 On a larger ``data x table`` mesh (``make_sharded_annotate_step``,
 ``make_sharded_dna_step``) the step is the JAX step's body: the rows are
 split over the data axis (padded with empty rows to a multiple of it, as
-the JAX engine pads them), every position (d, t) runs the window kernel on
-data slice d's rows and the shard probe (B12, ``parallel/shard_probe.py``)
-against table shard t's slice of the plane, and each data row's answers
-are summed (``mesh.psum``): per window the first fingerprint-match slot + 1,
-0 for none, bit for bit the JAX step's answer (``MeshAnswer``).
+the JAX engine pads them), every position (d, t) runs one launch of the
+fused kernel in the shard probe B12's form (``fused_probe.py``
+``shard_first_match``) on data slice d's rows against table shard t's
+slice of the plane, and each data row's answers are summed
+(``mesh.psum``): per window the first fingerprint-match slot + 1, 0 for
+none, bit for bit the JAX step's answer (``MeshAnswer``).
 
 Either way the host verifies each candidate against the query value
 recomputed at its coordinates (``ops/hostvalues.py``) and gathers the
@@ -39,8 +40,7 @@ from ..constants import K
 from ..formats.kmer_table import KmerTable
 from ..lookup import tilejoin
 from ..lookup.sparse import fingerprint_plane, on_stream
-from ..ops import kmer_windows
-from . import shard_probe
+from . import fused_probe
 from .mesh import DATA_AXIS, TABLE_AXIS, Mesh, fetch_global, psum, upload
 from .sharded_lookup import place_planes, shard_table_planes, split_rows
 
@@ -98,24 +98,6 @@ def candidates(out, num_sigs: int):
     return idx, lambda values: candidate_slots(values, off, num_sigs)
 
 
-def _encode_and_probe(fp, ascii_u8, num_starts, *, probe_window, num_sigs):
-    """Protein rows on the device -> B1's answer over their windows."""
-    homes, fps = kmer_windows.aa_homes_fps(ascii_u8, num_starts, num_sigs)
-    return tilejoin.probe_answer(fp, fps.view(-1), homes.view(-1),
-                                 probe_window)
-
-
-def _dna_encode_and_probe(fp, ascii_u8, lengths, *, probe_window, num_sigs,
-                          row_map=None, own_start=None, own_end=None):
-    """Contig rows (or a long contig's windows) on the device -> B1's
-    answer over their [B, 6, W] windows, containers in the reference's
-    order +0,+1,+2,-0,-1,-2. Lpad need not be a multiple of 3."""
-    homes, fps = kmer_windows.dna_homes_fps(ascii_u8, lengths, num_sigs,
-                                            row_map, own_start, own_end)
-    return tilejoin.probe_answer(fp, fps.view(-1), homes.view(-1),
-                                 probe_window)
-
-
 def make_annotate_step(table: KmerTable, probe_window: int, device
                        ) -> Tuple[Callable, dict]:
     """Returns (step, planes). step(fp, ascii_u8[B, L], lengths[B]) (host
@@ -126,8 +108,8 @@ def make_annotate_step(table: KmerTable, probe_window: int, device
         a, ns = upload(fp.device, ascii_u8,
                        (np.asarray(lengths) - K).astype(np.int32))
         w = max(ascii_u8.shape[1] - K + 1, 0)
-        return (_encode_and_probe(fp, a, ns, probe_window=probe_window,
-                                  num_sigs=table.num_sigs),
+        return (fused_probe.first_event(fp, a, ns, True, table.num_sigs,
+                                        probe_window),
                 (ascii_u8.shape[0], w))
 
     return step, {"fp": table_plane(table, probe_window, device)}
@@ -137,13 +119,14 @@ def make_dna_step(table: KmerTable, probe_window: int, device
                   ) -> Tuple[Callable, dict]:
     """Returns (step, planes). step(fp, ascii_u8[B, Lpad], lengths[B])
     (host arrays) -> (B1's answer on the device, its window shape [B, 6,
-    Lpad//3 - 7])."""
+    Lpad//3 - 7], containers in the reference's order +0,+1,+2,-0,-1,-2;
+    Lpad need not be a multiple of 3)."""
     def step(fp, ascii_u8: np.ndarray, lengths: np.ndarray):
         a, lens = upload(fp.device, ascii_u8,
                          np.asarray(lengths).astype(np.int32))
         w = max(ascii_u8.shape[1] // 3 - K + 1, 0)
-        return (_dna_encode_and_probe(fp, a, lens, probe_window=probe_window,
-                                      num_sigs=table.num_sigs),
+        return (fused_probe.first_event(fp, a, lens, False, table.num_sigs,
+                                        probe_window),
                 (ascii_u8.shape[0], 6, w))
 
     return step, {"fp": table_plane(table, probe_window, device)}
@@ -157,14 +140,16 @@ def sharded_planes(mesh: Mesh, table: KmerTable, probe_window: int) -> dict:
     return {"fp": place_planes(mesh, planes["fp"]), "s_loc": planes["s_loc"]}
 
 
-def mesh_step(mesh: Mesh, planes: dict, probe_window: int, windows,
-              width: Callable[[int], tuple]) -> Callable:
-    """A step over the mesh: step(fp, rows, *cols) (host arrays of one
-    batch, ``rows`` uint8 [B, L], each of ``cols`` [B, ...] per row) ->
-    ``MeshAnswer`` of shape (B, *width(L)). The batch is padded with zero
-    rows (no windows) to a multiple of the data axis; position (d, t)
-    uploads data slice d, runs ``windows(rows, *cols)`` -> (homes, fps) on
-    it and B12 against table shard t; ``psum`` adds row d's answers."""
+def mesh_step(mesh: Mesh, planes: dict, probe_window: int, num_sigs: int,
+              aa: bool, width: Callable[[int], tuple]) -> Callable:
+    """A step over the mesh: step(fp, rows, counts, *extra) (host arrays of
+    one batch: ``rows`` uint8 [B, L], ``counts`` [B] num_starts or lengths
+    as ``fused_probe`` takes them, ``extra`` a long contig's row_map,
+    own_start and own_end [B, 6]) -> ``MeshAnswer`` of shape (B,
+    *width(L)). The batch is padded with zero rows (no windows) to a
+    multiple of the data axis; position (d, t) uploads data slice d and
+    runs the fused kernel's shard entry on it against table shard t;
+    ``psum`` adds row d's answers."""
     s_loc = planes["s_loc"]
 
     def step(fp, rows: np.ndarray, *cols):
@@ -181,11 +166,11 @@ def mesh_step(mesh: Mesh, planes: dict, probe_window: int, windows,
             for t in range(mesh.shape[TABLE_AXIS]):
                 dev, stream = mesh.at(d, t)
                 with on_stream(stream):
-                    homes, fps = windows(*upload(dev, *(x[a:e]
-                                                        for x in arrays)))
-                    parts.append(shard_probe.shard_probe(
-                        fp[d][t], fps.view(-1), homes.view(-1), t * s_loc,
-                        s_loc, probe_window))
+                    rows_d, counts, *extra = upload(dev, *(x[a:e]
+                                                           for x in arrays))
+                    parts.append(fused_probe.shard_first_match(
+                        fp[d][t], rows_d, counts, aa, num_sigs, t * s_loc,
+                        s_loc, probe_window, *extra))
             out.append(psum(mesh, d, parts))
         return MeshAnswer(mesh, out, (b, *width(rows.shape[1])))
 
@@ -199,10 +184,8 @@ def make_sharded_annotate_step(mesh: Mesh, table: KmerTable,
     miss), B split over the data axis; num_starts = lengths - K as on one
     device."""
     planes = sharded_planes(mesh, table, probe_window)
-    inner = mesh_step(
-        mesh, planes, probe_window,
-        lambda a, ns: kmer_windows.aa_homes_fps(a, ns, table.num_sigs),
-        lambda width: (max(width - K + 1, 0),))
+    inner = mesh_step(mesh, planes, probe_window, table.num_sigs, True,
+                      lambda width: (max(width - K + 1, 0),))
 
     def step(fp, ascii_u8: np.ndarray, lengths: np.ndarray):
         return inner(fp, ascii_u8, np.asarray(lengths) - K)
@@ -216,7 +199,5 @@ def make_sharded_dna_step(mesh: Mesh, table: KmerTable, probe_window: int
     (host arrays) -> ``MeshAnswer`` [B, 6, Lpad//3 - 7] of per-(contig,
     frame, window) candidate slot+1 (0 = miss)."""
     planes = sharded_planes(mesh, table, probe_window)
-    return mesh_step(
-        mesh, planes, probe_window,
-        lambda a, lens: kmer_windows.dna_homes_fps(a, lens, table.num_sigs),
-        lambda width: (6, max(width // 3 - K + 1, 0))), planes
+    return mesh_step(mesh, planes, probe_window, table.num_sigs, False,
+                     lambda width: (6, max(width // 3 - K + 1, 0))), planes

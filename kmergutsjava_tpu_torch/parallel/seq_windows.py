@@ -21,11 +21,12 @@ JAX package's, whose exactness argument holds unchanged:
 - DNA frames have no skip-last-window quirk, so local validity is global
   validity; aa windows carry the quirk in their start counts.
 
-On the device the k-mer window kernel takes each window's ``row_map``,
-``own_start`` and ``own_end`` (``ops/kmer_windows.py``): container g of a
-window reads local frame row_map[g] and is valid on its owned interval. On
-a mesh the windows are rows of the mesh step (``annotate_step.mesh_step``):
-split over the data axis, probed by B12 on every table shard.
+On the device the fused kernel takes each window's ``row_map``,
+``own_start`` and ``own_end`` (``parallel/fused_probe.py``): container g of
+a window reads local frame row_map[g] and is valid on its owned interval.
+On a mesh the windows are rows of the mesh step
+(``annotate_step.mesh_step``): split over the data axis, probed in B12's
+form on every table shard.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ import numpy as np
 from ..constants import K
 from ..formats.kmer_table import KmerTable
 from ..ops.hostvalues import aa_values_at, dna_values_at
-from ..ops import kmer_windows
-from .annotate_step import _dna_encode_and_probe, candidates, mesh_step
+from . import fused_probe
+from .annotate_step import candidates, mesh_step
 from .mesh import Mesh, upload
 from .sharded_lookup import gather_hit_metadata
 
@@ -128,10 +129,9 @@ def make_windowed_dna_step(table: KmerTable, probe_window: int, win_nt: int,
             *(np.asarray(x).astype(np.int32)
               for x in (len_w, row_map, own_start, own_end)))
         w = max(win_nt // 3 - K + 1, 0)
-        return (_dna_encode_and_probe(
-            fp, a, lens, probe_window=probe_window, num_sigs=table.num_sigs,
-            row_map=rm, own_start=os_, own_end=oe),
-            (ascii_u8.shape[0], 6, w))
+        return (fused_probe.first_event(fp, a, lens, False, table.num_sigs,
+                                        probe_window, rm, os_, oe),
+                (ascii_u8.shape[0], 6, w))
 
     return step, planes
 
@@ -146,11 +146,8 @@ def make_sharded_windowed_dna_step(mesh: Mesh, table: KmerTable,
     of per-(window, container, local window) slot + 1."""
     if win_nt % 3:
         raise ValueError("win_nt must be a multiple of 3")
-    return mesh_step(
-        mesh, planes, probe_window,
-        lambda a, lens, rm, os_, oe: kmer_windows.dna_homes_fps(
-            a, lens, table.num_sigs, rm, os_, oe),
-        lambda width: (6, max(width // 3 - K + 1, 0))), planes
+    return mesh_step(mesh, planes, probe_window, table.num_sigs, False,
+                     lambda width: (6, max(width // 3 - K + 1, 0))), planes
 
 
 def windowed_protein_hits(step, planes, table: KmerTable,

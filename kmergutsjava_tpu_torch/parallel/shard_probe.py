@@ -81,9 +81,21 @@ def shard_probe_reference(plane: torch.Tensor, q_fp: torch.Tensor,
     return out
 
 
-def _check(plane, q_fp, homes, lo, s_loc, w) -> None:
+def check_shard(plane, lo, s_loc, w) -> None:
+    """The shard's window, slot range and plane slice, as the kernels take
+    them (this one and the fused step's shard entry)."""
     if not isinstance(w, int) or not 1 <= w <= MAX_WINDOW:
         raise KernelError(f"window {w!r} outside [1, {MAX_WINDOW}]")
+    if lo < 0 or s_loc < 0 or plane.numel() < s_loc + w:
+        raise KernelError(f"a plane slice of {plane.numel()} slots cannot "
+                          f"hold {s_loc} owned slots from {lo} and a halo "
+                          f"of {w}")
+    if lo + s_loc + w >= 1 << 31:  # the answer rides as int32
+        raise KernelError(f"slots past {lo + s_loc + w} do not fit int32")
+
+
+def _check(plane, q_fp, homes, lo, s_loc, w) -> None:
+    check_shard(plane, lo, s_loc, w)
     for name, t, dt in (("plane", plane, torch.uint16),
                         ("q_fp", q_fp, torch.uint16),
                         ("homes", homes, torch.int32)):
@@ -96,12 +108,6 @@ def _check(plane, q_fp, homes, lo, s_loc, w) -> None:
     if q_fp.numel() != homes.numel():
         raise KernelError(f"{q_fp.numel()} fingerprints for "
                           f"{homes.numel()} homes")
-    if lo < 0 or s_loc < 0 or plane.numel() < s_loc + w:
-        raise KernelError(f"a plane slice of {plane.numel()} slots cannot "
-                          f"hold {s_loc} owned slots from {lo} and a halo "
-                          f"of {w}")
-    if lo + s_loc + w >= 1 << 31:  # the answer rides as int32
-        raise KernelError(f"slots past {lo + s_loc + w} do not fit int32")
 
 
 def shard_probe(plane: torch.Tensor, q_fp: torch.Tensor, homes: torch.Tensor,

@@ -4,7 +4,8 @@ probe B2 and its repetition launch B5, lookup/stream.py; the block
 probe B3, lookup/blockprobe.py; the lane-gather probe B4,
 lookup/tjgather.py; the shard probe B12, parallel/shard_probe.py; the
 routing bins B13, parallel/route_bins.py; the grouping kernel B11,
-calls/scan_machine.py), without JAX, so the file also runs on a GPU machine
+calls/scan_machine.py; the k-mer window kernel, ops/kmer_windows.py; the
+fused step's kernel, parallel/fused_probe.py), without JAX, so the file also runs on a GPU machine
 that has no JAX: there, from the repository root,
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -972,6 +973,221 @@ def test_cuda_kmer_windows_empty_and_device_checks(cuda_device):
             torch.zeros(2, dtype=torch.int32), 101)
 
 
+# --- the fused step's kernel (csrc/fused_probe.cu, parallel/fused_probe.py) --
+
+from kmergutsjava_tpu_torch.parallel import fused_probe  # noqa: E402
+
+
+def _fused_rows(kind, b, lpad, seed):
+    """Seeded rows of mostly clean letters (1% junk), so that most windows
+    are valid, a row of each length class (full, 0, < 8, 8); counts as
+    _kw_rows gives them."""
+    rng = np.random.default_rng(seed)
+    aa = kind == "aa"
+    letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY" if aa else b"ACGTacgt",
+                            np.uint8)
+    mat = rng.choice(letters, (b, lpad)).astype(np.uint8)
+    mat[rng.random((b, lpad)) < 0.01] = ord("X" if aa else "N")
+    lens = rng.integers(0, lpad + 1, b)
+    lens[:4] = [lpad, 0, min(5, lpad), min(8, lpad)][:b]
+    mat[np.arange(lpad)[None, :] >= lens[:, None]] = 0
+    return mat, (lens - 8 if aa else lens).astype(np.int32)
+
+
+# the window kernel's cases (junk-heavy rows) and clean ones: (kind, rows,
+# Lpad) or (windowed kind, contig length, win_nt)
+FUSED_CASES = [*KW_CASES[:9], ("clean aa", 512, 256), ("clean aa", 300, 9),
+               ("clean dna", 512, 256), ("clean dna", 200, 26),
+               ("clean dna", 3, 3000), ("clean windowed", 40_000, 12288)]
+
+
+def _fused_inputs(case):
+    """(aa, ascii, counts, extra) of a FUSED_CASES case, numpy."""
+    kind, x, y = case
+    if kind.endswith("windowed"):
+        a, lens, rm, os_, oe = _kw_windowed(x, y, seed=x)
+        if kind.startswith("clean"):  # the same windows of a clean contig
+            rng = np.random.default_rng(x)
+            clean = rng.choice(np.frombuffer(b"ACGT", np.uint8), a.shape)
+            inside = np.arange(y)[None, :] < lens[:, None]
+            a = np.where(inside, clean, a).astype(np.uint8)
+        return False, a, lens, (rm, os_, oe)
+    base = kind.split()[-1]
+    mat, counts = (_fused_rows(base, x, y, seed=x + y) if kind.startswith(
+        "clean") else _kw_rows(base == "aa", x, y, seed=x * 1000 + y))
+    return base == "aa", mat, counts, ()
+
+
+def _fused_plane(length, homes, fps, w, seed, lo=0):
+    """A seeded u16 plane of ``length`` slots (global slots from ``lo``)
+    with 35% empties; half the valid windows' fingerprints planted in their
+    window (half of those in its first three slots)."""
+    rng = np.random.default_rng(seed)
+    plane = rng.integers(0, FP_EMPTY, length).astype(np.uint16)
+    plane[rng.random(length) < 0.35] = FP_EMPTY
+    pick = np.nonzero((homes >= 0) & (rng.random(len(homes)) < 0.5))[0]
+    near = rng.random(len(pick)) < 0.5
+    at = homes[pick].astype(np.int64) - lo + np.where(
+        near, rng.integers(0, min(w, 3), len(pick)),
+        rng.integers(0, w, len(pick)))
+    keep = (at >= 0) & (at < length)
+    plane[at[keep]] = fps[pick][keep]
+    return plane
+
+
+def _card_plane(plane, device, unaligned):
+    """The plane on the card; with ``unaligned`` a view that starts one
+    slot into its allocation (the kernels' unaligned path)."""
+    if not unaligned:
+        return torch.from_numpy(plane).to(device)
+    big = torch.from_numpy(np.concatenate([[7], plane]).astype(np.uint16))
+    return big.to(device)[1:]
+
+
+def test_fused_cpu_entries_run_twins_and_count_no_launch():
+    """On the CPU both fused entries are the composition of the window
+    kernel's twin with B1's or B12's, and launch nothing."""
+    aa, mat, counts, _ = _fused_inputs(("clean aa", 40, 64))
+    a, c = torch.from_numpy(mat), torch.from_numpy(counts)
+    homes, fps = kmer_windows.windows_reference(a, c, True, 1009)
+    plane = torch.from_numpy(_fused_plane(
+        1025, homes.view(-1).numpy(), tilejoin._widen(fps).view(-1).numpy(),
+        16, seed=2))
+    before = fused_probe.launches
+    got = fused_probe.first_event(plane, a, c, True, 1009, 16)
+    want = tilejoin.probe_answer(plane, fps.view(-1), homes.view(-1), 16)
+    n = homes.numel()
+    s = -(-n // 16) * 16
+    assert torch.equal(got[:n], want[:n])
+    assert torch.equal(got[s:s + n], want[s:s + n])
+    from kmergutsjava_tpu_torch.parallel import shard_probe
+
+    got = fused_probe.shard_first_match(plane[300:], a, c, True, 1009, 300,
+                                        400, 16)
+    want = shard_probe.shard_probe_reference(plane[300:], fps.view(-1),
+                                             homes.view(-1), 300, 400, 16)
+    assert torch.equal(got, want) and (got > 0).any()
+    assert fused_probe.launches == before
+
+
+def test_fused_kernel_divisions_are_exact():
+    """The fused kernel's index divisions (csrc/fused_probe.cu div_of):
+    (x * m) >> (31 + s) == x // d with s = ceil(log2 d) and m =
+    ceil(2^(31+s) / d), for every x < 2^31 at the divisors' edges and at
+    random, the product within 64 bits (checked here in exact integers)."""
+    rng = np.random.default_rng(12)
+    top = (1 << 31) - 1
+    divisors = [1, 2, 3, 6, 7, 8, 9, 15, 78, 85, 249, 256, 4089, 4096,
+                (1 << 30) - 7, (1 << 30) + 6,
+                *rng.integers(1, 1 << 30, 40).tolist()]
+    for d in divisors:
+        sh = max(int(d - 1).bit_length(), 0)
+        m = -(-(1 << (31 + sh)) // d)
+        assert top * m < 1 << 64
+        xs = {0, 1, d - 1, d, d + 1, top, top - 1, top // d * d,
+              top // d * d - 1, *rng.integers(0, top, 300).tolist()}
+        for x in xs:
+            assert (x * m) >> (31 + sh) == x // d, (x, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_cuda_fused_first_event_matches_twin(cuda_device, case):
+    """The fused kernel's first-event entry (the fused step on one card)
+    against its twin, off and state of every window equal, one launch a
+    call: tables of 4 and 11 slots (the plain % path) and of 1,000,003 and
+    40,009,777; windows 1 to 256; a padded plane, one shorter than the
+    table (windows off its end) and one that starts one slot into its
+    allocation."""
+    aa, mat, counts, extra = _fused_inputs(case)
+    cpu = [torch.from_numpy(x) for x in (mat, counts, *extra)]
+    card = [x.to(cuda_device) for x in cpu]
+    for ns, ws in ((4, (1, 16)), (11, (7, 16)), (1_000_003, (1, 16, 128, 256)),
+                   (40_009_777, (16,))):
+        homes, fps = kmer_windows.windows_reference(cpu[0], cpu[1], aa, ns,
+                                                    *cpu[2:])
+        h = homes.view(-1).numpy()
+        f = tilejoin._widen(fps).view(-1).numpy()
+        for w in ws:
+            for form in ("padded", "short", "unaligned"):
+                length = ns // 2 + 1 if form == "short" else ns + w
+                plane = _fused_plane(length, h, f, w, seed=w + ns % 97)
+                if form != "short":
+                    plane[ns:] = FP_EMPTY
+                want = fused_probe.first_event(torch.from_numpy(plane),
+                                               cpu[0], cpu[1], aa, ns, w,
+                                               *cpu[2:])
+                before = fused_probe.launches
+                got = fused_probe.first_event(
+                    _card_plane(plane, cuda_device, form == "unaligned"),
+                    card[0], card[1], aa, ns, w, *card[2:])
+                torch.cuda.synchronize()
+                assert fused_probe.launches == before + 1
+                n = h.size
+                s = -(-n // 16) * 16
+                got = got.cpu()
+                assert torch.equal(got[:n], want[:n]), (ns, w, form)
+                assert torch.equal(got[s:s + n], want[s:s + n]), (ns, w, form)
+    if case[0].startswith("clean"):
+        st = want[s:s + n]
+        assert (st == 1).any() and (st == 2).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_cuda_fused_shard_probe_matches_twin(cuda_device, case):
+    """The fused kernel's shard entry (the fused step at a mesh position)
+    against its twin, every int32 equal, one launch a call: each of three
+    table shards of a 1,000,003- and a 97-slot table (homes at the shards'
+    edges and in their halos), windows 1 to 128, the slice starting one
+    slot into its allocation for odd windows."""
+    aa, mat, counts, extra = _fused_inputs(case)
+    cpu = [torch.from_numpy(x) for x in (mat, counts, *extra)]
+    card = [x.to(cuda_device) for x in cpu]
+    for ns in (97, 1_000_003):
+        homes, fps = kmer_windows.windows_reference(cpu[0], cpu[1], aa, ns,
+                                                    *cpu[2:])
+        h = homes.view(-1).numpy()
+        f = tilejoin._widen(fps).view(-1).numpy()
+        for w in (1, 8, 16, 24, 128):
+            s_loc = -(-ns // 3)
+            full = _fused_plane(3 * s_loc + w, h, f, w, seed=w)
+            for t in range(3):
+                lo = t * s_loc
+                plane = full[lo:lo + s_loc + w].copy()
+                want = fused_probe.shard_first_match(
+                    torch.from_numpy(plane), cpu[0], cpu[1], aa, ns, lo,
+                    s_loc, w, *cpu[2:])
+                before = fused_probe.launches
+                got = fused_probe.shard_first_match(
+                    _card_plane(plane, cuda_device, w % 2 == 1), card[0],
+                    card[1], aa, ns, lo, s_loc, w, *card[2:])
+                torch.cuda.synchronize()
+                assert fused_probe.launches == before + 1
+                assert torch.equal(got.cpu(), want), (ns, w, t)
+    if case[0].startswith("clean"):
+        assert (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_empty_and_device_checks(cuda_device):
+    """Rows with no window launch nothing; a plane on another device than
+    the rows raises KernelError."""
+    plane = torch.zeros(64, dtype=torch.uint16, device=cuda_device)
+    before = fused_probe.launches
+    for aa, shape in ((True, (3, 7)), (True, (0, 64)), (False, (2, 23))):
+        a = torch.zeros(shape, dtype=torch.uint8, device=cuda_device)
+        c = torch.zeros(shape[0], dtype=torch.int32, device=cuda_device)
+        assert fused_probe.first_event(plane, a, c, aa, 40, 16).numel() == 0
+        assert fused_probe.shard_first_match(plane, a, c, aa, 40, 0, 40,
+                                             16).numel() == 0
+    assert fused_probe.launches == before
+    a = torch.zeros((2, 30), dtype=torch.uint8, device=cuda_device)
+    c = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(tilejoin.KernelError):
+        fused_probe.first_event(plane.cpu(), a, c, True, 40, 16)
+
+
 def _kw_table(seed, n_sigs=20_000):
     """A seeded table whose signatures include 8-mers of random proteins
     (so candidates and hits occur), and those proteins."""
@@ -1037,8 +1253,9 @@ def test_contigs_of_the_fused_step_test_hit():
 @pytest.mark.cuda
 @pytest.mark.parametrize("aa", [True, False])
 def test_cuda_fused_step_decodes_to_twin_hits(cuda_device, aa):
-    """The fused step (window kernel -> B1) on the card: its answer (off
-    and state) equals the CPU step's (the twins), and so do its decoded,
+    """The fused step (one launch of the fused kernel's first-event entry,
+    and no window kernel or B1 launch) on the card: its answer (off and
+    state) equals the CPU step's (the twins), and so do its decoded,
     verified hits."""
     from kmergutsjava_tpu_torch.ops import hostvalues
     from kmergutsjava_tpu_torch.parallel import annotate_step as st
@@ -1059,11 +1276,12 @@ def test_cuda_fused_step_decodes_to_twin_hits(cuda_device, aa):
     hits = {}
     for dev in (cuda_device, torch.device("cpu")):
         step, planes = make(table, pw, dev)
-        before = (kmer_windows.launches, tilejoin.launches)
+        before = (fused_probe.launches, kmer_windows.launches,
+                  tilejoin.launches)
         answer, shape = step(planes["fp"], mat, lens)
-        assert (kmer_windows.launches, tilejoin.launches) == (
-            (before[0] + 1, before[1] + 1) if dev.type == "cuda"
-            else before)
+        assert (fused_probe.launches, kmer_windows.launches,
+                tilejoin.launches) == (
+            (before[0] + 1, *before[1:]) if dev.type == "cuda" else before)
         # off and state views (the bytes between them are not written)
         hits[dev.type] = [v.clone() for v in tilejoin.answer_views(
             answer.cpu(), int(np.prod(shape)))]
@@ -1239,9 +1457,10 @@ def test_cuda_mesh_lookups_match_cpu(cuda_device, backend, placement):
 @pytest.mark.parametrize("placement", ["one_card", "distinct_cards"])
 @pytest.mark.parametrize("aa", [True, False])
 def test_cuda_spmd_mesh_step_matches_cpu(cuda_device, aa, placement):
-    """The fused step on a (2, 2) mesh (the window kernel and B12 on every
-    position, the sum over the table axis) on the card gives the CPU
-    twins' int32 answer, bit for bit, with four launches of each."""
+    """The fused step on a (2, 2) mesh (the fused kernel's shard entry on
+    every position, the sum over the table axis) on the card gives the CPU
+    twins' int32 answer, bit for bit, with four launches of it and none of
+    the window kernel or B12."""
     from kmergutsjava_tpu_torch.parallel import annotate_step as st
     from kmergutsjava_tpu_torch.parallel import mesh, shard_probe
 
@@ -1262,11 +1481,13 @@ def test_cuda_spmd_mesh_step_matches_cpu(cuda_device, aa, placement):
                 else _placement(cuda_device, placement))
         m = mesh.make_mesh(2, 2, devs)
         step, planes = make(m, table, pw)
-        before = (kmer_windows.launches, shard_probe.launches)
+        before = (fused_probe.launches, kmer_windows.launches,
+                  shard_probe.launches)
         got[dev] = step(planes["fp"], mat, lens).read()
-        assert (kmer_windows.launches - before[0],
-                shard_probe.launches - before[1]) == (
-            (0, 0) if dev == "cpu" else (4, 4))
+        assert (fused_probe.launches - before[0],
+                kmer_windows.launches - before[1],
+                shard_probe.launches - before[2]) == (
+            (0, 0, 0) if dev == "cpu" else (4, 0, 0))
     assert int((got["cpu"] > 0).sum()) > 1000
     np.testing.assert_array_equal(got["cuda"], got["cpu"])
 

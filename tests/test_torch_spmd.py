@@ -282,7 +282,9 @@ def test_kernel_error_propagates(corpus, monkeypatch, phase):
 
     kw = dict(backend="spmd")
     if phase == "consume":
-        monkeypatch.setattr(tilejoin, "probe_answer", refused)
+        from kmergutsjava_tpu_torch.parallel import fused_probe
+
+        monkeypatch.setattr(fused_probe, "first_event", refused)
     elif phase == "finish":
         monkeypatch.setattr(annotate_step, "read_candidates", faulty)
     else:

@@ -179,8 +179,8 @@ def test_package_data_holds_every_kernel_source_and_header():
         "kmergutsjava_tpu_torch"]
     pkg = os.path.join(REPO, "kmergutsjava_tpu_torch")
     sources = glob.glob(os.path.join(pkg, "csrc", "*.cu"))
-    assert len(sources) == 8  # kmer_windows, shard_probe, route_bins,
-    # scan_machine too
+    assert len(sources) == 9  # kmer_windows, shard_probe, route_bins,
+    # scan_machine, fused_probe too
     for path in (*sources, *tilejoin.HEADERS):
         rel = os.path.relpath(path, pkg)
         assert os.path.exists(path), rel
