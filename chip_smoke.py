@@ -131,7 +131,9 @@ failure and then prints no result):
    data row's queries against each table shard) and B13 (at the routed
    run's shape: the first shard's queries, its bins and the un-binning)
    against their twins on the card, exact, with their device times, the
-   twins' and their bounds; and, each call taken by a spy on its wrapper,
+   twins' and their bounds, and beside B13's binning the device time of
+   ``torch.argsort(owner, stable=True)`` on the same owners (its library
+   call, timed only); and, each call taken by a spy on its wrapper,
    the fused kernel's shard form in the (2, 2) spmd step on phase 12's
    proteome bucket batch and read batch (a data slice's rows against a
    table shard), equal to its twin and to the window kernel followed by
@@ -147,8 +149,9 @@ failure and then prints no result):
    machine, as in the JAX engine); then B11 against
    its twin on the engine's own container batches of those two runs
    (taken by a spy on the wrapper: flags at every step, records where a
-   step emits), with its device time, the twin's, the bound and the
-   longest container;
+   step emits), with its device time (in the wrapper's length order,
+   whose own time is printed apart), the twin's, the bound, the longest
+   container's steps and the device time a step of it;
 15. two processes of the port under gloo (``--mp-worker``: this script,
    one rank each), each holding two mesh positions of the one card: the
    sharded (2, 2), routed 4 and stream-shard 4 lookups of the proteome's
@@ -186,8 +189,9 @@ the window kernel's values entry and the fused kernel, the latter with
 the window kernel plus B1 beside it and its (2, 2) position's time;
 phase 13's shapes; phase 14's proteome batch),
 the bound and share at those shapes,
-and ``library_ms`` null (no single PyTorch call computes a first-event
-window probe); the last line is
+and ``library_ms``: B13's ``torch.argsort`` beside its binning, null for
+the others (no single PyTorch call computes a first-event window probe,
+a shard's first match or the grouping machine); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import contextlib
@@ -1780,6 +1784,79 @@ def bound_route_bins(n, cells):
     return bound(10 * n + 6 * cells, n + cells)
 
 
+def route_shard0(table, values, dev, shards=4):
+    """Phase 13's B13 shape: the first of ``shards`` source shards of the
+    proteome's queries in the routed run (cap 2 x its mean load a bin).
+    Returns (q_fp u16, homes int32) on the card and (n_valid, s_loc,
+    shards, cap)."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+
+    n = len(values)
+    n_loc = -(-n // shards)
+    cap = max(64, int(n_loc / shards * 2.0))
+    s_loc = -(-table.num_sigs // shards)
+    v = np.zeros(n_loc * shards, np.int64)
+    v[:n] = values
+    q = torch.from_numpy((v[:n_loc] % FP_MOD).astype(np.uint16)).to(dev)
+    h = torch.from_numpy((v[:n_loc] % table.num_sigs).astype(
+        np.int32)).to(dev)
+    return q, h, (min(n, n_loc), s_loc, shards, cap)
+
+
+def route_owners(h, n_valid, s_loc, shards):
+    """int32 owners of a B13 shard's queries, as the binning computes them
+    (padded queries on owner T): the input of its library call."""
+    import torch
+
+    owner = torch.div(h, s_loc, rounding_mode="floor").clamp_(0, shards - 1)
+    owner[n_valid:] = shards
+    return owner
+
+
+def library_device_ms(run, dev, reps=5):
+    """Device milliseconds of every kernel one ``run()`` of a library call
+    launches (whatever their names), summed, over ``reps`` runs after a
+    warm-up: a torch.profiler trace in which a 256 MB bitwise-not, which
+    also evicts the L2, parts the runs. Returns (ms, kernels a run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    run()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()
+            torch.cuda.synchronize(dev)
+            run()
+            torch.cuda.synchronize(dev)
+    with tempfile.TemporaryDirectory(prefix="kmer_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            kernels = sorted((e["ts"], e["dur"], "bitwise_not" in e["name"])
+                             for e in json.load(fh)["traceEvents"]
+                             if e.get("ph") == "X"
+                             and e.get("cat") in ("kernel", "gpu_memset"))
+    per_run = []
+    for _, dur, is_flush in kernels:
+        if is_flush:
+            per_run.append([])
+        elif per_run:
+            per_run[-1].append(dur)
+    counts = [len(r) for r in per_run]
+    k = max(set(counts), key=counts.count, default=0)
+    whole = [r for r in per_run if len(r) == k]
+    if k == 0 or 2 * len(whole) < reps:
+        raise RuntimeError(f"the trace holds runs of {counts} kernels for "
+                           f"{reps} runs of the library call")
+    return sum(map(sum, whole)) / len(whole) / 1000.0, k
+
+
 def bound_route_unbin(n, answered):
     """B13's un-binning: each query's cell in and its two answer bytes out
     (6 B), and the two answer bytes of each answered query's cell."""
@@ -1963,33 +2040,31 @@ def mesh_kernels_vs_twins(dev, big, faa):
     res["shard_probe"] = (max(r[0] for r in per_shard),) + per_shard[0][1:]
 
     # B13 at the routed run's shape (4 shards)
-    shards = 4
-    n_loc = -(-n // shards)
-    cap = max(64, int(n_loc / shards * 2.0))
-    r_s_loc = -(-table.num_sigs // shards)
-    v = np.zeros(n_loc * shards, np.int64)
-    v[:n] = values
-    q = torch.from_numpy((v[:n_loc] % FP_MOD).astype(np.uint16)).to(dev)
-    h = torch.from_numpy((v[:n_loc] % table.num_sigs).astype(
-        np.int32)).to(dev)
+    q, h, (n_valid, r_s_loc, shards, cap) = route_shard0(table, values, dev)
+    n_loc = h.numel()
 
     def bins():
-        return route_bins.bins(q, h, n, r_s_loc, shards, cap)
+        return route_bins.bins(q, h, n_valid, r_s_loc, shards, cap)
 
     got = bins()
-    twin = route_bins.bins_reference(q, h, n, r_s_loc, shards, cap)
+    twin = route_bins.bins_reference(q, h, n_valid, r_s_loc, shards, cap)
     torch.cuda.synchronize(dev)
     err = max(int((_u(a) - _u(b)).abs().max()) for a, b in zip(got, twin))
     ms, kept = kernel_device_ms(bins, dev, "route_")
-    t_ms = timed(lambda: route_bins.bins_reference(q, h, n, r_s_loc, shards,
-                                                   cap), dev)
+    t_ms = timed(lambda: route_bins.bins_reference(q, h, n_valid, r_s_loc,
+                                                   shards, cap), dev)
+    owner = route_owners(h, n_valid, r_s_loc, shards)
+    lib_ms, lib_kernels = library_device_ms(
+        lambda: torch.argsort(owner, stable=True), dev)
     bnd = bound_route_bins(n_loc, shards * cap)
     print(f"phase 13: B13 bins shard 0 of {shards} queries={n_loc} "
           f"cap={cap} overflow={int((got[2] < 0).sum())} max_abs_err={err} "
           f"device_ms={sum(ms):.5f} by_kernel={[round(x, 5) for x in ms]} "
-          f"runs_kept={kept}/5 twin_ms={t_ms:.4f} "
+          f"(rank, scan, fill, scatter) runs_kept={kept}/5 "
+          f"twin_ms={t_ms:.4f} library_ms={lib_ms:.5f} (torch.argsort of "
+          f"the int32 owners, stable: {lib_kernels} kernels) "
           f"{bound_fields(sum(ms), bnd)}", flush=True)
-    res["route_bins"] = (err, sum(ms), t_ms, bnd)
+    res["route_bins"] = (err, sum(ms), t_ms, bnd, lib_ms)
     cell = got[2]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     back = torch.randint(0, 256, (2, shards * cap), dtype=torch.uint8,
@@ -2250,8 +2325,11 @@ def scan_phase(dev, work, corpus, faa, fna, big, reads):
     proteome and read-set runs (taken by a spy on the wrapper; flags at
     every step, records at emitting steps), with its device time
     (kernel_device_ms, the L2 flushed), the twin's (CUDA events), the
-    bound and the longest container. Returns (B11's launches in the
-    proteome run, {label: (max_abs_err, kernel_ms, twin_ms, bound)})."""
+    bound and the longest container's steps. The kernel is timed in the
+    wrapper's length order, computed once (the order's own device time,
+    a ``torch.argsort`` of the lengths, is printed apart). Returns (B11's launches in the proteome run,
+    {label: (max_abs_err, kernel_ms, twin_ms, bound, longest container's
+    steps, order_ms)})."""
     import torch
 
     from kmergutsjava_tpu_torch.calls import scan_machine as sm
@@ -2308,22 +2386,28 @@ def scan_phase(dev, work, corpus, faa, fna, big, reads):
         err = max(int((flags.int() - t_flags.int()).abs().max()),
                   int((recs[emit].long() - t_recs[emit].long()).abs().max())
                   if bool(emit.any()) else 0)
+        order = sm.length_order(offsets)
+        order_ms, _ = library_device_ms(lambda: sm.length_order(offsets),
+                                        dev)
         ms, kept = kernel_device_ms(
-            lambda: sm.scan_containers(hits, offsets, **kw), dev,
-            "scan_machine_kernel")
+            lambda: sm.scan_containers(hits, offsets, order=order, **kw),
+            dev, "scan_machine_kernel")
         t_ms = timed(lambda: sm.scan_containers_reference(hits, offsets,
                                                           **kw), dev, reps=1)
         lens = offsets[1:] - offsets[:-1]
         n, c = hits.shape[0], lens.numel()
         n_emit = int(emit.sum())
+        longest_steps = int(lens.max()) + 1
         bnd = bound_scan(n, c, n + c, n_emit)
         print(f"phase 14: B11 on the {label} run's batch containers={c} "
               f"hits={n} steps={n + c} emits={n_emit} longest_container="
-              f"{int(lens.max())} mean_container={n / max(c, 1):.1f} "
-              f"{kw} max_abs_err={err} device_ms={ms[0]:.5f} runs_kept="
-              f"{kept}/5 twin_ms={t_ms:.4f} {bound_fields(ms[0], bnd)}",
-              flush=True)
-        res[label] = (err, ms[0], t_ms, bnd)
+              f"{int(lens.max())} longest_steps={longest_steps} "
+              f"mean_container={n / max(c, 1):.1f} {kw} max_abs_err={err} "
+              f"device_ms={ms[0]:.5f} ns_per_longest_step="
+              f"{ms[0] * 1e6 / longest_steps:.1f} runs_kept={kept}/5 "
+              f"order_ms={order_ms:.5f} (length_order's kernels) "
+              f"twin_ms={t_ms:.4f} {bound_fields(ms[0], bnd)}", flush=True)
+        res[label] = (err, ms[0], t_ms, bnd, longest_steps, order_ms)
         del t_flags, t_recs
     del batches
     torch.cuda.synchronize(dev)
@@ -2495,8 +2579,8 @@ def _u(x):
 def kernel_bound(ms, bnd):
     """A kernel entry's bound, share and library call (none: no single
     PyTorch call computes a first-event window probe, an 8-mer's value,
-    home or fingerprint from ASCII rows, a shard's first-match probe, a
-    stable binning by owner, or the call-grouping state machine)."""
+    home or fingerprint from ASCII rows, a shard's first-match probe or
+    the call-grouping state machine; B13's entry sets its own)."""
     return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
             "library_ms": None}
 
@@ -2758,6 +2842,7 @@ def main() -> int:
         "unbin_plain_ms": mesh_cmp["route_unbin"][2],
         **kernel_bound(mesh_cmp["route_bins"][1],
                        mesh_cmp["route_bins"][3]),
+        "library_ms": mesh_cmp["route_bins"][4],
         "unbin_bound_ms": mesh_cmp["route_unbin"][3][0],
     }, {
         "name": "scan_machine",
@@ -2769,6 +2854,10 @@ def main() -> int:
         "ms": scan_cmp["sparse proteome"][1],
         "plain_ms": scan_cmp["sparse proteome"][2],
         "read_set_ms": scan_cmp["dense read set"][1],
+        "longest_steps": scan_cmp["sparse proteome"][4],
+        "ns_per_longest_step": scan_cmp["sparse proteome"][1] * 1e6
+        / scan_cmp["sparse proteome"][4],
+        "order_ms": scan_cmp["sparse proteome"][5],
         **kernel_bound(scan_cmp["sparse proteome"][1],
                        scan_cmp["sparse proteome"][3]),
     }]}), flush=True)

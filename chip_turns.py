@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Sources of the sparse first-event probe (B1, csrc/tilejoin.cu) timed
 against each other in turns on one NVIDIA GPU, at the engine's cases: the
-source of PERF.md's in-turns tables for B1 and the fused step's kernel.
+source of PERF.md's in-turns tables for B1, the fused step's kernel, the
+grouping kernel (B11) and the routing bins (B13).
 
     python3 chip_turns.py --variant parent=build/parent/tilejoin.cu \\
         [--variant LABEL=PATH ...] [--b3 LABEL=PATH ...] \\
-        [--fused LABEL=PATH ...] [--rounds 2] [--out turns.json]
+        [--fused LABEL=PATH ...] [--scan LABEL=PATH ...] \\
+        [--route LABEL=PATH ...] [--no-b1] [--rounds 2] [--out turns.json]
 
 The repository's csrc/tilejoin.cu is the variant ``new``; each
 ``--variant`` is another source with the same C entry, such as the parent
@@ -18,7 +20,16 @@ equal or not (a copy that leaves out part of the work differs); the
 repository's own source must equal the twin, or the script exits 1.
 ``--b3`` does the same for the block probe (csrc/block_probe.cu, ``new``)
 and ``--fused`` for the fused step's kernel (csrc/fused_probe.cu,
-``new``; ``--fused-only`` leaves B1's turns out).
+``new``; ``--fused-only`` leaves B1's turns out). ``--scan`` times
+sources of the grouping kernel (csrc/scan_machine.cu, ``new``; a source
+whose entry takes no ``order``, such as the parent commit's, is called in
+its own form) and ``--route`` sources of the routing bins
+(csrc/route_bins.cu, ``new``, through the wrapper), the latter in turns
+with ``torch.argsort(owner, stable=True)`` on the same owners (``argsort``,
+the library yardstick); ``--no-b1`` builds, checks and times no B1
+source; ``--walls`` also runs the CLI with ``--grouping scan`` on the
+proteome and the read set with each ``--scan`` source in turns, for the
+wall and Grouping times.
 
 B1 cases: ``engine``, chip_smoke phase 4's launches (the 24M-signature
 table, the E. coli proteome's eight dispatches through
@@ -29,7 +40,13 @@ the same plane at w=16, in prepare's order and sorted by home. Fused
 cases: chip_smoke phase 12's batches (a proteome bucket batch, a read
 batch, the genome's windows) in the first-event form on the fused step's
 plane, and the first two in the shard form at the (2, 2) step's
-position (0, 0) (the batch's first half against table shard 0). Each time is
+position (0, 0) (the batch's first half against table shard 0). B11
+cases: the engine's own container batches of chip_smoke phase 14's
+proteome and read-set runs (``--grouping scan`` on the 24M-signature
+table, taken by a spy on the wrapper), each source checked against the
+twin at every flag and emitting record. B13 case: chip_smoke phase 13's
+first source shard of the routed run over 4 (1,009,459 queries, cap
+504,729), each source checked against the twin cell for cell. Each time is
 a kernel's device time from chip_smoke.kernel_device_ms (a torch.profiler
 trace, the L2 flushed before each run): a full dispatch's mean for
 ``engine`` and ``synth8``. The variants run in the given order, then in
@@ -156,6 +173,15 @@ def equal(got, want):
                for g, w in zip(got, want))
 
 
+def signed(tensors):
+    """The tensors with u16 ones viewed as int16 (the card compares no
+    u16)."""
+    import torch
+
+    return [t.view(torch.int16) if t.dtype == torch.uint16 else t
+            for t in tensors]
+
+
 def fused_cases(table, batches, dev):
     """{case: (run, the twin's answer, the answer's defined views)} of the
     fused kernel at chip_smoke phase 12's batches (first-event form on the
@@ -206,63 +232,133 @@ def fused_cases(table, batches, dev):
     return cases
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", action="append", default=[])
-    ap.add_argument("--b3", action="append", default=[])
-    ap.add_argument("--fused", action="append", default=[])
-    ap.add_argument("--fused-only", action="store_true")
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--out")
-    args = ap.parse_args()
+def scan_entry(lib, src):
+    """run(hits, offsets, order, kw, flags, recs): a launch of ``lib``'s
+    grouping kernel as the wrapper makes it. A source whose C entry takes
+    no ``order`` (the parent's) is called in that form."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        return smoke.fail("torch.cuda.is_available() is false")
-    from kmergutsjava_tpu_torch.lookup import blockprobe, tilejoin
+    from kmergutsjava_tpu_torch.lookup.tilejoin import KernelError
+
+    with open(src) as fh:
+        ordered = "const void* order" in fh.read()
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    fn = lib.scan_machine
+    fn.restype = ctypes.c_int
+    tail = [i32, ctypes.c_float, i32, i32, p, p, p]
+    fn.argtypes = [p, i64, p, p, i64] + tail if ordered else [p, p, i64] + tail
+
+    def run(hits, offsets, order, kw, flags, recs):
+        c = offsets.numel() - 1
+        head = ((hits.data_ptr(), hits.shape[0], offsets.data_ptr(),
+                 order.data_ptr(), c) if ordered
+                else (hits.data_ptr(), offsets.data_ptr(), c))
+        rc = fn(*head, int(kw["min_hits"]),
+                float(np.float32(kw["min_weighted"])), int(kw["max_gap"]),
+                int(bool(kw["order_constraint"])), flags.data_ptr(),
+                recs.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise KernelError(f"scan machine launch failed: CUDA error {rc}")
+        return flags, recs
+    run.ordered = ordered
+    return run
+
+
+@contextlib.contextmanager
+def scan_shim(module, run):
+    """The grouping wrapper ``module.scan_containers`` launching ``run``
+    (a ``scan_entry``) while inside: the engine's own path with another
+    source's kernel."""
+    import torch
+
+    real = module.scan_containers
+
+    def shim(hits, offsets, *, order=None, **kw):
+        n, c = hits.shape[0], offsets.numel() - 1
+        flags = torch.empty(n + c, dtype=torch.uint8, device=hits.device)
+        recs = torch.empty((n + c, module.REC_INTS), dtype=torch.int32,
+                           device=hits.device)
+        if c:
+            if order is None and run.ordered:
+                order = module.length_order(offsets)
+            run(hits, offsets, order, kw, flags, recs)
+        return flags, recs
+
+    module.scan_containers = shim
+    try:
+        yield
+    finally:
+        module.scan_containers = real
+
+
+def scan_walls(work, big, faa, reads, scan, runs, rounds):
+    """Rows of the CLI's wall time and Grouping time with ``--grouping
+    scan`` on the proteome and the read set, each B11 source of ``scan``
+    in turns (after one untimed run of each input)."""
+    from kmergutsjava_tpu_torch.calls import scan_machine as sm
+
+    out = os.path.join(work, "walls.txt")
+    inputs = (("proteome", faa, True), ("read set", reads, False))
+    for _, query, aa in inputs:
+        smoke.run_cli(big, query, out, "cuda", ("--grouping", "scan"), aa=aa)
+    rows = []
+    for turn, (label, _) in enumerate(in_turns(scan, rounds)):
+        with scan_shim(sm, runs[label]):
+            for name, query, aa in inputs:
+                info, secs = smoke.run_cli(big, query, out, "cuda",
+                                           ("--grouping", "scan"), aa=aa)
+                rows.append(dict(kernel="B11 wall", turn=turn,
+                                 variant=label, case=name, ms=secs * 1e3,
+                                 grouping_ms=smoke.phase_ms(info)
+                                 ["Grouping"]))
+                print("turn " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def route_lib(path):
+    """The routing library at ``path``, its entries typed as the wrapper
+    types them."""
+    lib = ctypes.CDLL(path)
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.route_bins.restype = ctypes.c_int
+    lib.route_bins.argtypes = [p, p, i64, i64, i64, ctypes.c_int32, i64,
+                               p, p, p, p, p, p]
+    lib.route_unbin.restype = ctypes.c_int
+    lib.route_unbin.argtypes = [p, i64, p, p, p, p, p]
+    return lib
+
+
+def scan_batches(work, big, faa, reads):
+    """{label: (hits, offsets, kw)}: the grouping kernel's batches of the
+    proteome's and the read set's ``--grouping scan`` runs on the card."""
+    from kmergutsjava_tpu_torch.calls import scan_machine as sm
+
+    out = {}
+    for label, query, aa in (("proteome", faa, True),
+                             ("read set", reads, False)):
+        calls = []
+        with smoke.spied(sm, "scan_containers", calls):
+            smoke.run_cli(big, query, os.path.join(work, "scan.txt"), "cuda",
+                          ("--grouping", "scan"), aa=aa)
+        (hits, offsets), kw, _ = calls[0]
+        out[label] = (hits, offsets, kw)
+        print(f"setup: B11 {label} batch containers={offsets.numel() - 1} "
+              f"hits={hits.shape[0]} longest="
+              f"{int((offsets[1:] - offsets[:-1]).max())}", flush=True)
+    return out
+
+
+def b1_b3_cases(table, values, dev):
+    """B1's cases ({case: (plane, w, chunks, run)}), B3's ({order: (q_fp,
+    homes)}), the engine's chunk size and the plane, on the sparse lookup
+    of ``table``."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import tilejoin
     from kmergutsjava_tpu_torch.lookup.sparse import SparseLookup
-    from kmergutsjava_tpu_torch.parallel import fused_probe
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-    dev = torch.device("cuda", 0)
-    b1 = parse_variants(args.variant, tilejoin.SOURCE)
-    b3 = parse_variants(args.b3, blockprobe.SOURCE) if args.b3 else []
-    fused = (parse_variants(args.fused, fused_probe.SOURCE) if args.fused
-             or args.fused_only else [])
-    paths = build_all(b1 + [("b3_" + label, src) for label, src in b3]
-                      + [("fused_" + label, src) for label, src in fused])
-    libs = {label: load(paths[label], "tilejoin_first_event")
-            for label, _ in b1}
-    b3_libs = {label: load(paths["b3_" + label], "block_probe")
-               for label, _ in b3}
-    compare_sass({label: paths[label] for label, _ in b1}, "new")
-    if b3:
-        compare_sass({"b3_" + label: paths["b3_" + label]
-                      for label, _ in b3}, "b3_new")
-    fused_libs = {label: fused_probe.bind(ctypes.CDLL(paths["fused_" + label]))
-                  for label, _ in fused}
-    if fused:
-        compare_sass({"fused_" + label: paths["fused_" + label]
-                      for label, _ in fused}, "fused_new")
-
-    with tempfile.TemporaryDirectory(prefix="kmer_turns_") as work:
-        prots = smoke.load_proteome()
-        sig = smoke.corpus_signatures(prots)
-        _, table, _ = smoke.big_table(work, sig)
-        faa = os.path.join(work, "proteome.faa")
-        smoke.write_proteome(prots, faa)
-        values = smoke.query_values(faa)
-        batches = {}
-        if fused:
-            fna = os.path.join(work, "genome.fna")
-            reads = os.path.join(work, "reads.fna")
-            smoke.write_reads(reads, smoke.write_genome(fna))
-            batches = smoke.window_batches(prots, fna, reads)
     lk = SparseLookup(table, device=str(dev))
     chunk = lk.chunk
     host_chunks = smoke.engine_chunks(lk, values)
@@ -290,7 +386,92 @@ def main() -> int:
                 .to(dev))
         for order, vals in (("prepare", values),
                             ("home", values[np.lexsort((values, hv))]))}
+    return cases, b3_cases, chunk, lk.fp
 
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--b3", action="append", default=[])
+    ap.add_argument("--fused", action="append", default=[])
+    ap.add_argument("--fused-only", action="store_true")
+    ap.add_argument("--scan", action="append", default=[])
+    ap.add_argument("--route", action="append", default=[])
+    ap.add_argument("--no-b1", action="store_true")
+    ap.add_argument("--walls", action="store_true")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        return smoke.fail("torch.cuda.is_available() is false")
+    from kmergutsjava_tpu_torch.calls import scan_machine
+    from kmergutsjava_tpu_torch.lookup import blockprobe, tilejoin
+    from kmergutsjava_tpu_torch.parallel import fused_probe, route_bins
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    b1 = [] if args.no_b1 else parse_variants(args.variant, tilejoin.SOURCE)
+    b3 = parse_variants(args.b3, blockprobe.SOURCE) if args.b3 else []
+    fused = (parse_variants(args.fused, fused_probe.SOURCE) if args.fused
+             or args.fused_only else [])
+    scan = (parse_variants(args.scan, scan_machine.SOURCE) if args.scan
+            else [])
+    route = (parse_variants(args.route, route_bins.SOURCE) if args.route
+             else [])
+    paths = build_all(b1 + [("b3_" + label, src) for label, src in b3]
+                      + [("fused_" + label, src) for label, src in fused]
+                      + [("scan_" + label, src) for label, src in scan]
+                      + [("route_" + label, src) for label, src in route])
+    libs = {label: load(paths[label], "tilejoin_first_event")
+            for label, _ in b1}
+    b3_libs = {label: load(paths["b3_" + label], "block_probe")
+               for label, _ in b3}
+    if b1:
+        compare_sass({label: paths[label] for label, _ in b1}, "new")
+    if b3:
+        compare_sass({"b3_" + label: paths["b3_" + label]
+                      for label, _ in b3}, "b3_new")
+    fused_libs = {label: fused_probe.bind(ctypes.CDLL(paths["fused_" + label]))
+                  for label, _ in fused}
+    if fused:
+        compare_sass({"fused_" + label: paths["fused_" + label]
+                      for label, _ in fused}, "fused_new")
+    scan_runs = {label: scan_entry(ctypes.CDLL(paths["scan_" + label]), src)
+                 for label, src in scan}
+    route_libs = {label: route_lib(paths["route_" + label])
+                  for label, _ in route}
+    for kind, jobs in (("scan_", scan), ("route_", route)):
+        if jobs:
+            compare_sass({kind + label: paths[kind + label]
+                          for label, _ in jobs}, kind + "new")
+
+    with tempfile.TemporaryDirectory(prefix="kmer_turns_") as work:
+        prots = smoke.load_proteome()
+        sig = smoke.corpus_signatures(prots)
+        big, table, _ = smoke.big_table(work, sig)
+        faa = os.path.join(work, "proteome.faa")
+        smoke.write_proteome(prots, faa)
+        values = smoke.query_values(faa)
+        batches, s_batches = {}, {}
+        if fused or scan:
+            fna = os.path.join(work, "genome.fna")
+            reads = os.path.join(work, "reads.fna")
+            smoke.write_reads(reads, smoke.write_genome(fna))
+        if fused:
+            batches = smoke.window_batches(prots, fna, reads)
+        if scan:
+            s_batches = scan_batches(work, big, faa, reads)
+        wall_rows = (scan_walls(work, big, faa, reads, scan, scan_runs,
+                                args.rounds) if scan and args.walls else [])
+    cases, b3_cases, chunk, plane = {}, {}, 0, None
+    if b1 or b3:
+        cases, b3_cases, chunk, plane = b1_b3_cases(table, values, dev)
     for label, _ in b1:
         with swapped(tilejoin, libs[label]):
             same = all(
@@ -313,8 +494,8 @@ def main() -> int:
                               "the twin")
     for label, _ in b3:
         with swapped(blockprobe, b3_libs[label]):
-            same = all(equal(blockprobe.block_probe(lk.fp, q, h, 16),
-                             blockprobe.block_probe_reference(lk.fp, q, h,
+            same = all(equal(blockprobe.block_probe(plane, q, h, 16),
+                             blockprobe.block_probe_reference(plane, q, h,
                                                               16))
                        for q, h in b3_cases.values())
         print(f"check B3 {label}: {'equal to' if same else 'DIFFERS from'} "
@@ -322,7 +503,43 @@ def main() -> int:
         if label == "new" and not same:
             return smoke.fail("the repository's B3 differs from the twin")
 
-    rows = []
+    s_cases = {}
+    for name, (hits, offsets, kw) in s_batches.items():
+        n, c = hits.shape[0], offsets.numel() - 1
+        flags = torch.empty(n + c, dtype=torch.uint8, device=dev)
+        recs = torch.empty((n + c, scan_machine.REC_INTS), dtype=torch.int32,
+                           device=dev)
+        s_cases[name] = (hits, offsets, scan_machine.length_order(offsets),
+                         kw, flags, recs, scan_machine
+                         .scan_containers_reference(hits, offsets, **kw))
+    for label, _ in scan:
+        same = True
+        for hits, offsets, order, kw, flags, recs, want in s_cases.values():
+            got = scan_runs[label](hits, offsets, order, kw, flags, recs)
+            emit = (want[0] & 2) != 0
+            same = same and torch.equal(got[0], want[0]) and torch.equal(
+                got[1][emit], want[1][emit])
+        print(f"check B11 {label}: {'equal to' if same else 'DIFFERS from'} "
+              f"the twin on {list(s_cases)}", flush=True)
+        if label == "new" and not same:
+            return smoke.fail("the repository's B11 differs from the twin")
+    if route:
+        q, h, (n_valid, s_loc, shards, cap) = smoke.route_shard0(
+            table, values, dev)
+        owner = smoke.route_owners(h, n_valid, s_loc, shards)
+        r_want = route_bins.bins_reference(q, h, n_valid, s_loc, shards, cap)
+        route.append(("argsort", None))
+    for label, _ in route[:-1]:
+        with swapped(route_bins, route_libs[label]):
+            same = equal(signed(route_bins.bins(q, h, n_valid, s_loc,
+                                                shards, cap)),
+                         signed(r_want))
+        print(f"check B13 {label}: {'equal to' if same else 'DIFFERS from'} "
+              f"the twin", flush=True)
+        if label == "new" and not same:
+            return smoke.fail("the repository's B13 differs from the twin")
+
+    rows = wall_rows
     for turn, (label, _) in enumerate(in_turns(
             [] if args.fused_only else b1, args.rounds)):
         with swapped(tilejoin, libs[label]):
@@ -339,7 +556,7 @@ def main() -> int:
         with swapped(blockprobe, b3_libs[label]):
             for name, (q, h) in b3_cases.items():
                 ms, kept = smoke.kernel_device_ms(
-                    lambda: blockprobe.block_probe(lk.fp, q, h, 16), dev,
+                    lambda: blockprobe.block_probe(plane, q, h, 16), dev,
                     "block_probe", reps=args.reps)
                 rows.append(dict(kernel="B3", turn=turn, variant=label,
                                  case=name, ms=ms[0], runs_kept=kept))
@@ -353,6 +570,33 @@ def main() -> int:
                 rows.append(dict(kernel="fused", turn=turn, variant=label,
                                  case=name, ms=ms[0], runs_kept=kept))
                 print("turn " + json.dumps(rows[-1]), flush=True)
+
+    for turn, (label, _) in enumerate(in_turns(scan, args.rounds)):
+        for name, (hits, offsets, order, kw, flags, recs, _) in \
+                s_cases.items():
+            ms, kept = smoke.kernel_device_ms(
+                lambda: scan_runs[label](hits, offsets, order, kw, flags,
+                                         recs), dev, "scan_machine_kernel",
+                reps=args.reps)
+            rows.append(dict(kernel="B11", turn=turn, variant=label,
+                             case=name, ms=ms[0], runs_kept=kept))
+            print("turn " + json.dumps(rows[-1]), flush=True)
+    for turn, (label, _) in enumerate(in_turns(route, args.rounds)):
+        if label == "argsort":
+            ms, kept = smoke.library_device_ms(
+                lambda: torch.argsort(owner, stable=True), dev,
+                reps=args.reps)
+            by = [ms]
+        else:
+            with swapped(route_bins, route_libs[label]):
+                by, kept = smoke.kernel_device_ms(
+                    lambda: route_bins.bins(q, h, n_valid, s_loc, shards,
+                                            cap), dev, "route_",
+                    reps=args.reps)
+        rows.append(dict(kernel="B13", turn=turn, variant=label,
+                         case="shard 0 of 4", ms=sum(by), runs_kept=kept,
+                         by_kernel=by))
+        print("turn " + json.dumps(rows[-1]), flush=True)
 
     summary = {}
     for row in rows:

@@ -24,6 +24,8 @@ step numbering; its step s is output row ``offsets[c] + c + s``. Outputs:
 step, the weight's bits), defined at emitting steps only (the twin writes
 0 elsewhere). The JAX package pads containers into power-of-two buckets so
 that XLA reuses compiled shapes; the port takes the ragged batch as it is.
+The kernel takes the containers longest first (``length_order``), so that
+the longest chains start first; output rows do not move.
 
 The kernel (``csrc/scan_machine.cu``) is compiled with nvcc for sm_90a into
 a plain-C shared library on first use and loaded with ctypes; nothing is
@@ -92,8 +94,9 @@ def load_kernel() -> ctypes.CDLL:
         lib = build_cuda_library(SOURCE)
         p, i32 = ctypes.c_void_p, ctypes.c_int32
         lib.scan_machine.restype = ctypes.c_int
-        lib.scan_machine.argtypes = [p, p, ctypes.c_int64, i32,
-                                     ctypes.c_float, i32, i32, p, p, p]
+        lib.scan_machine.argtypes = [p, ctypes.c_int64, p, p,
+                                     ctypes.c_int64, i32, ctypes.c_float,
+                                     i32, i32, p, p, p]
         _lib = lib
         return lib
 
@@ -114,6 +117,15 @@ def pack_containers(containers: Sequence[Tuple]
         hits[a:b, 3] = fi
         hits[a:b, 4] = np.asarray(wt, np.float32).view(np.int32)
     return hits, offsets
+
+
+def length_order(offsets: torch.Tensor) -> torch.Tensor:
+    """The containers of a batch longest first, ties in batch order: int32
+    [C] on offsets' device, the order in which the kernel's warps take
+    them. The lengths are sorted as int32 (the kernel's own width), which
+    halves the radix passes of an int64 sort."""
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    return torch.argsort(lens, descending=True, stable=True).to(torch.int32)
 
 
 def scan_containers_reference(hits: torch.Tensor, offsets: torch.Tensor, *,
@@ -246,7 +258,7 @@ def scan_containers_reference(hits: torch.Tensor, offsets: torch.Tensor, *,
     return flags, recs
 
 
-def _check(hits, offsets) -> None:
+def _check(hits, offsets, order) -> None:
     if hits.dtype != torch.int32 or hits.dim() != 2 \
             or hits.shape[1] != HIT_COLS or not hits.is_contiguous():
         raise KernelError(f"hits must be a contiguous int32 [n, {HIT_COLS}] "
@@ -259,19 +271,30 @@ def _check(hits, offsets) -> None:
     if offsets.device != hits.device:
         raise KernelError(f"offsets are on {offsets.device}, hits on "
                           f"{hits.device}")
+    if order is not None and (
+            order.dtype != torch.int32 or order.dim() != 1
+            or order.numel() != offsets.numel() - 1
+            or not order.is_contiguous() or order.device != hits.device):
+        raise KernelError(f"order must be a contiguous int32 tensor of the "
+                          f"{offsets.numel() - 1} containers on "
+                          f"{hits.device}, got {order.dtype} "
+                          f"{tuple(order.shape)} on {order.device}")
 
 
 def scan_containers(hits: torch.Tensor, offsets: torch.Tensor, *,
                     min_hits: int, min_weighted: int, max_gap: int,
-                    order_constraint: bool
+                    order_constraint: bool,
+                    order: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The machine over every container of the ragged batch: (flags u8
     [n + C], recs int32 [n + C, 7]) on the inputs' device. CPU tensors run
     the plain twin; CUDA tensors launch the kernel on the current stream
-    (or raise KernelError). The records of steps that do not emit are left
-    as they are on the card (the twin's are 0)."""
+    (or raise KernelError). ``order`` is the order in which the kernel
+    takes the containers (a permutation; ``length_order(offsets)`` when
+    not given); it moves no output. The records of steps that do not emit
+    are left as they are on the card (the twin's are 0)."""
     global launches
-    _check(hits, offsets)
+    _check(hits, offsets, order)
     kw = dict(min_hits=min_hits, min_weighted=min_weighted, max_gap=max_gap,
               order_constraint=order_constraint)
     dev = hits.device
@@ -284,8 +307,14 @@ def scan_containers(hits: torch.Tensor, offsets: torch.Tensor, *,
     recs = torch.empty((n + c, REC_INTS), dtype=torch.int32, device=dev)
     if c == 0:
         return flags, recs
+    if hits.data_ptr() % 16:
+        raise KernelError("hits must start on a 16-byte boundary on the "
+                          "card (the kernel copies whole 16-byte blocks)")
+    if order is None:
+        order = length_order(offsets)
     lib = load_kernel()
-    rc = lib.scan_machine(hits.data_ptr(), offsets.data_ptr(), c,
+    rc = lib.scan_machine(hits.data_ptr(), n, offsets.data_ptr(),
+                          order.data_ptr(), c,
                           int(min_hits), float(np.float32(min_weighted)),
                           int(max_gap), int(bool(order_constraint)),
                           flags.data_ptr(), recs.data_ptr(),

@@ -19,16 +19,20 @@
 // What bounds it. Per query its home and fingerprint in (6 B) and its cell
 // out (4 B), then the bins written (6 B a cell); the un-binning reads a
 // cell index and two answer bytes and writes two. All of it is bytes, and
-// small beside the probe's random reads. The design is the simple correct
-// one: stability comes from tiles of 1024 queries in order. A first kernel
-// fills the bins with FP_EMPTY and 0; a second ranks each query within its
-// tile (warps by __match_any_sync, then a prefix over the tile's 32 warps
-// in shared memory) and counts the tile's queries per owner; a third scans
-// those counts over the tiles, one thread an owner; a fourth adds the two
-// ranks and scatters into the bins. Every kernel's name starts with
-// route_, so that a trace tells them apart. The TPU program's argsort,
-// searchsorted and scatter with a parking column are XLA forms and are
-// not carried.
+// small beside the probe's random reads. Stability comes from tiles of
+// 1024 queries in order. A first kernel ranks each query within its tile
+// (warps by __match_any_sync, then a prefix over the tile's 32 warps in
+// shared memory) and counts the tile's queries per owner; a second scans
+// those counts over the tiles, a block an owner: a block-wide exclusive
+// scan (warp shuffles, then the 32 warps' sums in shared memory) over
+// 1024 tiles at a time with a carried total, which also leaves each
+// owner's total after the last tile; a third fills only the cells past
+// each owner's total with FP_EMPTY and 0; a fourth adds the two ranks and
+// scatters into the bins, so no cell is written twice. A scan of one
+// thread an owner, walking every tile in turn, would keep T + 1 threads of
+// the card busy. Every kernel's name starts with route_, so that a trace
+// tells them apart. The TPU program's argsort, searchsorted and scatter
+// with a parking column are XLA forms and are not carried.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libroute_bins.so route_bins.cu
@@ -43,7 +47,8 @@ namespace {
 constexpr int kTile = 1024;       // queries a tile, one thread each
 constexpr int kWarps = kTile / 32;
 constexpr int kMaxShards = 256;   // owners are 0..T, so T + 1 <= 257
-constexpr int kScanThreads = 256;
+constexpr int kScanThreads = 1024; // tiles a scan block takes at a time
+constexpr int kFillThreads = 256;
 
 __device__ __forceinline__ int owner_of(const int32_t* __restrict__ homes,
                                         int64_t i, int64_t n_valid,
@@ -53,12 +58,16 @@ __device__ __forceinline__ int owner_of(const int32_t* __restrict__ homes,
   return static_cast<int>(o < 0 ? 0 : o >= n_shards ? n_shards - 1 : o);
 }
 
-// Every cell of the bins empty: fingerprint FP_EMPTY, home 0.
-__global__ void __launch_bounds__(kTile)
+// The cells of bin row blockIdx.y past its owner's total (no query takes
+// them) empty: fingerprint FP_EMPTY, home 0.
+__global__ void __launch_bounds__(kFillThreads)
 route_fill_kernel(uint16_t* __restrict__ bin_qfp,
-                  int32_t* __restrict__ bin_home, int64_t cells) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  if (i >= cells) return;
+                  int32_t* __restrict__ bin_home, int64_t cap,
+                  const int32_t* __restrict__ totals) {
+  const int64_t j =
+      static_cast<int64_t>(blockIdx.x) * kFillThreads + threadIdx.x;
+  if (j >= cap || j < __ldg(totals + blockIdx.y)) return;
+  const int64_t i = static_cast<int64_t>(blockIdx.y) * cap + j;
   bin_qfp[i] = 0xFFFFu;
   bin_home[i] = 0;
 }
@@ -93,18 +102,39 @@ route_rank_kernel(const int32_t* __restrict__ homes, int64_t n,
   if (owner >= 0) rank[i] = wc[warp * owners + owner] + in_warp;
 }
 
-// counts -> each owner's exclusive prefix over the tiles, in place.
+// Inclusive sum of x over the warp's lanes.
+__device__ __forceinline__ int32_t warp_inclusive(int32_t x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// counts[t * owners + o] for t < tiles -> owner o's exclusive prefix over
+// the tiles, in place, and counts[tiles * owners + o] = its total; owner
+// o = blockIdx.x.
 __global__ void __launch_bounds__(kScanThreads)
 route_scan_kernel(int32_t* __restrict__ counts, int64_t tiles, int owners) {
-  const int o = blockIdx.x * kScanThreads + threadIdx.x;
-  if (o >= owners) return;
-  int32_t run = 0;
-#pragma unroll 8
-  for (int64_t t = 0; t < tiles; ++t) {
-    const int32_t c = counts[t * owners + o];
-    counts[t * owners + o] = run;
-    run += c;
+  __shared__ int32_t sums[kScanThreads / 32];
+  const int o = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t carry = 0;  // the owner's count in the tiles before this round
+  for (int64_t t0 = 0; t0 < tiles; t0 += kScanThreads) {
+    const int64_t t = t0 + threadIdx.x;
+    int32_t* cell = counts + t * owners + o;
+    const int32_t c = t < tiles ? *cell : 0;
+    const int32_t x = warp_inclusive(c, lane);
+    if (lane == 31) sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) sums[lane] = warp_inclusive(sums[lane], lane);
+    __syncthreads();
+    if (t < tiles) *cell = carry + (warp ? sums[warp - 1] : 0) + x - c;
+    carry += sums[kScanThreads / 32 - 1];
+    __syncthreads();  // sums is rewritten in the next round
   }
+  if (threadIdx.x == 0) counts[tiles * owners + o] = carry;
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -153,7 +183,7 @@ extern "C" {
 // Bins one source shard's n queries on ``stream``; returns a CUDA error
 // code (0 = every launch was accepted). Inputs q_fp[n], homes[n]; outputs
 // bin_qfp[T * cap], bin_home[T * cap] and cell[n]; scratch rank[n] and
-// counts[ceil(n / 1024) * (T + 1)].
+// counts[(ceil(n / 1024) + 1) * (T + 1)].
 int route_bins(const void* q_fp, const void* homes, int64_t n,
                int64_t n_valid, int64_t s_loc, int32_t n_shards, int64_t cap,
                void* bin_qfp, void* bin_home, void* cell, void* rank,
@@ -162,24 +192,26 @@ int route_bins(const void* q_fp, const void* homes, int64_t n,
       cap < 1 || n_shards * cap >= (1LL << 31) || n >= (1LL << 31))
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  const int64_t cells = n_shards * cap;
-  route_fill_kernel<<<static_cast<unsigned>((cells + kTile - 1) / kTile),
-                      kTile, 0, st>>>(static_cast<uint16_t*>(bin_qfp),
-                                      static_cast<int32_t*>(bin_home), cells);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
   const int64_t tiles = (n + kTile - 1) / kTile;
   const auto* h = static_cast<const int32_t*>(homes);
   auto* rk = static_cast<int32_t*>(rank);
   auto* cn = static_cast<int32_t*>(counts);
-  route_rank_kernel<<<static_cast<unsigned>(tiles), kTile, 0, st>>>(
-      h, n, n_valid, s_loc, n_shards, rk, cn);
   const int owners = n_shards + 1;
-  route_scan_kernel<<<(owners + kScanThreads - 1) / kScanThreads,
-                      kScanThreads, 0, st>>>(cn, tiles, owners);
-  route_scatter_kernel<<<static_cast<unsigned>(tiles), kTile, 0, st>>>(
-      static_cast<const uint16_t*>(q_fp), h, n, n_valid, s_loc, n_shards, cap,
-      rk, cn, static_cast<uint16_t*>(bin_qfp), static_cast<int32_t*>(bin_home),
-      static_cast<int32_t*>(cell));
+  if (tiles > 0)
+    route_rank_kernel<<<static_cast<unsigned>(tiles), kTile, 0, st>>>(
+        h, n, n_valid, s_loc, n_shards, rk, cn);
+  route_scan_kernel<<<owners, kScanThreads, 0, st>>>(cn, tiles, owners);
+  route_fill_kernel<<<dim3(static_cast<unsigned>(
+                               (cap + kFillThreads - 1) / kFillThreads),
+                           static_cast<unsigned>(n_shards)),
+                      kFillThreads, 0, st>>>(
+      static_cast<uint16_t*>(bin_qfp), static_cast<int32_t*>(bin_home), cap,
+      cn + tiles * owners);
+  if (tiles > 0)
+    route_scatter_kernel<<<static_cast<unsigned>(tiles), kTile, 0, st>>>(
+        static_cast<const uint16_t*>(q_fp), h, n, n_valid, s_loc, n_shards,
+        cap, rk, cn, static_cast<uint16_t*>(bin_qfp),
+        static_cast<int32_t*>(bin_home), static_cast<int32_t*>(cell));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -48,7 +48,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "tilejoin.cu")
 # headers the kernel sources include: a newer one rebuilds every library
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", h) for h in (
-    "probe_common.cuh", "probe_answers.cuh", "kmer_common.cuh"))
+    "probe_common.cuh", "probe_answers.cuh", "kmer_common.cuh",
+    "async_copy.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

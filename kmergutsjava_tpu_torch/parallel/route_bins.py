@@ -65,6 +65,12 @@ def load_kernel() -> ctypes.CDLL:
         return lib
 
 
+def counts_size(n: int, n_shards: int) -> int:
+    """Entries of the binning's count scratch: each tile's count of every
+    owner (T + 1 owners, ceil(n / TILE) tiles), then each owner's total."""
+    return (-(-n // TILE) + 1) * (n_shards + 1)
+
+
 def bins_reference(q_fp: torch.Tensor, homes: torch.Tensor, n_valid: int,
                    s_loc: int, n_shards: int, cap: int):
     """Plain PyTorch twin of the binning: a stable argsort by owner, each
@@ -136,7 +142,7 @@ def bins(q_fp: torch.Tensor, homes: torch.Tensor, n_valid: int, s_loc: int,
     bin_home = torch.empty((n_shards, cap), dtype=torch.int32, device=dev)
     cell = torch.empty(n, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty(-(-n // TILE) * (n_shards + 1), dtype=torch.int32,
+    counts = torch.empty(counts_size(n, n_shards), dtype=torch.int32,
                          device=dev)
     lib = load_kernel()
     rc = lib.route_bins(q_fp.data_ptr(), homes.data_ptr(), n, n_valid,

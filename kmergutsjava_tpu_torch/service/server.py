@@ -326,8 +326,8 @@ def make_handler(service: KmerGutsService, token: Optional[str] = None,
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(payload)))
             self.end_headers()
-            self.wfile.write(payload)
             self._log_access(code, len(payload))
+            self.wfile.write(payload)
 
         def do_POST(self):
             length = int(self.headers.get("Content-Length", 0))
@@ -348,8 +348,8 @@ def make_handler(service: KmerGutsService, token: Optional[str] = None,
                 self.send_header("Content-Length", str(len(payload)))
                 self.send_header("Connection", "close")
                 self.end_headers()
-                self.wfile.write(payload)
                 self._log_access(413, len(payload))
+                self.wfile.write(payload)
                 return
             body = self.rfile.read(length)
             try:
@@ -391,8 +391,8 @@ def make_handler(service: KmerGutsService, token: Optional[str] = None,
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(payload)))
             self.end_headers()
-            self.wfile.write(payload)
             self._log_access(code, len(payload))
+            self.wfile.write(payload)
 
         def log_message(self, fmt, *args):  # quiet by default
             pass

@@ -1393,6 +1393,50 @@ def test_cuda_route_bins_match_twin(cuda_device, n, shards, cap):
     assert int((want[2] < 0).sum()) >= n // 7
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiles_past_1024", "one_owner",
+                                  "all_overflow", "shards_1", "shards_4",
+                                  "shards_256"])
+def test_cuda_route_bins_edge_cases(cuda_device, case):
+    """B13 on the card equals its twins: 1,100,000 queries (1,075 tiles,
+    past one scan block of 1,024 tiles, so the scan carries a total), every
+    query of one owner, every query overflowing (all padded), and 1, 4 and
+    256 shards; one launch of each entry."""
+    from kmergutsjava_tpu_torch.parallel import route_bins
+
+    rng = np.random.default_rng(len(case))
+    num_sigs = 1_000_003
+    n, shards, cap, n_valid = {
+        "tiles_past_1024": (1_100_000, 4, 300_000, 1_099_990),
+        "one_owner": (200_000, 4, 150_000, 200_000),
+        "all_overflow": (50_000, 4, 1000, 0),
+        "shards_1": (300_000, 1, 250_000, 299_000),
+        "shards_4": (300_000, 4, 70_000, 299_000),
+        "shards_256": (300_000, 256, 1500, 299_000)}[case]
+    homes = rng.integers(0, num_sigs, n).astype(np.int32)
+    if case == "one_owner":
+        homes = rng.integers(0, num_sigs // shards, n).astype(np.int32)
+    qfp = rng.integers(0, 65535, n).astype(np.uint16)
+    s_loc = -(-num_sigs // shards)
+    cpu = [torch.from_numpy(qfp), torch.from_numpy(homes)]
+    want = route_bins.bins_reference(*cpu, n_valid, s_loc, shards, cap)
+    before = (route_bins.launches, route_bins.unbin_launches)
+    got = route_bins.bins(*(x.to(cuda_device) for x in cpu), n_valid, s_loc,
+                          shards, cap)
+    back = torch.from_numpy(rng.integers(0, 256, (2, shards * cap)).astype(
+        np.uint8))
+    want_u = route_bins.unbin_reference(want[2], back[0], back[1])
+    got_u = route_bins.unbin(got[2], back[0].to(cuda_device),
+                             back[1].to(cuda_device))
+    torch.cuda.synchronize()
+    assert (route_bins.launches, route_bins.unbin_launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip((*got, *got_u), (*want, *want_u)):
+        assert torch.equal(a.cpu(), b)
+    if case == "all_overflow":
+        assert bool((want[2] < 0).all())
+
+
 def _placement(cuda_device, placement):
     """Four mesh positions: all on the one card, or on four distinct cards
     (skipped where the machine has fewer)."""
@@ -1573,6 +1617,135 @@ def test_cuda_scan_machine_past_the_append_cap(cuda_device):
         torch.zeros(1, dtype=torch.int64, device=cuda_device), **kw)
     assert scan_machine.launches == before
     assert empty[0].numel() == 0
+
+
+def _scan_container(rng, n, n_fi=None, span=4000):
+    """One seeded container of ``n`` position-sorted hits."""
+    pos = np.sort(rng.choice(max(span, n), n, replace=False)).astype(np.int64)
+    n_fi = n_fi or int(rng.integers(1, 5))
+    return (pos, rng.integers(0, 5, n).astype(np.int32),
+            rng.integers(0, 300, n).astype(np.int32),
+            rng.integers(0, n_fi, n).astype(np.int32),
+            rng.choice([0.1, 0.25, 1.0, 2.5, 1 / 3], n).astype(np.float32))
+
+
+def _scan_on_card(cuda_device, containers, **kw):
+    """B11 on the card against its twin on ``containers``: one launch,
+    flags at every step and records at the emitting steps equal. Returns
+    the twin's (flags, recs)."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
+
+    hits, offsets = scan_machine.pack_containers(containers)
+    cpu = [torch.from_numpy(hits), torch.from_numpy(offsets)]
+    want = scan_machine.scan_containers_reference(*cpu, **kw)
+    before = scan_machine.launches
+    got = scan_machine.scan_containers(*(x.to(cuda_device) for x in cpu),
+                                       **kw)
+    torch.cuda.synchronize()
+    assert scan_machine.launches == before + 1
+    _scan_equal(got, want)
+    return want
+
+
+SCAN_KW = [dict(min_hits=2, min_weighted=0, max_gap=60,
+                order_constraint=False),
+           dict(min_hits=3, min_weighted=2, max_gap=200,
+                order_constraint=True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", SCAN_KW)
+def test_cuda_scan_machine_edge_lengths(cuda_device, kw):
+    """B11 with containers of 0, 1, 2, 31, 32 and 33 hits, a staging chunk
+    (8 hits) and one either side of it, two chunks and the ring of four,
+    4,096 hits (SCAN_BIG), each beside the others in one batch, in turn
+    with every length alone, and with a total whose rows end mid 16-byte
+    block."""
+    rng = np.random.default_rng(31)
+    lens = [0, 1, 2, 31, 32, 33, 7, 8, 9, 15, 16, 17, 32, 33, 4096]
+    _scan_on_card(cuda_device, [_scan_container(rng, n) for n in lens], **kw)
+    for n in lens:
+        _scan_on_card(cuda_device, [_scan_container(rng, n)], **kw)
+    for extra in range(4):  # 5 * hits % 16: every tail of the array
+        _scan_on_card(cuda_device, [_scan_container(rng, int(n)) for n in
+                                    rng.integers(0, 70, 45)]
+                      + [_scan_container(rng, extra + 1)], **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_machine_mixed_length_profiles(cuda_device):
+    """B11 on one batch that mixes a proteome's containers (hundreds to
+    thousands of hits) with a read set's (0 to 43), shuffled, so that the
+    length order moves nearly every container; and with the batch order
+    given instead of the length order."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
+
+    rng = np.random.default_rng(32)
+    lens = np.concatenate([np.minimum(rng.lognormal(5.3, 0.8, 300), 2400),
+                           rng.integers(0, 44, 3000)]).astype(int)
+    rng.shuffle(lens)
+    cs = [_scan_container(rng, int(n), span=max(4000, 2 * int(n)))
+          for n in lens]
+    kw = SCAN_KW[0]
+    want = _scan_on_card(cuda_device, cs, **kw)
+    hits, offsets = (torch.from_numpy(x).to(cuda_device)
+                     for x in scan_machine.pack_containers(cs))
+    batch = torch.arange(len(cs), dtype=torch.int32, device=cuda_device)
+    _scan_equal(scan_machine.scan_containers(hits, offsets, order=batch,
+                                             **kw), want)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_machine_earliest_seed_pairs(cuda_device):
+    """Containers that keep a seed pair as early as the machine can (hits
+    of functions X, Y, Y: the pair trigger at step 2 retains steps 1 and
+    2; no retain is reachable while S_L2STEP is still its first 0), with
+    hit 0 weighted apart from the others, so that a weight read from the
+    wrong step shows; and later retains after gap closes. The retained
+    pair's records (start step 1) must occur and equal the twin's."""
+    rng = np.random.default_rng(33)
+    cs = []
+    for i in range(400):
+        n = int(rng.integers(3, 40))
+        pos = np.cumsum(rng.integers(1, 4, n)).astype(np.int64)
+        if i % 3 == 0:
+            pos[n // 2:] += 500  # a gap close mid-container
+        fi = rng.integers(0, 3, n).astype(np.int32)
+        fi[:3] = (i % 3, (i + 1) % 3, (i + 1) % 3)
+        wt = rng.choice([0.25, 1.0, 1 / 3], n).astype(np.float32)
+        wt[0] = 7.5
+        cs.append((pos, rng.integers(0, 5, n).astype(np.int32),
+                   rng.integers(0, 300, n).astype(np.int32), fi, wt))
+    flags, recs = _scan_on_card(cuda_device, cs, min_hits=2, min_weighted=0,
+                                max_gap=60, order_constraint=False)
+    emit = (flags & 2) != 0
+    assert int((recs[emit][:, 4] == 1).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_scan_machine_refuses_bad_inputs(cuda_device):
+    """On the card the wrapper raises KernelError for hits that do not
+    start on a 16-byte boundary and for an order of another type, length
+    or device; it launches nothing then."""
+    from kmergutsjava_tpu_torch.calls import scan_machine
+
+    rng = np.random.default_rng(34)
+    hits, offsets = scan_machine.pack_containers(
+        [_scan_container(rng, 10) for _ in range(6)])
+    h = torch.from_numpy(hits).to(cuda_device)
+    o = torch.from_numpy(offsets).to(cuda_device)
+    kw = SCAN_KW[0]
+    before = scan_machine.launches
+    padded = torch.zeros((h.shape[0] + 1, 5), dtype=torch.int32,
+                         device=cuda_device)
+    padded[1:] = h
+    with pytest.raises(scan_machine.KernelError):
+        scan_machine.scan_containers(padded[1:], o, **kw)  # 20 B off
+    good = scan_machine.length_order(o)
+    for order in (good.long(), good[:5], good.cpu()):
+        with pytest.raises(scan_machine.KernelError):
+            scan_machine.scan_containers(h, o, order=order, **kw)
+    assert scan_machine.launches == before
 
 
 @pytest.mark.cuda

@@ -188,6 +188,49 @@ def test_wrappers_reject_bad_inputs(bad):
             route_bins.bins(**args)
 
 
+@pytest.mark.parametrize("n,shards", [(0, 4), (1024, 1), (1024 * 1024, 4),
+                                      (1024 * 1024 + 1, 4),
+                                      (1024 * 1500, 256), (70_000, 256)])
+def test_b13_count_scratch_holds_every_tile_and_the_totals(n, shards):
+    """The binning's count scratch: a row of T + 1 owner counts for each
+    tile of 1,024 queries (the scan takes 1,024 tiles at a time, so past
+    1,024 tiles it carries a total), and one row of totals after them."""
+    tiles = -(-n // route_bins.TILE)
+    assert route_bins.counts_size(n, shards) == (tiles + 1) * (shards + 1)
+
+
+@pytest.mark.parametrize("n,shards,cap", [(1024 * 1025 + 3, 4, 300_000),
+                                          (70_000, 256, 200),
+                                          (50_000, 1, 60_000)])
+def test_b13_twin_past_one_scan_chunk_and_at_256_shards(n, shards, cap):
+    """The twin at the sizes whose scratch the kernel sizes above (more
+    than 1,024 tiles; 257 owners) against a numpy stable sort by owner."""
+    rng = np.random.default_rng(n)
+    homes = rng.integers(0, 1_000_003, n).astype(np.int32)
+    qfp = rng.integers(0, 65535, n).astype(np.uint16)
+    s_loc = -(-1_000_003 // shards)
+    n_valid = n - 17
+    b_qfp, b_home, cell = route_bins.bins(
+        torch.from_numpy(qfp), torch.from_numpy(homes), n_valid, s_loc,
+        shards, cap)
+    owner = np.minimum(homes // s_loc, shards - 1)
+    owner[n_valid:] = shards
+    order = np.argsort(owner, kind="stable")
+    rank = np.empty(n, np.int64)
+    starts = np.searchsorted(owner[order], np.arange(shards + 1))
+    rank[order] = np.arange(n) - starts[owner[order]]
+    want = np.where((rank < cap) & (owner < shards), owner * cap + rank, -1)
+    np.testing.assert_array_equal(cell.numpy(), want)
+    ok = want >= 0
+    flat_home = np.zeros(shards * cap, np.int32)
+    flat_home[want[ok]] = homes[ok]
+    np.testing.assert_array_equal(b_home.numpy().ravel(), flat_home)
+    flat_qfp = np.full(shards * cap, 65535, np.uint16)
+    flat_qfp[want[ok]] = qfp[ok]
+    np.testing.assert_array_equal(
+        b_qfp.view(torch.int16).numpy().view(np.uint16).ravel(), flat_qfp)
+
+
 @pytest.mark.parametrize("mode", ["aa", "dna"])
 def test_routed_backend_reports_equal_jax(corpus, mode):  # noqa: F811
     """``--backend routed`` over all eight devices and at ``--mesh 1x4``:

@@ -167,6 +167,67 @@ def test_cpu_wrapper_runs_the_twin_and_checks_inputs():
     assert empty[0].numel() == 0 and empty[1].shape == (0, 7)
 
 
+def _ragged_offsets(seed, c=300):
+    """int64 offsets of ``c`` containers of seeded lengths, with ties and
+    empty ones."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([0, 1, 5, 5, 40, 300, int(rng.integers(0, 4096))], c)
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                            .astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_length_order_covers_every_container_once_longest_first(seed):
+    """The kernel's order of containers: a permutation of the batch, by
+    decreasing length, ties in batch order."""
+    offsets = _ragged_offsets(seed)
+    order = scan_machine.length_order(offsets)
+    assert order.dtype == torch.int32
+    lens = (offsets[1:] - offsets[:-1]).numpy()
+    o = order.numpy()
+    assert sorted(o.tolist()) == list(range(len(lens)))
+    assert (np.diff(lens[o]) <= 0).all()
+    for length in np.unique(lens):
+        tie = o[lens[o] == length]
+        assert (np.diff(tie) > 0).all()
+    assert scan_machine.length_order(offsets[:1]).numel() == 0
+
+
+def test_twin_results_do_not_depend_on_the_order():
+    """The order only schedules the kernel: the wrapper's results on the
+    CPU are the twin's for the length order, the batch order, its reverse
+    and a random permutation."""
+    rng = random.Random(12)
+    hits, offsets = scan_machine.pack_containers(
+        [_random_container(rng, rng.randint(0, 60), 3, 400)
+         for _ in range(40)])
+    h, o = torch.from_numpy(hits), torch.from_numpy(offsets)
+    kw = dict(min_hits=2, min_weighted=0, max_gap=40, order_constraint=False)
+    want = scan_machine.scan_containers_reference(h, o, **kw)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(40)
+                            .astype(np.int32))
+    for order in (None, scan_machine.length_order(o),
+                  torch.arange(40, dtype=torch.int32),
+                  torch.arange(39, -1, -1, dtype=torch.int32), perm):
+        got = scan_machine.scan_containers(h, o, order=order, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("bad", ["int64", "short", "2d", "strided"])
+def test_wrapper_refuses_a_bad_order(bad):
+    rng = random.Random(13)
+    hits, offsets = scan_machine.pack_containers(
+        [_random_container(rng, 10, 2, 100) for _ in range(6)])
+    good = scan_machine.length_order(torch.from_numpy(offsets))
+    order = {"int64": good.long(), "short": good[:5],
+             "2d": good.view(2, 3),
+             "strided": torch.arange(12, dtype=torch.int32)[::2]}[bad]
+    with pytest.raises(KernelError):
+        scan_machine.scan_containers(
+            torch.from_numpy(hits), torch.from_numpy(offsets), order=order,
+            min_hits=2, min_weighted=0, max_gap=30, order_constraint=False)
+
+
 def _host_lines(containers, p):
     """The exact host machine's CALL lines a container and OTU counter."""
     lines, oi = [], []
