@@ -92,14 +92,15 @@ failure and then prints no result):
 12. the fused device path (``--backend spmd``: one launch a batch of the
    fused kernel, csrc/fused_probe.cu: k-mer windows and the tile-join
    kernel's first event) and the device prepare (``--prepare jax``: the
-   values entry of the window kernel, csrc/kmer_windows.cu) on the card:
+   ragged entry of the window kernel, csrc/kmer_windows.cu) on the card:
    the CLI with ``--backend spmd`` reproduces golden_aa_full on the
    proteome and golden_dna_full on the genome (a contig past LONG_NT: the
    windowed entry); on phase 4's table the proteome through ``--backend
    spmd`` and through ``--prepare jax --backend xla`` gives phase 4's cuda
-   report, and phase 7's read set through ``--backend spmd`` phase 7's
-   report; each spmd run launches the fused kernel and nothing else (the
-   values entry and B1 for ``--prepare jax``). Then three rounds of cold
+   report, and phase 7's read set through ``--prepare jax --backend xla``
+   and through ``--backend spmd`` phase 7's report; each spmd run launches
+   the fused kernel and nothing else (the ragged entry and B1 for
+   ``--prepare jax``, whose calls a spy keeps). Then three rounds of cold
    runs in turns (the engine's caches emptied before each): the proteome
    through spmd and xla, the read set through spmd, auto and xla. Last,
    at the real launch shapes (a proteome bucket batch, a read batch and
@@ -109,7 +110,12 @@ failure and then prints no result):
    the bound; then the fused kernel against its twin and against the
    window kernel followed by B1, every off and state equal, with its
    device time a launch in turns with theirs, its twin's time and its
-   bound (``bound_fused_step``);
+   bound (``bound_fused_step``); and the ragged entry on every call of
+   the two ``--prepare jax`` runs, each equal to its twin, with the device
+   time of a whole prepare (its calls' two kernels each, summed), the
+   twin's and the bound (``bound_ragged``), beside the device time of the
+   padded values entry on the launches the JAX prepare's batching makes
+   of the same input (the parent commit's device prepare);
 13. the multi-device modes on phase 4's table (parallel/: the mesh, the
    shard probe B12 csrc/shard_probe.cu, the routing bins B13
    csrc/route_bins.cu). Through the CLI at ``--mesh 1x1``: the proteome
@@ -133,7 +139,9 @@ failure and then prints no result):
    against their twins on the card, exact, with their device times, the
    twins' and their bounds, and beside B13's binning the device time of
    ``torch.argsort(owner, stable=True)`` on the same owners (its library
-   call, timed only); and, each call taken by a spy on its wrapper,
+   call, timed only) and beside the un-binning two ``torch.index_select``
+   of the back buffers by the cells (its library calls, timed and held
+   against it); and, each call taken by a spy on its wrapper,
    the fused kernel's shard form in the (2, 2) spmd step on phase 12's
    proteome bucket batch and read batch (a data slice's rows against a
    table shard), equal to its twin and to the window kernel followed by
@@ -178,21 +186,29 @@ name, source, the TPU kernel it replaces, its launches on its path (phase
 4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
 kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather, phase 12's
-``--prepare jax`` run for the window kernel (its values entry), phase
+proteome ``--prepare jax`` run for the window kernel (its ragged entry's
+calls; the read set's beside them), phase
 12's sparse proteome spmd run for the fused kernel (its (2, 2) run in
 phase 13 beside it), phase 13's sharded (2, 2) run for B12 and routed run
 for B13, phase 14's proteome run for B11), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
-phase 7's pass; phases 8, 9 and 10; phase 12's proteome bucket batch for
-the window kernel's values entry and the fused kernel, the latter with
+phase 7's pass; phases 8, 9 and 10; phase 12's proteome prepare's calls
+for the window kernel's ragged entry (the read set's and the padded
+entry's beside it), its proteome bucket batch for the fused kernel, with
 the window kernel plus B1 beside it and its (2, 2) position's time;
 phase 13's shapes; phase 14's proteome batch),
-the bound and share at those shapes,
-and ``library_ms``: B13's ``torch.argsort`` beside its binning, null for
-the others (no single PyTorch call computes a first-event window probe,
-a shard's first match or the grouping machine); the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+how they were timed (``timed_by``: ``trace``, the kernel records of a
+torch.profiler trace; ``events``, CUDA events around launches back to
+back; ``events_per_run``, CUDA events around each run where every trace
+of one of the entry's figures lost its kernel records, launch gaps and
+host syncs included; a kernel and its yardstick are timed the same way),
+the bound and share at those shapes (no share for ``events_per_run``),
+and ``library_ms``: B13's ``torch.argsort`` beside its binning (and its
+``index_select`` pair beside the un-binning), null for the others (no
+single PyTorch call computes a first-event window probe, a shard's first
+match or the grouping machine); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 import contextlib
 import gzip
@@ -275,13 +291,14 @@ def kernel_modules():
 
 def reset_counts():
     """Every kernel's launch count to 0 (the repetition launch's, the
-    window kernel's values entry's and the routing bins' un-binning
-    entry's too)."""
+    window kernel's padded values and ragged entries' and the routing
+    bins' un-binning entry's too)."""
     mods = kernel_modules()
     for m in mods.values():
         m.launches = 0
     mods["stream"].reps_launches = 0
     mods["kmer_windows"].values_launches = 0
+    mods["kmer_windows"].ragged_launches = 0
     mods["route_bins"].unbin_launches = 0
 
 
@@ -290,6 +307,7 @@ def read_counts():
     got = {name: m.launches for name, m in mods.items()}
     got["stream_reps"] = mods["stream"].reps_launches
     got["kmer_values"] = mods["kmer_windows"].values_launches
+    got["kmer_ragged"] = mods["kmer_windows"].ragged_launches
     got["route_unbin"] = mods["route_bins"].unbin_launches
     return got
 
@@ -331,9 +349,64 @@ def timed(fn, dev, reps=5):
 
 
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+# A torch.profiler trace can come back without its kernel records: in this
+# script's runs from phase 12 on, in some runs every trace. A trace widened
+# by idle host time before and after its runs keeps them more often, so a
+# trace that lost them is taken again with TRACE_PAD_S widened (0.1, 0.4,
+# 1.6 s; the widest that kept its runs stays for later traces; at 1.6 s
+# about one trace in three lost them), and after TRACE_MAX_PAD_TRIES
+# losses at TRACE_PAD_MAX_S the runs are timed by CUDA events around each
+# (event_runs_ms). The key of a figure timed so goes into EVENT_TIMED: its
+# kernels-line entry says "timed_by": "events_per_run" and gives no share.
+TRACE_PAD_S = [0.0]
+TRACE_PAD_MAX_S = 1.6
+TRACE_MAX_PAD_TRIES = 3
+EVENT_TIMED = set()
 
 
-def kernel_device_ms(run, dev, marker, reps=5):
+def traced(take, what):
+    """``take(pad)`` (one trace, ``pad`` seconds idle before and after its
+    runs, raising RuntimeError when it lost its kernel records) until a
+    trace keeps its runs, widening TRACE_PAD_S after each loss. Returns its
+    result, or None after TRACE_MAX_PAD_TRIES losses at TRACE_PAD_MAX_S."""
+    widest_lost = 0
+    while True:
+        pad = TRACE_PAD_S[0]
+        try:
+            got = take(pad)
+        except RuntimeError as ex:
+            print(f"{what}: trace lost at pad {pad} s: {ex}", flush=True)
+            if pad >= TRACE_PAD_MAX_S:
+                widest_lost += 1
+                if widest_lost == TRACE_MAX_PAD_TRIES:
+                    return None
+            TRACE_PAD_S[0] = min(TRACE_PAD_MAX_S, max(0.1, 4 * pad))
+            continue
+        if pad:
+            print(f"{what}: trace kept at pad {pad} s", flush=True)
+        return got
+
+
+def timed_by(*keys):
+    """A kernels-line entry's timing: "events_per_run" when any of its
+    figures (by their kernel_device_ms / library_device_ms keys) fell back
+    to event_runs_ms in this run, else "trace"."""
+    return "events_per_run" if EVENT_TIMED & set(keys) else "trace"
+
+
+def same_timing(*timers):
+    """Each ``timer(events)`` -> (ms, kept), in order (a kernel and its
+    yardstick, or turns); when some fell back to events (kept 0 or None)
+    and others did not, all of them again by events, so that the figures
+    compared are timed the same way."""
+    got = [t(False) for t in timers]
+    lost = [not kept for _, kept in got]
+    if any(lost) and not all(lost):
+        got = [t(True) for t in timers]
+    return got
+
+
+def kernel_device_ms(run, dev, marker, reps=5, key=None, events=False):
     """Device milliseconds of each kernel whose name holds ``marker`` (or
     one of a tuple of markers), in the order one ``run()`` launches them,
     averaged over ``reps`` runs:
@@ -345,36 +418,65 @@ def kernel_device_ms(run, dev, marker, reps=5):
     kernels (an add over the buffer) split the trace into runs on the
     device's own clock. The tracer can drop a kernel's record: a run that
     does not show the most common count is left out, and a trace that
-    keeps fewer than half of the runs is taken again (three traces at
-    most). Returns (the milliseconds, the number of runs kept)."""
+    keeps fewer than half of the runs is taken again (traced). With
+    ``events``, or when no trace kept its runs, the runs are timed by CUDA
+    events around each instead (event_runs_ms: one time a run, launch gaps
+    and host syncs included) and ``key`` (by default the marker) goes into
+    EVENT_TIMED. Returns (the milliseconds, the number of runs kept: 0
+    when timed by events)."""
     import torch
 
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     run()  # warm-up
     torch.cuda.synchronize(dev)
-    for attempt in range(3):
-        try:
-            return _traced_runs(run, dev, marker, reps, flush)
-        except RuntimeError as ex:
-            print(f"kernel_device_ms: trace {attempt + 1} of 3: {ex}",
-                  flush=True)
-    raise RuntimeError(f"no whole trace of {marker} kernels in 3 tries")
+    got = None if events else traced(
+        lambda pad: _traced_runs(run, dev, marker, reps, flush, pad),
+        f"kernel_device_ms of {marker}")
+    if got is not None:
+        return got
+    EVENT_TIMED.add(marker if key is None else key)
+    return [event_runs_ms(run, dev, marker, reps, flush)], 0
 
 
-def _traced_runs(run, dev, marker, reps, flush):
-    """One torch.profiler trace of ``reps`` flushed runs; see
-    kernel_device_ms."""
+def event_runs_ms(run, dev, what, reps, flush):
+    """Mean milliseconds of ``reps`` flushed runs of ``run()`` by CUDA
+    events around each (the fallback of kernel_device_ms and
+    library_device_ms): the run's kernels and the gaps between their
+    launches."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        flush.add_(1)
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize(dev)
+        total += start.elapsed_time(end)
+    print(f"device_ms of {what}: timed by CUDA events around each run",
+          flush=True)
+    return total / reps
+
+
+def _traced_runs(run, dev, marker, reps, flush, pad):
+    """One torch.profiler trace of ``reps`` flushed runs, ``pad`` seconds
+    idle before and after them; see kernel_device_ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     markers = (marker,) if isinstance(marker, str) else tuple(marker)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
         for _ in range(reps):
             flush.add_(1)  # a kernel (a fill can become a memset)
             torch.cuda.synchronize(dev)
             run()
             torch.cuda.synchronize(dev)
+        time.sleep(pad)
     with tempfile.TemporaryDirectory(prefix="kmer_trace_") as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -482,6 +584,8 @@ def check_chunks(dev, label, fp, w, chunks, run, chunk):
         states += np.bincount(host(st), minlength=3)
     reps = 5
     ms, kept = kernel_device_ms(run, dev, "first_event", reps)
+    if len(ms) != len(chunks):  # timed by events: the dispatches' mean
+        ms = [ms[0] / len(chunks)] * len(chunks)
     full = [m for m, (_, h) in zip(ms, chunks) if h.numel() == chunk]
     k_ms = sum(full) / len(full)
     call_ms = timed(lambda: [tilejoin.tilejoin_probe(fp, q, h, w)
@@ -1602,7 +1706,8 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
         print(f"phase 12: B1 on the window kernel's {label} windows={n} "
               f"pw={pw} states(0/1/2)={states} max_abs_err={e1}", flush=True)
         del off_k, st_k, off_t, st_t
-        ms, kept = kernel_device_ms(run, dev, "windows_kernel")
+        ms, kept = kernel_device_ms(run, dev, "windows_kernel",
+                                    key=f"windows {label}")
         t_ms = timed(lambda: kw.windows_reference(a, c, aa, num_sigs, *ex),
                      dev)
         in_b = mat.nbytes + counts.nbytes + sum(x.nbytes for x in extra or ())
@@ -1610,7 +1715,8 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
         values, vals = "", (None, None, None)
         if extra is None:  # the values entry (--prepare jax) at this shape
             v_ms, _ = kernel_device_ms(lambda: kw.window_values(a, c, aa),
-                                       dev, "windows_kernel")
+                                       dev, "windows_kernel",
+                                       key=f"windows {label}")
             v_t_ms = timed(lambda: kw.windows_reference(a, c, aa), dev)
             v_bnd = bound_kmer_windows(in_b, n, 8)
             vals = (v_ms[0], v_t_ms, v_bnd)
@@ -1640,12 +1746,12 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
                     for other in views[1:] for k in range(2))
         f_states = torch.bincount(views[0][1].long(), minlength=3).tolist()
         del views
-        turns = []
-        for _ in range(2):
-            turns.append(kernel_device_ms(fused_run, dev,
-                                          "fused_probe_kernel")[0])
-            turns.append(kernel_device_ms(two_launches, dev, (
-                "windows_kernel", "first_event_kernel"))[0])
+        turns = [t for t, _ in same_timing(*[
+            lambda ev: kernel_device_ms(fused_run, dev, "fused_probe_kernel",
+                                        key=f"fused {label}", events=ev),
+            lambda ev: kernel_device_ms(two_launches, dev, (
+                "windows_kernel", "first_event_kernel"),
+                key=f"fused {label}", events=ev)] * 2)]
         f_ms = (turns[0][0] + turns[2][0]) / 2
         two_ms = (sum(turns[1]) + sum(turns[3])) / 2
         f_t_ms = timed(lambda: fp.first_event_reference(
@@ -1665,16 +1771,131 @@ def window_kernel_vs_twin(dev, batches, plane, pw):
     return res, fused, b1_err
 
 
+def padded_prepare_batches(path, aa):
+    """The padded values launches that the JAX prepare's batching makes of
+    ``path`` (the parent commit's device prepare): 512 proteins a
+    power-of-two length bucket of 256 and up (rows and num_starts), or
+    contigs in turn at Lpad = 3 * next_pow2(max(len // 3 + 1, 16)) up to
+    MAX_CELLS cells (rows and lengths). Returns [(rows u8, counts
+    int32)]."""
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.constants import K
+    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
+    from kmergutsjava_tpu_torch.models.prepare import (MAX_CELLS,
+                                                       BucketQueue,
+                                                       _next_pow2)
+
+    out = []
+    if aa:
+        queue = BucketQueue(512, 256)
+        for i, rec in enumerate(read_fasta(path)):
+            b = queue.add(i, np.frombuffer(rec.seq.encode("latin-1"),
+                                           np.uint8))
+            if b is not None:
+                out.append(b)
+        out += list(queue.drain())
+        return [(mat, (lens - K).astype(np.int32)) for _, mat, lens in out]
+    rows, width = [], 0
+    for rec in read_fasta(path):
+        a = np.frombuffer(rec.seq.encode("latin-1"), np.uint8)
+        lpad = 3 * _next_pow2(max(len(a) // 3 + 1, 16))
+        if rows and (len(rows) + 1) * max(width, lpad) > MAX_CELLS:
+            out.append((rows, width))
+            rows, width = [], 0
+        rows.append(a)
+        width = max(width, lpad)
+    out.append((rows, width))
+    batches = []
+    for rows, width in out:
+        mat = np.zeros((len(rows), width), np.uint8)
+        for i, a in enumerate(rows):
+            mat[i, :len(a)] = a
+        batches.append((mat, np.array([len(a) for a in rows], np.int32)))
+    return batches
+
+
+def bound_ragged(n_bytes, rows, containers, valid, positions):
+    """The window kernel's ragged entry: the bytes and row bounds in once,
+    each valid window's value and position (12 B) and each container's
+    count (4 B) out once; 16 integer operations a position (packing and
+    its checks)."""
+    return bound(n_bytes + 4 * (rows + 1) + 12 * valid + 4 * containers,
+                 16 * positions)
+
+
+def ragged_vs_twin(dev, prepares, paths):
+    """Phase 12: the window kernel's ragged entry at the ``--prepare jax``
+    runs' own calls (taken by a spy on its wrapper: {cell: (aa, calls)}),
+    each call's values, positions and counts equal to the twin's on the
+    same inputs; the device time of a whole prepare's calls (the two
+    kernels of each, summed; kernel_device_ms, the L2 flushed before the
+    prepare), the twin's, the bound; and beside them the padded values
+    entry on the launches the JAX prepare's batching makes of the same
+    input (padded_prepare_batches, ``paths``), its device time summed.
+    Returns {cell: (max_abs_err, ms, twin_ms, bound, calls, kernel ms by
+    name (zero, pass), padded launches, padded ms)}."""
+    import torch
+
+    from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+
+    res = {}
+    for cell, (aa, calls) in prepares.items():
+        args = [a for a, _, _ in calls]
+        err = 0
+        for a, (values, pos, counts) in zip(args, (c for _, _, c in calls)):
+            want = kw.ragged_values_reference(*a)
+            if values.numel() != want[0].numel():
+                err = max(err, abs(values.numel() - want[0].numel()))
+                continue
+            for g, w in zip((values, pos, counts), want):
+                if g.numel():
+                    err = max(err, int((g.long() - w.long()).abs().max()))
+
+        def run():
+            return [kw.ragged_values(*a) for a in args]
+
+        padded = [tuple(torch.from_numpy(x).to(dev) for x in b)
+                  for b in padded_prepare_batches(paths[cell], aa)]
+        (ms, kept), (p_ms, _) = same_timing(
+            lambda ev: kernel_device_ms(run, dev, "ragged_", events=ev),
+            lambda ev: kernel_device_ms(
+                lambda: [kw.window_values(m, c, aa) for m, c in padded], dev,
+                "windows_kernel", key="padded values", events=ev))
+        each = len(ms) // len(args)  # kernels a call (0: timed by events)
+        by_kernel = [sum(ms[i::each]) for i in range(each)] or ms
+        t_ms = timed(lambda: [kw.ragged_values_reference(*a) for a in args],
+                     dev, reps=2)
+        n_bytes = sum(a[0].numel() for a in args)
+        rows = sum(a[1].numel() - 1 for a in args)
+        valid = sum(c[0].numel() for _, _, c in calls)
+        containers = sum(c[2].numel() for _, _, c in calls)
+        bnd = bound_ragged(n_bytes, rows, containers, valid,
+                           n_bytes if aa else 2 * n_bytes)
+        print(f"phase 12: ragged entry {cell} --prepare jax calls="
+              f"{len(args)} kernels={len(ms)} bytes={n_bytes} rows={rows} "
+              f"valid_windows={valid} max_abs_err={err} device_ms="
+              f"{sum(ms):.5f} by_kernel={[round(x, 5) for x in by_kernel]} "
+              f"(zero, pass) runs_kept={kept}/5 twin_ms={t_ms:.3f} "
+              f"{bound_fields(sum(ms), bnd)} padded_launches={len(padded)} "
+              f"padded_device_ms={sum(p_ms):.5f}", flush=True)
+        res[cell] = (err, sum(ms), t_ms, bnd, len(args), by_kernel,
+                     len(padded), sum(p_ms))
+        del padded
+    return res
+
+
 def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
     """Phase 12: the fused path (``--backend spmd``: one launch of the
     fused kernel a batch) and the device prepare (``--prepare jax``: the
     window kernel's values entry) on the card: the goldens, phase 4's and
     phase 7's reports, launches, cold wall times in turns against xla and
     auto, and the window kernel, B1 on its windows and the fused kernel
-    against their twins at the real launch shapes. Returns (the fused
-    kernel's launches on the sparse proteome's spmd run, the values
-    entry's on its ``--prepare jax`` run), window_kernel_vs_twin's
-    result)."""
+    against their twins at the real launch shapes; then the ragged entry
+    at the ``--prepare jax`` runs' own calls (ragged_vs_twin). Returns
+    ((the fused kernel's launches on the sparse proteome's spmd run,
+    {cell: the ragged entry's calls on its ``--prepare jax`` run}),
+    window_kernel_vs_twin's result, ragged_vs_twin's result)."""
     def read(path):
         with open(path, "rb") as fh:
             return fh.read()
@@ -1712,10 +1933,19 @@ def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
     print(f"phase 12: sparse proteome spmd fused_probe_launches="
           f"{fused_launches} (one a batch; window kernel "
           f"{counts['kmer_windows']}, B1 {counts['tilejoin']})", flush=True)
-    counts, _ = one("sparse proteome", big, faa, True,
-                    ("--prepare", "jax", "--backend", "xla"), want_aa,
-                    ("kmer_values", "tilejoin"))
-    launches = (fused_launches, counts["kmer_values"])
+    from kmergutsjava_tpu_torch.ops import kmer_windows
+
+    prepares, ragged_launches = {}, {}
+    for cell, query, aa, want in (("sparse proteome", faa, True, want_aa),
+                                  ("dense read set", reads, False,
+                                   want_reads)):
+        with spied(kmer_windows, "ragged_values", []) as calls:
+            counts, _ = one(cell, big, query, aa,
+                            ("--prepare", "jax", "--backend", "xla"), want,
+                            ("kmer_ragged", "tilejoin"))
+        prepares[cell] = (aa, calls)
+        ragged_launches[cell] = counts["kmer_ragged"]
+    launches = (fused_launches, ragged_launches)
     one("dense read set", big, reads, False, spmd, want_reads, spmd_kernels)
 
     # cold runs in turns: every run reads the table and builds its lookup
@@ -1734,7 +1964,9 @@ def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
         print(f"phase 12: cold wall_s {cell} backend={backend} {secs}",
               flush=True)
     batches = window_batches(prots, fna, reads)
-    return launches, window_kernel_vs_twin(dev, batches, plane, pw)
+    return (launches, window_kernel_vs_twin(dev, batches, plane, pw),
+            ragged_vs_twin(dev, prepares, {"sparse proteome": faa,
+                                           "dense read set": reads}))
 
 
 def run_engine(data_dir, query, out_path, aa=True, **cfg):
@@ -1816,24 +2048,44 @@ def route_owners(h, n_valid, s_loc, shards):
     return owner
 
 
-def library_device_ms(run, dev, reps=5):
+def library_device_ms(run, dev, reps=5, key="library", events=False):
     """Device milliseconds of every kernel one ``run()`` of a library call
     launches (whatever their names), summed, over ``reps`` runs after a
     warm-up: a torch.profiler trace in which a 256 MB bitwise-not, which
-    also evicts the L2, parts the runs. Returns (ms, kernels a run)."""
+    also evicts the L2, parts the runs. A trace that lost kernel records
+    is taken again, and ``events`` or a loss at TRACE_PAD_MAX_S times the
+    runs by events, ``key`` going into EVENT_TIMED, as in
+    kernel_device_ms. Returns (ms, kernels a run: None when timed by
+    events)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     run()
     torch.cuda.synchronize(dev)
+    got = None if events else traced(
+        lambda pad: _traced_library_runs(run, dev, reps, flush, pad),
+        f"library_device_ms of {key}")
+    if got is not None:
+        return got
+    EVENT_TIMED.add(key)
+    return event_runs_ms(run, dev, key, reps, flush), None
+
+
+def _traced_library_runs(run, dev, reps, flush, pad):
+    """One torch.profiler trace of ``reps`` flushed runs of a library call,
+    ``pad`` seconds idle before and after them; see library_device_ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
         for _ in range(reps):
             flush.bitwise_not_()
             torch.cuda.synchronize(dev)
             run()
             torch.cuda.synchronize(dev)
+        time.sleep(pad)
     with tempfile.TemporaryDirectory(prefix="kmer_trace_") as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -2024,7 +2276,8 @@ def mesh_kernels_vs_twins(dev, big, faa):
                                                  s_loc, pw)
         torch.cuda.synchronize(dev)
         err = int((got.long() - twin.long()).abs().max())
-        ms, kept = kernel_device_ms(run, dev, "shard_probe_kernel")
+        ms, kept = kernel_device_ms(run, dev, "shard_probe_kernel",
+                                    key=f"B12 shard {t}")
         t_ms = timed(lambda: shard_probe.shard_probe_reference(
             plane, q, h, t * s_loc, s_loc, pw), dev)
         bnd = bound_shard_probe(h, got, t * s_loc, s_loc, pw)
@@ -2050,12 +2303,14 @@ def mesh_kernels_vs_twins(dev, big, faa):
     twin = route_bins.bins_reference(q, h, n_valid, r_s_loc, shards, cap)
     torch.cuda.synchronize(dev)
     err = max(int((_u(a) - _u(b)).abs().max()) for a, b in zip(got, twin))
-    ms, kept = kernel_device_ms(bins, dev, "route_")
+    owner = route_owners(h, n_valid, r_s_loc, shards)
+    (ms, kept), (lib_ms, lib_kernels) = same_timing(
+        lambda ev: kernel_device_ms(bins, dev, "route_", events=ev),
+        lambda ev: library_device_ms(
+            lambda: torch.argsort(owner, stable=True), dev, key="argsort",
+            events=ev))
     t_ms = timed(lambda: route_bins.bins_reference(q, h, n_valid, r_s_loc,
                                                    shards, cap), dev)
-    owner = route_owners(h, n_valid, r_s_loc, shards)
-    lib_ms, lib_kernels = library_device_ms(
-        lambda: torch.argsort(owner, stable=True), dev)
     bnd = bound_route_bins(n_loc, shards * cap)
     print(f"phase 13: B13 bins shard 0 of {shards} queries={n_loc} "
           f"cap={cap} overflow={int((got[2] < 0).sum())} max_abs_err={err} "
@@ -2078,14 +2333,30 @@ def mesh_kernels_vs_twins(dev, big, faa):
     torch.cuda.synchronize(dev)
     err = max(int((a.int() - b.int()).abs().max())
               for a, b in zip(got, twin))
-    ms, kept = kernel_device_ms(unbin, dev, "route_unbin")
     t_ms = timed(lambda: route_bins.unbin_reference(cell, back[0], back[1]),
                  dev)
     bnd = bound_route_unbin(n_loc, int((cell >= 0).sum()))
+    timers = [lambda ev: kernel_device_ms(unbin, dev, "route_unbin",
+                                          events=ev)]
+    # its library yardstick: each output one index_select of the back
+    # buffer by the cells (the same function where no query overflows)
+    if int((cell < 0).sum()) == 0:
+        def take():
+            return (torch.index_select(back[0], 0, cell),
+                    torch.index_select(back[1], 0, cell))
+
+        err = max([err] + [int((a.int() - b.int()).abs().max())
+                           for a, b in zip(take(), got)])
+        timers.append(lambda ev: library_device_ms(
+            take, dev, key="index_select", events=ev))
+    (ms, kept), *lib = same_timing(*timers)
+    lib_ms = lib[0][0] if lib else None
     print(f"phase 13: B13 unbin shard 0 of {shards} queries={n_loc} "
           f"max_abs_err={err} device_ms={ms[0]:.5f} runs_kept={kept}/5 "
-          f"twin_ms={t_ms:.4f} {bound_fields(ms[0], bnd)}", flush=True)
-    res["route_unbin"] = (err, ms[0], t_ms, bnd)
+          f"twin_ms={t_ms:.4f} library_ms={lib_ms} (two index_select of "
+          f"the back buffers by cell) {bound_fields(ms[0], bnd)}",
+          flush=True)
+    res["route_unbin"] = (err, ms[0], t_ms, bnd, lib_ms)
     return res
 
 
@@ -2193,15 +2464,16 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
         # the device time of one position's launch, in the step's order
         # (each position's on its own card), in turns with the two launches
         mine_calls = [c for c in calls if c[0][0].device == devs[0]]
-        turns = []
-        for _ in range(2):
-            turns.append(kernel_device_ms(
+        turns = [t for t, _ in same_timing(*[
+            lambda ev: kernel_device_ms(
                 lambda: [fused_probe.shard_first_match(*a)
                          for a, _, _ in mine_calls],
-                devs[0], "fused_probe_kernel")[0])
-            turns.append(kernel_device_ms(
+                devs[0], "fused_probe_kernel", key=f"fused shard {label}",
+                events=ev),
+            lambda ev: kernel_device_ms(
                 lambda: [two_launches(*a) for a, _, _ in mine_calls],
-                devs[0], ("windows_kernel", "shard_probe_kernel"))[0])
+                devs[0], ("windows_kernel", "shard_probe_kernel"),
+                key=f"fused shard {label}", events=ev)] * 2)]
         k_ms = (sum(turns[0]) + sum(turns[2])) / (2 * len(mine_calls))
         two_ms = (sum(turns[1]) + sum(turns[3])) / (2 * len(mine_calls))
         t_ms = timed(lambda: [fused_probe.shard_first_match_reference(*a)
@@ -2388,7 +2660,7 @@ def scan_phase(dev, work, corpus, faa, fna, big, reads):
                   if bool(emit.any()) else 0)
         order = sm.length_order(offsets)
         order_ms, _ = library_device_ms(lambda: sm.length_order(offsets),
-                                        dev)
+                                        dev, key="length_order")
         ms, kept = kernel_device_ms(
             lambda: sm.scan_containers(hits, offsets, order=order, **kw),
             dev, "scan_machine_kernel")
@@ -2576,12 +2848,16 @@ def _u(x):
     return _widen(x).long() if x.dtype == torch.uint16 else x.long()
 
 
-def kernel_bound(ms, bnd):
-    """A kernel entry's bound, share and library call (none: no single
-    PyTorch call computes a first-event window probe, an 8-mer's value,
-    home or fingerprint from ASCII rows, a shard's first-match probe or
-    the call-grouping state machine; B13's entry sets its own)."""
-    return {"bound_ms": bnd[0], "bound_by": bnd[1], "share": bnd[0] / ms,
+def kernel_bound(ms, bnd, by):
+    """A kernel entry's timing (``by``: "trace", "events" for CUDA events
+    around reps launched back to back, or timed_by's "events_per_run"),
+    bound, share (none for events_per_run: launch gaps and host syncs are
+    in its times) and library call (none: no single PyTorch call computes
+    a first-event window probe, an 8-mer's value, home or fingerprint from
+    ASCII rows, a shard's first-match probe or the call-grouping state
+    machine; B13's entry sets its own)."""
+    return {"timed_by": by, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "share": None if by == "events_per_run" else bnd[0] / ms,
             "library_ms": None}
 
 
@@ -2681,8 +2957,8 @@ def main() -> int:
         if g_err != 0:
             return fail("lane-gather kernel and twin disagree")
         service_phase(work, big, faa, prots, w1, tj_launches)
-        (fused_launches, kv_launches), (kw_cmp, fused_cmp, kw_b1_err) = \
-            spmd_phase(dev, work, corpus, faa,
+        ((fused_launches, kr_launches), (kw_cmp, fused_cmp, kw_b1_err),
+         kr_cmp) = spmd_phase(dev, work, corpus, faa,
                        os.path.join(work, "genome.fna"), big,
                        os.path.join(work, "reads.fna"), prots, spmd_plane,
                        spmd_pw)
@@ -2697,9 +2973,19 @@ def main() -> int:
             if e != 0:
                 return fail(f"the fused kernel disagrees with its twin or "
                             f"the window kernel and B1 on {label}")
-        # the window kernel's line: its values entry (--prepare jax, the
-        # path that launches it) at the proteome bucket batch
+        for cell, (e, *_) in kr_cmp.items():
+            if e != 0:
+                return fail(f"the window kernel's ragged entry and its twin "
+                            f"disagree on the {cell}'s prepare")
+        if kr_launches["sparse proteome"] >= kr_cmp["sparse proteome"][6]:
+            return fail(f"the sparse proteome's --prepare jax took "
+                        f"{kr_launches['sparse proteome']} calls of the "
+                        f"ragged entry, not fewer than the "
+                        f"{kr_cmp['sparse proteome'][6]} padded launches")
+        # the window kernel's line: its ragged entry (--prepare jax, the
+        # path that launches it) over the sparse proteome's prepare
         kw_row = next(iter(kw_cmp.values()))
+        kr_row, kr_reads = kr_cmp["sparse proteome"], kr_cmp["dense read set"]
         f_row = next(iter(fused_cmp.values()))
         t13 = time.time()
         b12_launches, (b13_launches, unbin_launches), spmd_mesh_launches = \
@@ -2745,7 +3031,7 @@ def main() -> int:
         "home_order_ms": b1_home_ms,
         "call_ms": call_ms,
         "plain_ms": t_ms,
-        **kernel_bound(k_ms, tj_bnd),
+        **kernel_bound(k_ms, tj_bnd, timed_by("first_event")),
     }, {
         "name": "stream_probe",
         "route": "cuda",
@@ -2755,7 +3041,7 @@ def main() -> int:
         "max_abs_err": max([s_err] + [r[0] for r in s_cmp.values()]),
         "ms": s_ms,
         "plain_ms": s_plain_ms,
-        **kernel_bound(s_ms, s_bnd),
+        **kernel_bound(s_ms, s_bnd, "events"),
     }, {
         "name": "block_probe",
         "route": "cuda",
@@ -2765,7 +3051,7 @@ def main() -> int:
         "max_abs_err": bp_err,
         "ms": bp_ms,
         "plain_ms": bp_plain_ms,
-        **kernel_bound(bp_ms, bp_bnd),
+        **kernel_bound(bp_ms, bp_bnd, "events"),
     }, {
         "name": "stream_probe_reps",
         "route": "cuda",
@@ -2775,7 +3061,7 @@ def main() -> int:
         "max_abs_err": r_err,
         "ms": r_ms,
         "plain_ms": r_plain_ms,
-        **kernel_bound(r_ms, r_bnd),
+        **kernel_bound(r_ms, r_bnd, "events"),
     }, {
         "name": "tjgather_probe",
         "route": "cuda",
@@ -2785,19 +3071,30 @@ def main() -> int:
         "max_abs_err": g_err,
         "ms": g_ms,
         "plain_ms": g_plain_ms,
-        **kernel_bound(g_ms, g_bnd),
+        **kernel_bound(g_ms, g_bnd, "events"),
     }, {
         "name": "kmer_windows",
         "route": "cuda",
         "source": "kmergutsjava_tpu_torch/csrc/kmer_windows.cu",
         "replaces": "kmergutsjava_tpu/models/prepare.py:100 (:121), "
                     ":285 (:302); kmergutsjava_tpu/ops/kmerize.py:29",
-        "launches": kv_launches,
-        "max_abs_err": max(r[0] for r in kw_cmp.values()),
-        "ms": kw_row[4],
-        "plain_ms": kw_row[5],
+        "launches": kr_launches["sparse proteome"],
+        "max_abs_err": max([r[0] for r in kw_cmp.values()]
+                           + [r[0] for r in kr_cmp.values()]),
+        "ms": kr_row[1],
+        "plain_ms": kr_row[2],
+        "by_kernel_ms": kr_row[5],
+        "padded_launches": kr_row[6],
+        "padded_ms": kr_row[7],
+        "read_set_launches": kr_launches["dense read set"],
+        "read_set_ms": kr_reads[1],
+        "read_set_padded_launches": kr_reads[6],
+        "read_set_padded_ms": kr_reads[7],
+        "read_set_bound_ms": kr_reads[3][0],
+        "bucket_batch_padded_ms": kw_row[4],
         "homes_entry_ms": kw_row[1],
-        **kernel_bound(kw_row[4], kw_row[6]),
+        **kernel_bound(kr_row[1], kr_row[3], timed_by(
+            "ragged_", "padded values", f"windows {next(iter(kw_cmp))}")),
     }, {
         "name": "fused_probe",
         "route": "cuda",
@@ -2814,7 +3111,9 @@ def main() -> int:
         "two_launch_ms": f_row[4],
         "shard_ms": next(iter(shard_cmp.values()))[0],
         "shard_two_launch_ms": next(iter(shard_cmp.values()))[3],
-        **kernel_bound(f_row[1], f_row[3]),
+        **kernel_bound(f_row[1], f_row[3], timed_by(
+            f"fused {next(iter(fused_cmp))}",
+            f"fused shard {next(iter(shard_cmp))}")),
     }, {
         "name": "shard_probe",
         "route": "cuda",
@@ -2825,7 +3124,8 @@ def main() -> int:
         "ms": mesh_cmp["shard_probe"][1],
         "plain_ms": mesh_cmp["shard_probe"][2],
         **kernel_bound(mesh_cmp["shard_probe"][1],
-                       mesh_cmp["shard_probe"][3]),
+                       mesh_cmp["shard_probe"][3],
+                       timed_by("B12 shard 0")),
     }, {
         "name": "route_bins",
         "route": "cuda",
@@ -2841,9 +3141,12 @@ def main() -> int:
         "plain_ms": mesh_cmp["route_bins"][2],
         "unbin_plain_ms": mesh_cmp["route_unbin"][2],
         **kernel_bound(mesh_cmp["route_bins"][1],
-                       mesh_cmp["route_bins"][3]),
+                       mesh_cmp["route_bins"][3],
+                       timed_by("route_", "argsort", "route_unbin",
+                                "index_select")),
         "library_ms": mesh_cmp["route_bins"][4],
         "unbin_bound_ms": mesh_cmp["route_unbin"][3][0],
+        "unbin_library_ms": mesh_cmp["route_unbin"][4],
     }, {
         "name": "scan_machine",
         "route": "cuda",
@@ -2859,7 +3162,8 @@ def main() -> int:
         / scan_cmp["sparse proteome"][4],
         "order_ms": scan_cmp["sparse proteome"][5],
         **kernel_bound(scan_cmp["sparse proteome"][1],
-                       scan_cmp["sparse proteome"][3]),
+                       scan_cmp["sparse proteome"][3],
+                       timed_by("scan_machine_kernel", "length_order")),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

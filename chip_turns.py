@@ -2,12 +2,15 @@
 """Sources of the sparse first-event probe (B1, csrc/tilejoin.cu) timed
 against each other in turns on one NVIDIA GPU, at the engine's cases: the
 source of PERF.md's in-turns tables for B1, the fused step's kernel, the
-grouping kernel (B11) and the routing bins (B13).
+grouping kernel (B11), the routing bins (B13), the device prepare's values
+entry (B8) and the shard probe (B12).
 
     python3 chip_turns.py --variant parent=build/parent/tilejoin.cu \\
         [--variant LABEL=PATH ...] [--b3 LABEL=PATH ...] \\
         [--fused LABEL=PATH ...] [--scan LABEL=PATH ...] \\
-        [--route LABEL=PATH ...] [--no-b1] [--rounds 2] [--out turns.json]
+        [--route LABEL=PATH ...] [--values LABEL=PATH ...] \\
+        [--budgets BYTES,...] [--shard LABEL=PATH ...] [--no-b1] \\
+        [--walls] [--rounds 2] [--out turns.json]
 
 The repository's csrc/tilejoin.cu is the variant ``new``; each
 ``--variant`` is another source with the same C entry, such as the parent
@@ -26,10 +29,20 @@ whose entry takes no ``order``, such as the parent commit's, is called in
 its own form) and ``--route`` sources of the routing bins
 (csrc/route_bins.cu, ``new``, through the wrapper), the latter in turns
 with ``torch.argsort(owner, stable=True)`` on the same owners (``argsort``,
-the library yardstick); ``--no-b1`` builds, checks and times no B1
-source; ``--walls`` also runs the CLI with ``--grouping scan`` on the
-proteome and the read set with each ``--scan`` source in turns, for the
-wall and Grouping times.
+the library yardstick); ``--values`` sources of the window kernel
+(csrc/kmer_windows.cu, ``new``): one with the ragged entry is timed over
+the calls a whole ``--prepare jax`` prepare of the proteome and of the
+read set makes (at each launch budget of ``--budgets``, in bytes: the
+tree's VALUES_LAUNCH_BYTES by default), one without it (the parent
+commit's) over the padded launches of the JAX prepare's batching of the
+same input (chip_smoke.padded_prepare_batches); ``--shard`` sources of
+the shard probe (csrc/shard_probe.cu, ``new``, through the wrapper);
+``--no-b1`` builds, checks and times no B1 source; ``--walls`` also runs
+the CLI with ``--grouping scan`` on the proteome and the read set with
+each ``--scan`` source in turns, for the wall and Grouping times, and with
+``--prepare jax --backend xla`` with each ``--values`` source's tree (the
+checkout that holds it, a fresh process a run, at each budget) in turns,
+for the cold wall and Preparation times.
 
 B1 cases: ``engine``, chip_smoke phase 4's launches (the 24M-signature
 table, the E. coli proteome's eight dispatches through
@@ -46,11 +59,16 @@ proteome and read-set runs (``--grouping scan`` on the 24M-signature
 table, taken by a spy on the wrapper), each source checked against the
 twin at every flag and emitting record. B13 case: chip_smoke phase 13's
 first source shard of the routed run over 4 (1,009,459 queries, cap
-504,729), each source checked against the twin cell for cell. Each time is
-a kernel's device time from chip_smoke.kernel_device_ms (a torch.profiler
-trace, the L2 flushed before each run): a full dispatch's mean for
-``engine`` and ``synth8``. The variants run in the given order, then in
-reverse, ``--rounds`` times (A B C C B A ...). Needs one card; imports
+504,729), each source checked against the twin cell for cell. B8
+cases: the proteome's and the read set's prepares (the calls taken by a
+spy on the wrapper, each call's windows held against the twin; the
+padded launches' values against the twin's). B12 case: chip_smoke phase
+13's data row of the sharded (2, 2) run against table
+shards 0 and 1, each answer held against the twin. Each time is a kernel's
+device time from chip_smoke.kernel_device_ms (a torch.profiler trace, the
+L2 flushed before each run): a full dispatch's mean for ``engine`` and
+``synth8``. The variants run in the given order, then in reverse,
+``--rounds`` times (A B C C B A ...). Needs one card; imports
 nothing of JAX.
 """
 import argparse
@@ -349,6 +367,161 @@ def scan_batches(work, big, faa, reads):
     return out
 
 
+class _Discard:
+    """A query store that keeps nothing (the prepare's calls are what is
+    timed)."""
+
+    def add_batch(self, values, cnt_id, pos):
+        pass
+
+
+def values_cases(faa, reads, budgets, dev):
+    """{(cell, budget): (aa, the ragged entry's calls of a whole prepare
+    at that launch budget)} and {cell: (aa, the JAX batching's padded
+    launches)}, on the card."""
+    import torch
+
+    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
+    from kmergutsjava_tpu_torch.models import prepare
+    from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+
+    ragged, padded = {}, {}
+    default = prepare.VALUES_LAUNCH_BYTES
+    for cell, path, aa in (("proteome", faa, True),
+                           ("read set", reads, False)):
+        for budget in budgets:
+            prepare.VALUES_LAUNCH_BYTES = budget
+            try:
+                with smoke.spied(kw, "ragged_values", []) as calls:
+                    (prepare.prepare_aa if aa else prepare.prepare_dna)(
+                        read_fasta(path), _Discard(), device=str(dev))
+            finally:
+                prepare.VALUES_LAUNCH_BYTES = default
+            ragged[cell, budget] = (aa, [a for a, _, _ in calls])
+            print(f"setup: B8 {cell} budget={budget} calls={len(calls)} "
+                  f"bytes={sum(a[0].numel() for a, _, _ in calls)}",
+                  flush=True)
+        padded[cell] = (aa, [tuple(torch.from_numpy(x).to(dev) for x in b)
+                             for b in smoke.padded_prepare_batches(path,
+                                                                   aa)])
+    return ragged, padded
+
+
+def values_runs(lib, ragged, padded):
+    """{case: run()} of one window kernel library: its ragged entry over
+    each prepare's calls, or (no ragged entry) its padded values entry
+    over each cell's padded launches."""
+    from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+
+    if lib.ragged:
+        return {f"{cell} budget={b}": ((lambda calls=calls: [
+            kw.ragged_values(*a) for a in calls]), len(calls))
+            for (cell, b), (aa, calls) in ragged.items()}
+    return {f"{cell} padded": ((lambda aa=aa, batches=batches: [
+        kw.window_values(m, c, aa) for m, c in batches]), len(batches))
+        for cell, (aa, batches) in padded.items()}
+
+
+def values_check(lib, ragged, padded):
+    """Whether ``lib``'s values agree with the twins on every case."""
+    import torch
+
+    from kmergutsjava_tpu_torch.ops import kmer_windows as kw
+
+    with swapped(kw, lib):
+        if lib.ragged:
+            return all(equal(kw.ragged_values(*a),
+                             kw.ragged_values_reference(*a))
+                       for _, calls in ragged.values() for a in calls)
+        return all(torch.equal(kw.window_values(m, c, aa),
+                               kw.windows_reference(m, c, aa))
+                   for aa, batches in padded.values() for m, c in batches)
+
+
+WALL_RUNNER = (
+    "import sys, time\n"
+    "import torch\n"
+    "from kmergutsjava_tpu_torch import cli\n"
+    "from kmergutsjava_tpu_torch.models import prepare\n"
+    "prepare.VALUES_LAUNCH_BYTES = int(sys.argv[1])\n"
+    "torch.zeros(1, device='cuda')\n"
+    "t0 = time.time()\n"
+    "rc = cli.main(sys.argv[2:])\n"
+    "print('WALL', time.time() - t0, flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def values_walls(work, big, faa, reads, trees, budgets, rounds):
+    """Rows of cold ``--prepare jax --backend xla`` CLI runs, each in a
+    fresh process of a tree of ``trees`` ({label: checkout}; the parent's
+    at its own batching, the others at each budget), in turns: the wall
+    of cli.main and the Preparation time."""
+    out = os.path.join(work, "walls.txt")
+    inputs = (("proteome", faa, True), ("read set", reads, False))
+    runs = [(label, tree, b) for label, tree in trees.items()
+            for b in (budgets if label != "parent" else budgets[:1])]
+
+    def one(tree, budget, query, aa):
+        args = [*(["-a"] if aa else []), "-D", big, "-q", query, "-o", out,
+                "--device", "cuda", "--prepare", "jax", "--backend", "xla"]
+        res = subprocess.run([sys.executable, "-c", WALL_RUNNER, str(budget),
+                              *args], cwd=tree, capture_output=True,
+                             text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=tree))
+        if res.returncode:
+            raise RuntimeError(f"walls in {tree}: {res.stderr[-2000:]}")
+        wall = float(res.stdout.split("WALL ")[-1].split()[0])
+        return wall, smoke.phase_ms(res.stdout)
+
+    for _, tree, b in runs:  # builds each tree's kernels, warms the files
+        one(tree, b, faa, True)
+    rows = []
+    for turn, (label, tree, b) in enumerate(in_turns(runs, rounds)):
+        for name, query, aa in inputs:
+            wall, ms = one(tree, b, query, aa)
+            rows.append(dict(kernel="B8 wall", turn=turn, variant=label,
+                             case=f"{name} budget={b}", ms=wall * 1e3,
+                             preparation_ms=ms.get("Preparation"),
+                             lookup_ms=ms.get("Lookup")))
+            print("turn " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def shard_case(table, values, dev):
+    """chip_smoke phase 13's B12 shape: data row 0 of the sharded (2, 2)
+    run (the proteome padded to 2 x 256, its first half) against table
+    shards 0 and 1. Returns [(plane, q_fp, homes, lo, s_loc, w)]."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+    from kmergutsjava_tpu_torch.parallel.sharded_lookup import \
+        shard_table_planes
+
+    pw = max(8, table.max_probe)
+    planes = shard_table_planes(table, 2, pw)
+    s_loc = planes["s_loc"]
+    n = len(values)
+    v = np.zeros(-(-n // 512) * 512, np.int64)
+    v[:n] = values
+    half = v[:len(v) // 2]
+    q = torch.from_numpy((half % FP_MOD).astype(np.uint16)).to(dev)
+    h = torch.from_numpy((half % table.num_sigs).astype(np.int32)).to(dev)
+    return [(torch.from_numpy(planes["fp"][t]).to(dev), q, h, t * s_loc,
+             s_loc, pw) for t in range(2)]
+
+
+def shard_lib(path):
+    """The shard probe library at ``path``, typed as the wrapper types
+    it."""
+    lib = ctypes.CDLL(path)
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.shard_probe.restype = ctypes.c_int
+    lib.shard_probe.argtypes = [p, i64, p, p, i64, i64, i64, ctypes.c_int32,
+                                p, p]
+    return lib
+
+
 def b1_b3_cases(table, values, dev):
     """B1's cases ({case: (plane, w, chunks, run)}), B3's ({order: (q_fp,
     homes)}), the engine's chunk size and the plane, on the sparse lookup
@@ -397,6 +570,9 @@ def main() -> int:
     ap.add_argument("--fused-only", action="store_true")
     ap.add_argument("--scan", action="append", default=[])
     ap.add_argument("--route", action="append", default=[])
+    ap.add_argument("--values", action="append", default=[])
+    ap.add_argument("--budgets", default="")
+    ap.add_argument("--shard", action="append", default=[])
     ap.add_argument("--no-b1", action="store_true")
     ap.add_argument("--walls", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
@@ -409,7 +585,10 @@ def main() -> int:
         return smoke.fail("torch.cuda.is_available() is false")
     from kmergutsjava_tpu_torch.calls import scan_machine
     from kmergutsjava_tpu_torch.lookup import blockprobe, tilejoin
-    from kmergutsjava_tpu_torch.parallel import fused_probe, route_bins
+    from kmergutsjava_tpu_torch.models import prepare
+    from kmergutsjava_tpu_torch.ops import kmer_windows
+    from kmergutsjava_tpu_torch.parallel import (fused_probe, route_bins,
+                                                 shard_probe)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -424,10 +603,18 @@ def main() -> int:
             else [])
     route = (parse_variants(args.route, route_bins.SOURCE) if args.route
              else [])
+    b8 = (parse_variants(args.values, kmer_windows.SOURCE) if args.values
+          else [])
+    b12 = (parse_variants(args.shard, shard_probe.SOURCE) if args.shard
+           else [])
+    budgets = [int(b) for b in args.budgets.split(",") if b] or [
+        prepare.VALUES_LAUNCH_BYTES]
     paths = build_all(b1 + [("b3_" + label, src) for label, src in b3]
                       + [("fused_" + label, src) for label, src in fused]
                       + [("scan_" + label, src) for label, src in scan]
-                      + [("route_" + label, src) for label, src in route])
+                      + [("route_" + label, src) for label, src in route]
+                      + [("values_" + label, src) for label, src in b8]
+                      + [("shard_" + label, src) for label, src in b12])
     libs = {label: load(paths[label], "tilejoin_first_event")
             for label, _ in b1}
     b3_libs = {label: load(paths["b3_" + label], "block_probe")
@@ -446,7 +633,12 @@ def main() -> int:
                  for label, src in scan}
     route_libs = {label: route_lib(paths["route_" + label])
                   for label, _ in route}
-    for kind, jobs in (("scan_", scan), ("route_", route)):
+    values_libs = {label: kmer_windows.bind(ctypes.CDLL(
+        paths["values_" + label])) for label, _ in b8}
+    shard_libs = {label: shard_lib(paths["shard_" + label])
+                  for label, _ in b12}
+    for kind, jobs in (("scan_", scan), ("route_", route),
+                       ("values_", b8), ("shard_", b12)):
         if jobs:
             compare_sass({kind + label: paths[kind + label]
                           for label, _ in jobs}, kind + "new")
@@ -458,8 +650,8 @@ def main() -> int:
         faa = os.path.join(work, "proteome.faa")
         smoke.write_proteome(prots, faa)
         values = smoke.query_values(faa)
-        batches, s_batches = {}, {}
-        if fused or scan:
+        batches, s_batches, v_ragged, v_padded, v_walls = {}, {}, {}, {}, []
+        if fused or scan or b8:
             fna = os.path.join(work, "genome.fna")
             reads = os.path.join(work, "reads.fna")
             smoke.write_reads(reads, smoke.write_genome(fna))
@@ -469,6 +661,13 @@ def main() -> int:
             s_batches = scan_batches(work, big, faa, reads)
         wall_rows = (scan_walls(work, big, faa, reads, scan, scan_runs,
                                 args.rounds) if scan and args.walls else [])
+        if b8:
+            v_ragged, v_padded = values_cases(faa, reads, budgets, dev)
+        if b8 and args.walls:
+            trees = {label: os.path.dirname(os.path.dirname(
+                os.path.dirname(src))) for label, src in b8}
+            v_walls = values_walls(work, big, faa, reads, trees, budgets,
+                                   args.rounds)
     cases, b3_cases, chunk, plane = {}, {}, 0, None
     if b1 or b3:
         cases, b3_cases, chunk, plane = b1_b3_cases(table, values, dev)
@@ -529,6 +728,22 @@ def main() -> int:
         owner = smoke.route_owners(h, n_valid, s_loc, shards)
         r_want = route_bins.bins_reference(q, h, n_valid, s_loc, shards, cap)
         route.append(("argsort", None))
+    for label, _ in b8:
+        same = values_check(values_libs[label], v_ragged, v_padded)
+        print(f"check B8 {label}: {'equal to' if same else 'DIFFERS from'} "
+              f"the twin", flush=True)
+        if label == "new" and not same:
+            return smoke.fail("the repository's B8 differs from the twin")
+    sh_cases = shard_case(table, values, dev) if b12 else []
+    for label, _ in b12:
+        with swapped(shard_probe, shard_libs[label]):
+            same = all(equal([shard_probe.shard_probe(*c)],
+                             [shard_probe.shard_probe_reference(*c)])
+                       for c in sh_cases)
+        print(f"check B12 {label}: {'equal to' if same else 'DIFFERS from'} "
+              f"the twin", flush=True)
+        if label == "new" and not same:
+            return smoke.fail("the repository's B12 differs from the twin")
     for label, _ in route[:-1]:
         with swapped(route_bins, route_libs[label]):
             same = equal(signed(route_bins.bins(q, h, n_valid, s_loc,
@@ -539,7 +754,7 @@ def main() -> int:
         if label == "new" and not same:
             return smoke.fail("the repository's B13 differs from the twin")
 
-    rows = wall_rows
+    rows = wall_rows + v_walls
     for turn, (label, _) in enumerate(in_turns(
             [] if args.fused_only else b1, args.rounds)):
         with swapped(tilejoin, libs[label]):
@@ -597,6 +812,31 @@ def main() -> int:
                          case="shard 0 of 4", ms=sum(by), runs_kept=kept,
                          by_kernel=by))
         print("turn " + json.dumps(rows[-1]), flush=True)
+
+    for turn, (label, _) in enumerate(in_turns(b8, args.rounds)):
+        lib = values_libs[label]
+        with swapped(kmer_windows, lib):
+            for name, (run, calls) in values_runs(lib, v_ragged,
+                                                  v_padded).items():
+                ms, kept = smoke.kernel_device_ms(
+                    run, dev, "ragged_" if lib.ragged else "windows_kernel",
+                    reps=args.reps)
+                each = len(ms) // calls  # kernels a call
+                rows.append(dict(kernel="B8", turn=turn, variant=label,
+                                 case=name, ms=sum(ms), runs_kept=kept,
+                                 kernels=len(ms), by_kernel=[
+                                     sum(ms[i::each]) for i in range(each)]))
+                print("turn " + json.dumps(rows[-1]), flush=True)
+    for turn, (label, _) in enumerate(in_turns(b12, args.rounds)):
+        with swapped(shard_probe, shard_libs[label]):
+            for t, c in enumerate(sh_cases):
+                ms, kept = smoke.kernel_device_ms(
+                    lambda: shard_probe.shard_probe(*c), dev,
+                    "shard_probe_kernel", reps=args.reps)
+                rows.append(dict(kernel="B12", turn=turn, variant=label,
+                                 case=f"table shard {t} of 2", ms=ms[0],
+                                 runs_kept=kept))
+                print("turn " + json.dumps(rows[-1]), flush=True)
 
     summary = {}
     for row in rows:

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 BACKENDS = ("auto", "xla", "stream", "spmd", "pallas", "parity",
             "replicated", "sharded", "routed")
 # "jax" (the JAX package's name) is the device prepare: the k-mer window
-# kernel's values entry on the config's device
+# kernel's ragged entry on the config's device
 PREPARE_IMPLS = ("native", "numpy", "jax")
 # "scan" is the call-grouping kernel (B11, calls/scan_machine.py) on the
 # config's device; debug runs and min_hits < 2 keep the host machine

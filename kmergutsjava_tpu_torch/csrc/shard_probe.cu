@@ -16,15 +16,29 @@
 //
 // What bounds it. Each query's home (4 B) and fingerprint (2 B) in and its
 // answer (4 B) out, and for the queries it owns (1 in T of them) the
-// plane's 32-byte sectors under the window: at the tables' windows
-// (w <= 32 at load 0.6) one or two random sectors a query. Like B1 it is
-// bound by random reads of device memory. The design is B1's reading: one
-// thread a query, the window read as aligned 16-byte vectors from the one
-// that holds its home (probe_common.cuh), each compared two slots a word;
-// it stops at the first match or the window's end, and a query the shard
-// does not own reads nothing of the plane. The TPU program's 128-lane
-// overlapped rows (shard_table_planes) are a layout for its row gather and
-// are not carried.
+// plane's sectors under the window: at the tables' windows (w <= 32 at
+// load 0.6) one or two random sectors a query, and empty slots do not end
+// a window, so a window with no match (most of them) reads all of its
+// slots. Like B1 it is bound by random reads of device memory, which the
+// L2 fetches 64 bytes at a time: at the sharded (2, 2) run's data row
+// (2,019,072 queries, 1,030,866 owned, a 20M-slot shard, w=16) about 1.5
+// such fetches an owned query, some 100 MB, 0.030 ms at 3.35 TB/s, beside
+// 20 MB of queries and answers. The design is B1's reading: one thread a
+// query, the window read as aligned 16-byte vectors from the one that
+// holds its home (probe_common.cuh), each compared two slots a word; it
+// stops at the first match or the window's end, and a query the shard
+// does not own reads nothing of the plane. Measured in turns by
+// chip_turns.py --shard on an H100 80GB HBM3 (700 W; PERF.md, Findings):
+// 0.0365-0.0377 ms at that shape, and no other design was faster: each
+// warp listing its owned queries of 128 in shared memory and its lanes
+// probing only those, up to three windows a lane in flight (0.0390-0.0404
+// ms; one or two vectors ahead 0.0383-0.0396), four queries a thread read
+// as vectors (0.0396-0.0411), a window's first two vectors loaded before
+// any compare (0.0364-0.0372: no gain), all of them (0.0441), the two
+// vectors of the home's 32-byte sector first (0.0372-0.0374). Half the
+// lanes of a warp idle is not what holds it: the random fetches are. The
+// TPU program's 128-lane overlapped rows (shard_table_planes) are a
+// layout for its row gather and are not carried.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libshard_probe.so shard_probe.cu

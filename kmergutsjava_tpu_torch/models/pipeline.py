@@ -456,7 +456,7 @@ class Engine:
                     prep = (prepare_aa_native(records, feed) if cfg.aa
                             else prepare_dna_native(records, feed))
                 elif cfg.prepare_impl == "jax":
-                    # the window kernel's values entry on the device
+                    # the window kernel's ragged entry on the device
                     from .prepare import prepare_aa, prepare_dna
 
                     prep = (prepare_aa(records, feed,

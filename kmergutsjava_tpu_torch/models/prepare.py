@@ -5,11 +5,12 @@ Counterpart of the reference's prepareQuery/addKmers
 ``models/prepare.py``: the native C++ feeder (bulk or per record) and its
 numpy twins encode 8-mers on the host (after 6-frame translation in DNA
 mode); ``prepare_aa``/``prepare_dna`` (``--prepare jax``, the JAX package's
-name) run the k-mer window kernel's values entry on the device
-(``ops/kmer_windows.py``) and compact the valid windows on the host. Each
-feeds (value, container, pos) records to the lookup front end. Container
-creation order defines the hit container ids: per DNA contig +0, +1, +2,
--0, -1, -2 (ref :1064-1072); one '+/0' container per protein (ref :1059).
+name) run the k-mer window kernel's ragged entry on the device
+(``ops/kmer_windows.py``): unpadded rows in, only the valid windows back,
+compacted on the card. Each feeds (value, container, pos) records to the
+lookup front end. Container creation order defines the hit container ids:
+per DNA contig +0, +1, +2, -0, -1, -2 (ref :1064-1072); one '+/0'
+container per protein (ref :1059).
 """
 from __future__ import annotations
 
@@ -85,9 +86,14 @@ def _next_pow2(x: int) -> int:
     return p
 
 
-# the cells (rows x padded width) one launch of the k-mer window kernel
-# takes, on the fused path and in the device prepare of contigs
+# the cells (rows x padded width) one launch of the fused step's kernel
+# takes (models/spmd.py)
 MAX_CELLS = 1 << 22
+
+# the bytes (residues or bases) of the rows one launch of the window
+# kernel's ragged entry takes in the device prepare; a longer row is a
+# launch of its own
+VALUES_LAUNCH_BYTES = 1 << 22
 
 
 class BucketQueue:
@@ -96,11 +102,13 @@ class BucketQueue:
     bucket's batch once it holds ``batch_rows`` rows (or ``max_cells //
     bucket``, at least one, when ``max_cells`` is given); ``drain`` hands
     back the rest in the order their buckets opened. A batch is (keys,
-    zero-padded rows u8[b, bucket], lengths)."""
+    zero-padded rows u8[b, bucket], lengths), or with ``padded=False``
+    (keys, the rows as they came, lengths)."""
 
-    def __init__(self, batch_rows: int, min_bucket: int, max_cells=None):
+    def __init__(self, batch_rows: int, min_bucket: int, max_cells=None,
+                 padded: bool = True):
         self.batch_rows, self.min_bucket = batch_rows, min_bucket
-        self.max_cells = max_cells
+        self.max_cells, self.padded = max_cells, padded
         self._pending: Dict[int, List[Tuple[int, np.ndarray]]] = {}
 
     def add(self, key: int, ascii_u8: np.ndarray):
@@ -118,6 +126,10 @@ class BucketQueue:
 
     def _batch(self, bucket: int):
         rows = self._pending.pop(bucket)
+        if not self.padded:
+            return (np.array([k for k, _ in rows], dtype=np.int64),
+                    [a for _, a in rows],
+                    np.array([len(a) for _, a in rows], dtype=np.int64))
         mat = np.zeros((len(rows), bucket), dtype=np.uint8)
         lens = np.empty(len(rows), dtype=np.int64)
         keys = np.empty(len(rows), dtype=np.int64)
@@ -129,9 +141,10 @@ class BucketQueue:
 
 
 class _DeviceValues:
-    """The k-mer window kernel's values entry on one device, on a stream of
-    its own: host rows in, one upload, one launch, one read-back of the
-    int64 values (-1 where a window is not valid)."""
+    """The k-mer window kernel's ragged entry on one device, on a stream of
+    its own: unpadded rows in (one upload of their bytes and bounds), one
+    call (two kernels), and back only the valid windows' values and
+    positions and each container's count of them."""
 
     def __init__(self, device: str):
         from ..lookup.sparse import owned_stream, torch_device
@@ -139,36 +152,64 @@ class _DeviceValues:
         self.device = torch_device(device)
         self.stream = owned_stream(self.device)
 
-    def __call__(self, mat: np.ndarray, counts: np.ndarray, aa: bool
-                 ) -> np.ndarray:
+    def __call__(self, rows: List[np.ndarray], aa: bool):
         from ..lookup.sparse import _device_fault, on_stream
-        from ..ops.kmer_windows import window_values
+        from ..ops.kmer_windows import ragged_values
         from ..parallel.annotate_step import upload
 
+        bounds = np.zeros(len(rows) + 1, dtype=np.int32)
+        np.cumsum([len(r) for r in rows], out=bounds[1:])
+        data = np.concatenate(rows) if rows else np.zeros(0, np.uint8)
         with on_stream(self.stream), _device_fault("launch",
                                                    "device prepare"):
-            a, c = upload(self.device, mat, counts.astype(np.int32))
-            return window_values(a, c, aa).cpu().numpy()
+            b, bd = upload(self.device, data, bounds)
+            values, pos, counts = ragged_values(b, bd, aa)
+            return (values.cpu().numpy(), pos.cpu().numpy().astype(np.int64),
+                    counts.cpu().numpy())
 
 
 def prepare_aa(records: Iterable[FastaRecord], store: QueryKmerStore,
                batch_rows: int = 512, min_bucket: int = 256,
                device: str = "cuda") -> Prepared:
-    """Protein mode on the device: rows padded to power-of-two length
-    buckets (``min_bucket`` and up), ``batch_rows`` a launch of the window
-    kernel's values entry, valid windows compacted on the host in the JAX
-    package's order of ``add_batch`` calls."""
+    """Protein mode on the device. Rows are queued by power-of-two length
+    bucket as the JAX package batches them (``batch_rows`` a batch); the
+    flushed batches, unpadded, share one launch of the window kernel's
+    ragged entry up to VALUES_LAUNCH_BYTES, and its compacted windows are
+    cut at the batches' rows, so the ``add_batch`` calls are the JAX
+    package's, one for one."""
     prep = Prepared()
     values_of = _DeviceValues(device)
-    queue = BucketQueue(batch_rows, min_bucket)
+    queue = BucketQueue(batch_rows, min_bucket, padded=False)
+    pending: List[Tuple[np.ndarray, List[np.ndarray]]] = []
+    size = 0
+
+    def launch() -> None:
+        nonlocal pending, size
+        if not pending:
+            return
+        # the reference's window bound is strictly i < len - K (ref :912):
+        # the final full window of a protein is skipped (the kernel's aa
+        # rule)
+        values, pos, counts = values_of(
+            [r for _, rows in pending for r in rows], aa=True)
+        ends = np.concatenate([[0], np.cumsum(counts)])
+        at = 0
+        for cnt_ids, rows in pending:
+            w0, w1 = ends[at], ends[at + len(rows)]
+            store.add_batch(values[w0:w1],
+                            np.repeat(cnt_ids, counts[at:at + len(rows)]),
+                            pos[w0:w1])
+            at += len(rows)
+        pending, size = [], 0
 
     def flush(batch) -> None:
-        cnt_ids, mat, lens = batch
-        # reference window bound is strictly i < len - K (ref :912): the
-        # final full window of a protein is skipped
-        values = values_of(mat, lens - K, aa=True)
-        rr, cc = np.nonzero(values >= 0)
-        store.add_batch(values[rr, cc], cnt_ids[rr], cc)
+        nonlocal size
+        cnt_ids, rows, lens = batch
+        n = int(lens.sum())
+        if size + n > VALUES_LAUNCH_BYTES:
+            launch()
+        pending.append((cnt_ids, rows))
+        size += n
 
     for rec in records:
         cid = prep.new_container((rec.id, "+", 0))
@@ -178,53 +219,42 @@ def prepare_aa(records: Iterable[FastaRecord], store: QueryKmerStore,
             flush(batch)
     for batch in queue.drain():
         flush(batch)
+    launch()
     return prep
 
 
 def prepare_dna(records: Iterable[FastaRecord], store: QueryKmerStore,
                 device: str = "cuda") -> Prepared:
     """DNA mode on the device: six-frame translation and 8-mer packing by
-    the window kernel's values entry. The JAX package launches once a
-    contig at Lpad = 3 * next_pow2(max(len//3 + 1, 16)); here consecutive
-    contigs share a launch padded to the batch's largest such Lpad (up to
-    MAX_CELLS bases), which changes no window: a row's windows past
-    its own are not valid either way. One ``add_batch`` a launch, whose
-    rows are the contigs' rows in order, each in the JAX order (frame
-    row, then position)."""
+    the window kernel's ragged entry. The JAX package launches once a
+    contig; here consecutive contigs share a launch, unpadded, up to
+    VALUES_LAUNCH_BYTES bases (a longer contig is a launch of its own).
+    One ``add_batch`` a launch, whose rows are the contigs' rows in order,
+    each in the JAX order (frame row, then position)."""
     prep = Prepared()
     values_of = _DeviceValues(device)
     pending: List[Tuple[List[int], np.ndarray]] = []
-    width = 0
+    size = 0
 
-    def flush() -> None:
-        nonlocal pending, width
+    def launch() -> None:
+        nonlocal pending, size
         if not pending:
             return
-        b = len(pending)
-        mat = np.zeros((b, width), dtype=np.uint8)
-        lens = np.empty(b, dtype=np.int64)
-        cids = np.empty((b, 6), dtype=np.int64)
-        for r, (c, ascii_u8) in enumerate(pending):
-            mat[r, : len(ascii_u8)] = ascii_u8
-            lens[r] = len(ascii_u8)
-            cids[r] = c
-        values = values_of(mat, lens, aa=False)  # [b, 6, width//3 - 7]
-        rr, gg, cc = np.nonzero(values >= 0)
-        store.add_batch(values[rr, gg, cc], cids[rr, gg], cc)
-        pending, width = [], 0
+        values, pos, counts = values_of([a for _, a in pending], aa=False)
+        cids = np.array([c for c, _ in pending], dtype=np.int64).reshape(-1)
+        store.add_batch(values, np.repeat(cids, counts), pos)
+        pending, size = [], 0
 
     for rec in records:
         ascii_u8 = _seq_to_ascii(rec.seq)
-        length = len(ascii_u8)
         cids = [prep.new_container((rec.id, s, f))
                 for s in ("+", "-") for f in range(3)]
-        prep.id_len[rec.id] = length
-        lpad = 3 * _next_pow2(max(length // 3 + 1, 16))
-        if pending and (len(pending) + 1) * max(width, lpad) > MAX_CELLS:
-            flush()
+        prep.id_len[rec.id] = len(ascii_u8)
+        if size + len(ascii_u8) > VALUES_LAUNCH_BYTES:
+            launch()
         pending.append((cids, ascii_u8))
-        width = max(width, lpad)
-    flush()
+        size += len(ascii_u8)
+    launch()
     return prep
 
 

@@ -2,7 +2,7 @@
 ``csrc/kmer_windows.cu``, its plain PyTorch twin and the wrappers that pick
 between them by the tensors' device. The fused step runs the same windows
 and their probe in one launch (``parallel/fused_probe.py``, whose twin
-starts from this one); this kernel's values entry is the device prepare's,
+starts from this one); this kernel's ragged entry is the device prepare's,
 and its homes entries give the windows alone.
 
 Replaces the device programs that the JAX package writes in XLA for the
@@ -13,7 +13,7 @@ home and fingerprint residues) and ``parallel/seq_windows.py``
 interval its window owns). The twin is the composition of
 ``ops/encode.py``, ``ops/translate.py`` and ``ops/kmerize.py``.
 
-Three entries:
+Four entries:
 
 - ``aa_homes_fps``: protein rows ``uint8[B, Lpad]`` and ``num_starts[B]``
   -> homes ``int32[B, W]`` and fingerprints ``uint16[B, W]``, W = Lpad - 7;
@@ -21,8 +21,13 @@ Three entries:
   optionally a long contig's ``row_map``, ``own_start``, ``own_end``
   ``[B, 6]``) -> ``[B, 6, W]``, W = Lpad//3 - 7, containers in the
   reference's order +0 +1 +2 -0 -1 -2;
-- ``window_values``: either kind of rows -> int64 values, for the device
-  prepare (``--prepare jax``).
+- ``window_values``: either kind of padded rows -> int64 values of every
+  window (-1 where not valid), the JAX prepare's power-of-two batches;
+- ``ragged_values``: the device prepare's entry (``--prepare jax``): rows
+  unpadded in one byte stream with their bounds -> only the valid
+  windows, compacted on the card in the order ``np.nonzero`` gives the
+  padded values (container, then position): values int64, positions
+  int32, and a count a container (a protein, or a contig's frame).
 
 A window that is not valid has home -1 (fingerprint 0), which the sparse
 probe (``lookup/tilejoin.py``) answers as off the plane, state 0, without
@@ -53,11 +58,12 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "kmer_windows.cu")
 
 # kernel launches since import (or since a caller reset them to 0): of the
-# homes-and-fingerprints entries and of the values entry (the device
-# prepare's); counted only where a wrapper launches the CUDA kernel, never
-# for the twin
+# homes-and-fingerprints entries, of the padded values entry and of the
+# ragged entry (the device prepare's); counted only where a wrapper
+# launches the CUDA kernel, never for the twin
 launches = 0
 values_launches = 0
+ragged_launches = 0  # the ragged entry's calls (two kernels each)
 
 # the kernel's tables (struct Luts of the source), passed by value a launch
 _LUTS = np.ascontiguousarray(np.concatenate(
@@ -76,16 +82,28 @@ def load_kernel() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = build_cuda_library(SOURCE)
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.kmer_windows_aa.restype = ctypes.c_int
-        lib.kmer_windows_aa.argtypes = [p, p, i64, i64, p, i64,
-                                        ctypes.c_uint64, p, p, p, p]
-        lib.kmer_windows_dna.restype = ctypes.c_int
-        lib.kmer_windows_dna.argtypes = [p, p, i64, i64, p, p, p, p, i64,
-                                         ctypes.c_uint64, p, p, p, p]
-        _lib = lib
-        return lib
+        _lib = bind(build_cuda_library(SOURCE))
+        return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C entries of a build of the kernel (the ragged ones where
+    the build has them: ``lib.ragged``)."""
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.kmer_windows_aa.restype = ctypes.c_int
+    lib.kmer_windows_aa.argtypes = [p, p, i64, i64, p, i64, ctypes.c_uint64,
+                                    p, p, p, p]
+    lib.kmer_windows_dna.restype = ctypes.c_int
+    lib.kmer_windows_dna.argtypes = [p, p, i64, i64, p, p, p, p, i64,
+                                     ctypes.c_uint64, p, p, p, p]
+    lib.ragged = hasattr(lib, "kmer_values_ragged")
+    if lib.ragged:
+        lib.kmer_values_ragged.restype = ctypes.c_int
+        lib.kmer_values_ragged.argtypes = [p, ctypes.c_int, p, i64, p, i64,
+                                           p, p, p, p, p]
+        lib.kmer_values_tile.restype = ctypes.c_int
+        lib.kmer_values_tile.argtypes = []
+    return lib
 
 
 def reciprocal(d: int) -> int:
@@ -222,3 +240,104 @@ def window_values(ascii_u8: torch.Tensor, counts: torch.Tensor, aa: bool
     protein rows with num_starts, or [B, 6, W] of contig rows with
     lengths."""
     return _launch(aa, ascii_u8, counts, None)
+
+
+# the ragged entry's bounds: bytes (DNA positions are two a byte, int32)
+# and rows (six containers a DNA row, int32)
+MAX_RAGGED_BYTES = 1 << 30
+MAX_RAGGED_ROWS = 1 << 28
+
+
+def ragged_values_reference(bytes_u8: torch.Tensor, bounds: torch.Tensor,
+                            aa: bool):
+    """Plain PyTorch twin of the ragged entry: each row's values by
+    ``windows_reference`` (the rows of one power-of-two length class
+    padded together, which changes no window), its valid windows by
+    ``torch.nonzero``, in container order. Returns (values int64 [n], pos
+    int32 [n], counts int32 [containers])."""
+    dev = bytes_u8.device
+    b = bounds.to(torch.int64)
+    lens = b[1:] - b[:-1]
+    per = 1 if aa else 6
+    counts = torch.zeros(lens.numel() * per, dtype=torch.int32, device=dev)
+    parts = [(torch.zeros(0, dtype=torch.int64, device=dev),) * 3]
+    classes = _pow2_class(lens)
+    for width in (torch.unique(classes).tolist() if bytes_u8.numel() else ()):
+        sel = torch.nonzero(classes == width).view(-1)
+        cols = torch.arange(width, device=dev)
+        at = (b[sel][:, None] + cols).clamp(max=bytes_u8.numel() - 1)
+        mat = torch.where(cols < lens[sel][:, None], bytes_u8[at], 0)
+        n_in = (lens[sel] - K) if aa else lens[sel]
+        values = windows_reference(mat.contiguous(), n_in.to(torch.int32),
+                                   aa)
+        idx = torch.nonzero(values >= 0)
+        c = sel[idx[:, 0]] * per + (0 if aa else idx[:, 1])
+        parts.append((c, idx[:, -1], values[tuple(idx.t())]))
+    c, j, v = (torch.cat(x) for x in zip(*parts))
+    order = torch.argsort(c * (1 << 31) + j)
+    counts += torch.bincount(c, minlength=counts.numel()).to(torch.int32)
+    return v[order], j[order].to(torch.int32), counts
+
+
+def _pow2_class(lens: torch.Tensor) -> torch.Tensor:
+    """The padded width a row's length class takes in the twin: the next
+    power of two at or above the length, 32 at least."""
+    x = lens.clamp(min=32) - 1
+    return torch.pow(2, torch.floor(torch.log2(x.double())).long() + 1)
+
+
+def ragged_values(bytes_u8: torch.Tensor, bounds: torch.Tensor, aa: bool):
+    """The valid windows of unpadded rows, compacted in container order:
+    row r is bytes_u8[bounds[r]:bounds[r + 1]] (bounds int32 [R + 1] from 0
+    to the byte count, never down); its windows are a protein's (``aa``:
+    window j valid for j < length - 8 and 8 amino acids) or a contig's six
+    frames' (container 6r + g, +0 +1 +2 -0 -1 -2; j < length/3 - 7).
+    Returns (values int64 [n], pos int32 [n], counts int32 [R or 6R]).
+    CPU tensors run the twin; CUDA tensors launch the kernel's two
+    kernels on the current stream and wait for the total (or raise
+    KernelError)."""
+    global ragged_launches
+    if (bytes_u8.dtype != torch.uint8 or bytes_u8.dim() != 1
+            or not bytes_u8.is_contiguous()):
+        raise KernelError(f"bytes must be a contiguous 1-D uint8 tensor, "
+                          f"got {bytes_u8.dtype} {tuple(bytes_u8.shape)}")
+    if (bounds.dtype != torch.int32 or bounds.dim() != 1
+            or bounds.numel() < 1 or not bounds.is_contiguous()):
+        raise KernelError(f"bounds must be a contiguous 1-D int32 tensor of "
+                          f"rows + 1 entries, got {bounds.dtype} "
+                          f"{tuple(bounds.shape)}")
+    dev = bytes_u8.device
+    if bounds.device != dev:
+        raise KernelError(f"bounds is on {bounds.device}, bytes on {dev}")
+    n, rows = bytes_u8.numel(), bounds.numel() - 1
+    if n >= MAX_RAGGED_BYTES or rows >= MAX_RAGGED_ROWS:
+        raise KernelError(f"{n} bytes in {rows} rows: the ragged entry takes "
+                          f"under {MAX_RAGGED_BYTES} and {MAX_RAGGED_ROWS}")
+    if dev.type == "cpu":
+        return ragged_values_reference(bytes_u8, bounds, aa)
+    if dev.type != "cuda":
+        raise KernelError(f"no k-mer window kernel for device {dev}")
+    slots = n if aa else 2 * n
+    containers = rows * (1 if aa else 6)
+    if slots == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(containers, dtype=torch.int32, device=dev))
+    lib = load_kernel()
+    tiles = -(-slots // lib.kmer_values_tile())
+    values = torch.empty(slots, dtype=torch.int64, device=dev)
+    pos = torch.empty(slots, dtype=torch.int32, device=dev)
+    counts = torch.empty(containers, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=dev)
+    rc = lib.kmer_values_ragged(
+        _LUTS.ctypes.data, int(aa), bytes_u8.data_ptr(), n,
+        bounds.data_ptr(), rows, values.data_ptr(), pos.data_ptr(),
+        counts.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise KernelError(f"k-mer window kernel (ragged entry) launch "
+                          f"failed: CUDA error {rc}")
+    with _lock:
+        ragged_launches += 1
+    total = int(scratch[2 * tiles])
+    return values[:total], pos[:total], counts

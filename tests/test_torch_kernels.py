@@ -973,6 +973,156 @@ def test_cuda_kmer_windows_empty_and_device_checks(cuda_device):
             torch.zeros(2, dtype=torch.int32), 101)
 
 
+# the ragged entry (--prepare jax): unpadded rows, compacted windows
+RAGGED_CASES = [(kind, case) for kind in ("aa", "dna")
+                for case in ("empty", "no_rows", "short", "mixed",
+                             "tiny_rows", "long", "empties")]
+
+
+def _ragged_rows(kind, case):
+    """Seeded unpadded rows (the protein alphabet above; for DNA ACGT with
+    N, lowercase, IUPAC and junk bytes among them, stop codons by chance):
+    ``short`` rows under 8 (aa) or 24 (DNA) bytes,
+    ``mixed`` lengths 0-600, ``tiny_rows`` 3,000 rows of 1-12 bytes (a
+    block's rows past its table of 256), ``long`` two rows of 9,000 bytes
+    (rows over several blocks), ``empties`` runs of empty rows around
+    five rows; ``empty`` one empty row, ``no_rows`` none."""
+    rng = np.random.default_rng(len(case) * 7 + (kind == "aa"))
+    alpha = AA_BYTES if kind == "aa" else np.concatenate(
+        [np.frombuffer(b"ACGT" * 24, np.uint8), NT_BYTES[32:]])
+
+    def rows(n, lo, hi):
+        return [rng.choice(alpha, rng.integers(lo, hi)).astype(np.uint8)
+                for _ in range(n)]
+
+    made = {"empty": lambda: rows(1, 0, 1), "no_rows": lambda: [],
+            "short": lambda: rows(40, 0, 8 if kind == "aa" else 24),
+            "mixed": lambda: rows(60, 0, 600),
+            "tiny_rows": lambda: rows(3000, 1, 13),
+            "long": lambda: rows(2, 9000, 9001),
+            "empties": lambda: (rows(300, 0, 1) + rows(5, 200, 3000)
+                                + rows(300, 0, 1))}[case]()
+    bounds = np.zeros(len(made) + 1, np.int32)
+    np.cumsum([len(r) for r in made], out=bounds[1:])
+    data = np.concatenate(made) if made else np.zeros(0, np.uint8)
+    return data, bounds
+
+
+@pytest.mark.parametrize("kind,case", RAGGED_CASES)
+def test_ragged_values_twin_is_padded_entry_compacted(kind, case):
+    """On the CPU the ragged entry is its twin and launches nothing; its
+    windows are the padded values entry's valid ones (every row padded to
+    one width), in np.nonzero's order, and its counts theirs a container
+    (a row, or a row's frame)."""
+    data, bounds = _ragged_rows(kind, case)
+    aa = kind == "aa"
+    before = kmer_windows.ragged_launches
+    values, pos, counts = kmer_windows.ragged_values(
+        torch.from_numpy(data), torch.from_numpy(bounds), aa)
+    assert kmer_windows.ragged_launches == before
+    assert (values.dtype, pos.dtype, counts.dtype) == (
+        torch.int64, torch.int32, torch.int32)
+    lens = np.diff(bounds)
+    width = max(int(lens.max(initial=0)), 32)
+    mat = np.zeros((len(lens), width), np.uint8)
+    for r, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        mat[r, :b - a] = data[a:b]
+    padded = kmer_windows.window_values(
+        torch.from_numpy(mat), torch.from_numpy(
+            (lens - 8 if aa else lens).astype(np.int32)), aa).numpy()
+    nz = np.nonzero(padded >= 0)
+    np.testing.assert_array_equal(values.numpy(), padded[nz])
+    np.testing.assert_array_equal(pos.numpy(), nz[-1])
+    container = nz[0] if aa else nz[0] * 6 + nz[1]
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(
+        container, minlength=len(lens) * (1 if aa else 6)))
+    if case in ("mixed", "long", "empties"):
+        assert len(values) > 100
+
+
+@pytest.mark.parametrize("bad", ["bytes_i32", "bytes_2d", "bytes_strided",
+                                 "bounds_i64", "bounds_empty",
+                                 "two_devices"])
+def test_ragged_values_wrapper_rejects_bad_inputs(bad):
+    data = torch.zeros(40, dtype=torch.uint8)
+    bounds = torch.tensor([0, 10, 40], dtype=torch.int32)
+    if bad == "bytes_i32":
+        data = data.to(torch.int32)
+    elif bad == "bytes_2d":
+        data = data.view(4, 10)
+    elif bad == "bytes_strided":
+        data = torch.zeros(80, dtype=torch.uint8)[::2]
+    elif bad == "bounds_i64":
+        bounds = bounds.long()
+    elif bad == "bounds_empty":
+        bounds = bounds[:0]
+    elif bad == "two_devices":
+        data = data.to("meta")
+    with pytest.raises(tilejoin.KernelError):
+        kmer_windows.ragged_values(data, bounds, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,case", RAGGED_CASES)
+def test_cuda_ragged_values_match_twin(cuda_device, kind, case):
+    """The ragged entry's kernels against the twin, every value, position
+    and count equal; one call counted (none without a byte)."""
+    data, bounds = _ragged_rows(kind, case)
+    args = (torch.from_numpy(data), torch.from_numpy(bounds))
+    want = kmer_windows.ragged_values(*args, kind == "aa")
+    before = kmer_windows.ragged_launches
+    got = kmer_windows.ragged_values(*(a.to(cuda_device) for a in args),
+                                     kind == "aa")
+    torch.cuda.synchronize()
+    assert kmer_windows.ragged_launches == before + (len(data) > 0)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+def _many_tile_rows(kind):
+    """About 400 KB of seeded unpadded rows: groups of eight rows of 50-3,000
+    bytes, then runs of 30 rows of 100-400 X (aa) or N (DNA) bytes and of 20
+    rows under 8 bytes, none of which has a valid window, so whole blocks
+    post a count of 0."""
+    rng = np.random.default_rng(11 + (kind == "aa"))
+    alpha = AA_BYTES if kind == "aa" else np.frombuffer(b"ACGT", np.uint8)
+    bad = ord("X") if kind == "aa" else ord("N")
+    made = []
+    for _ in range(20):
+        made += [rng.choice(alpha, rng.integers(50, 3000)).astype(np.uint8)
+                 for _ in range(8)]
+        made += [np.full(rng.integers(100, 400), bad, np.uint8)
+                 for _ in range(30)]
+        made += [rng.choice(alpha, rng.integers(0, 8)).astype(np.uint8)
+                 for _ in range(20)]
+    bounds = np.zeros(len(made) + 1, np.int32)
+    np.cumsum([len(r) for r in made], out=bounds[1:])
+    return np.concatenate(made), bounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["aa", "dna"])
+def test_cuda_ragged_values_many_tiles_match_twin(cuda_device, kind):
+    """Past a hundred blocks of 2,048 positions (aa one a byte, DNA two),
+    so that a block's look-back walks past the 32 blocks before it and
+    meets blocks that have not posted yet: the ragged entry equals its
+    twin in each of five calls."""
+    data, bounds = _many_tile_rows(kind)
+    per_byte = 1 if kind == "aa" else 2
+    assert len(data) * per_byte // 2048 >= 100
+    args = (torch.from_numpy(data), torch.from_numpy(bounds))
+    want = kmer_windows.ragged_values(*args, kind == "aa")
+    assert len(want[0]) > 10_000 and int((want[2] == 0).sum()) > 500
+    on_card = [a.to(cuda_device) for a in args]
+    for _ in range(5):
+        before = kmer_windows.ragged_launches
+        got = kmer_windows.ragged_values(*on_card, kind == "aa")
+        torch.cuda.synchronize()
+        assert kmer_windows.ragged_launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
 # --- the fused step's kernel (csrc/fused_probe.cu, parallel/fused_probe.py) --
 
 from kmergutsjava_tpu_torch.parallel import fused_probe  # noqa: E402
@@ -1343,6 +1493,93 @@ def test_cuda_shard_probe_matches_twin(cuda_device, w, unaligned):
     assert shard_probe.launches == before + 1
     assert torch.equal(got.cpu(), want)
     assert int((want > 0).sum()) > 10_000
+
+
+B12_EDGES = ["edges", "all_owned", "none_owned", "n_odd", "w1", "w128"]
+
+
+def _b12_edge(case):
+    """(plane, q_fp, homes, lo, s_loc, w) numpy: a shard [lo, lo + s_loc)
+    of a seeded plane with planted matches behind empty slots. ``edges``
+    puts homes at lo - 1, lo, lo + s_loc - 1, lo + s_loc and negative
+    (-1, -2^31) among the others; ``all_owned``/``none_owned`` every home
+    inside or outside the range; ``n_odd`` a count that is no multiple of
+    a block's 256 queries; ``w1`` and ``w128`` the window's limits."""
+    w = {"w1": 1, "w128": 128}.get(case, 16)
+    n = {"n_odd": 128 * 301 + 37}.get(case, 40_000)
+    rng = np.random.default_rng(len(case))
+    lo, s_loc = 50_003, 30_011
+    plane = _plane(s_loc + w, seed=len(case) + 3)
+    homes = rng.integers(lo - 2_000, lo + s_loc + 2_000, n)
+    if case == "all_owned":
+        homes = rng.integers(lo, lo + s_loc, n)
+    elif case == "none_owned":
+        homes = np.where(rng.random(n) < 0.5, rng.integers(-9, lo, n),
+                         rng.integers(lo + s_loc, lo + 2 * s_loc, n))
+    elif case == "edges":
+        homes[::5] = rng.choice([lo - 1, lo, lo + s_loc - 1, lo + s_loc, -1,
+                                 -2 ** 31], homes[::5].shape)
+    homes = homes.astype(np.int32)
+    local = np.clip(homes.astype(np.int64) - lo, 0, s_loc - 1)
+    q = rng.integers(0, 65535, n).astype(np.uint16)
+    plant = rng.random(n) < 0.5
+    q[plant] = plane[local[plant] + rng.integers(0, w, int(plant.sum()))]
+    return plane, q, homes, lo, s_loc, w
+
+
+def _b12_scan(plane, q, homes, lo, s_loc, w):
+    """B12's answers by a plain scan: the global slot + 1 of the first slot
+    of each owned home's window holding its fingerprint, else 0."""
+    out = np.zeros(len(homes), np.int32)
+    for i, (h, f) in enumerate(zip(homes.astype(np.int64), q)):
+        if lo <= h < lo + s_loc:
+            hit = np.nonzero(plane[h - lo:h - lo + w] == f)[0]
+            if len(hit):
+                out[i] = h + hit[0] + 1
+    return out
+
+
+@pytest.mark.parametrize("case", B12_EDGES)
+def test_b12_twin_on_edge_operands(case):
+    """B12's twin at the window's and the shard's edges equals a plain
+    scan."""
+    from kmergutsjava_tpu_torch.parallel import shard_probe
+
+    plane, q, homes, lo, s_loc, w = _b12_edge(case)
+    got = shard_probe.shard_probe(torch.from_numpy(plane),
+                                  torch.from_numpy(q),
+                                  torch.from_numpy(homes), lo, s_loc, w)
+    want = _b12_scan(plane, q, homes, lo, s_loc, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+    owned = ((homes >= lo) & (homes < lo + s_loc)).sum()
+    assert owned == {"all_owned": len(homes), "none_owned": 0}.get(
+        case, owned)
+    found = int((want > 0).sum())
+    assert found == 0 if case == "none_owned" else found > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B12_EDGES)
+def test_cuda_shard_probe_edges_match_twin(cuda_device, case):
+    """B12 on the card equals its twin at the edges, also on views whose
+    homes, fingerprints and answers lie off the kernel's vector
+    alignment."""
+    from kmergutsjava_tpu_torch.parallel import shard_probe
+
+    plane, q, homes, lo, s_loc, w = _b12_edge(case)
+    want = shard_probe.shard_probe(*(torch.from_numpy(a) for a in
+                                     (plane, q, homes)), lo, s_loc, w)
+    for lead in (0, 1):
+        qd = torch.from_numpy(np.concatenate([q[:lead], q])).to(
+            cuda_device)[lead:]
+        hd = torch.from_numpy(np.concatenate([homes[:lead], homes])).to(
+            cuda_device)[lead:]
+        before = shard_probe.launches
+        got = shard_probe.shard_probe(torch.from_numpy(plane).to(cuda_device),
+                                      qd, hd, lo, s_loc, w)
+        torch.cuda.synchronize()
+        assert shard_probe.launches == before + 1
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ pallas, auto and spmd backends on the CPU (from stdin or from a file, 1-4
 native threads), its mesh backends (sharded on a 2x2 mesh, routed over 4
 shards, replicated over 2 devices: ``mesh_devices`` of CPU positions) and
 ``auto`` with ``--mesh 2x2``, ``auto`` with ``--grouping scan``, ``xla`` with
-``--sort-chunks 1`` (with ``--device-sort`` half the time), and a port
+``--sort-chunks 1`` (with ``--device-sort`` half the time), ``xla`` with
+``--prepare jax`` (the window kernel's ragged entry's twin), and a port
 checkpoint run at a random batch size must each be byte-equal to the JAX
 ``parity`` Engine (debug timing lines masked). A few seeds run in the tier-1 suite; ``-m slow`` runs many
 more."""
@@ -41,10 +42,11 @@ MESH_RUNS = (("sharded", (2, 2), ["cpu"] * 4),
              ("replicated", (2, 1), ["cpu"] * 2),
              ("auto", (2, 2), ["cpu"] * 4))
 # the runs of the grouping kernel (host grouping in debug rounds and at
-# min_hits < 2, as in the JAX engine) and of the sparse probe with its
-# chunks home-sorted
+# min_hits < 2, as in the JAX engine), of the sparse probe with its
+# chunks home-sorted and of the device prepare
 EXTRA_RUNS = (("auto", dict(grouping_impl="scan")),
-              ("xla", dict(sort_chunks=True)))
+              ("xla", dict(sort_chunks=True)),
+              ("xla", dict(prepare_impl="jax")))
 # debug reports embed timing and progress info lines
 _DROP = re.compile(r"^(Temp\. directory:|Preparation time:|Lookup time:"
                    r"|Grouping time:|Processed: )")

@@ -193,7 +193,7 @@ def test_spmd_truncated_table_matches_jax(tmp_path, corpus):
 @pytest.mark.parametrize("mode,backend", [("aa", "xla"), ("aa", "parity"),
                                           ("dna", "xla"), ("dna", "stream")])
 def test_prepare_jax_reports_equal_jax(corpus, mode, backend):
-    """``--prepare jax`` (the window kernel's values entry) feeding each
+    """``--prepare jax`` (the window kernel's ragged entry) feeding each
     lookup: the JAX engine's ``--prepare jax`` report, byte for byte."""
     d, texts = corpus
     aa = mode == "aa"
@@ -226,10 +226,10 @@ class _Rows:
 def test_device_prepare_rows_in_jax_order(corpus, monkeypatch, mode):
     """prepare_aa: the JAX add_batch calls, one for one. prepare_dna: the
     JAX rows in the JAX order (contig, frame row, position), though
-    consecutive contigs share a launch (the batch budget shrunk here so
+    consecutive contigs share a launch (the launch budget shrunk here so
     that several launches occur); the containers equal the JAX's."""
     _, texts = corpus
-    monkeypatch.setattr(prepare, "MAX_CELLS", 3000)
+    monkeypatch.setattr(prepare, "VALUES_LAUNCH_BYTES", 3000)
     recs = _records(texts[mode])
     got, want = _Rows(), _Rows()
     if mode == "aa":
@@ -290,7 +290,7 @@ def test_kernel_error_propagates(corpus, monkeypatch, phase):
     else:
         from kmergutsjava_tpu_torch.ops import kmer_windows
 
-        monkeypatch.setattr(kmer_windows, "window_values", refused)
+        monkeypatch.setattr(kmer_windows, "ragged_values", refused)
         kw = dict(backend="xla", prepare_impl="jax")
     out = io.StringIO()
     with pytest.raises(tilejoin.KernelError,
