@@ -139,9 +139,14 @@ failure and then prints no result):
    against their twins on the card, exact, with their device times, the
    twins' and their bounds, and beside B13's binning the device time of
    ``torch.argsort(owner, stable=True)`` on the same owners (its library
-   call, timed only) and beside the un-binning two ``torch.index_select``
-   of the back buffers by the cells (its library calls, timed and held
-   against it); and, each call taken by a spy on its wrapper,
+   call, timed only) and beside the un-binning (one back buffer [T, 2,
+   cap] in, the host's [3, ld] layout of offsets, states and overflow
+   flags out) the same answer by PyTorch calls: the back buffer's rows as
+   [2, T * cap], an ``index_select`` of them by the cells, the flags and a
+   ``cat`` (its library yardstick, timed and held against it); every
+   routed run prints its return trip, counted by spies (``routed_trips``:
+   one answer exchange a probe and one read-back a shard, or the phase
+   fails); and, each call taken by a spy on its wrapper,
    the fused kernel's shard form in the (2, 2) spmd step on phase 12's
    proteome bucket batch and read batch (a data slice's rows against a
    table shard), equal to its twin and to the window kernel followed by
@@ -162,12 +167,19 @@ failure and then prints no result):
    container's steps and the device time a step of it;
 15. two processes of the port under gloo (``--mp-worker``: this script,
    one rank each), each holding two mesh positions of the one card: the
-   sharded (2, 2), routed 4 and stream-shard 4 lookups of the proteome's
-   queries against phase 4's table, each rank's hits equal to a
-   single-process lookup's; then each rank's engine over its
-   ``shard_records`` share, merged by ``merge_report_shards`` into phase
-   4's report byte for byte; each step's wall time and launches of B1,
-   B2, B12 and B13 are printed.
+   sharded (2, 2), routed 4 (its return trip counted as in phase 13),
+   stream-shard 4 and sharded sparse probe (1, 4) lookups of the
+   proteome's queries against phase 4's table, each rank's hits equal to
+   a single-process lookup's; the fused step (``spmd``) on a (2, 2) mesh
+   over both ranks, every rank consuming the whole input: the proteome
+   (the report made from its hits equal to phase 4's) and phase 7's first
+   20,000 reads with the genome's first 150,000 bases as one long contig
+   (through the windowed step), each rank's hits equal to a
+   single-process (2, 2) step's, the fused kernel launched only through
+   its shard entry; then each rank's engine over its ``shard_records``
+   share, merged by ``merge_report_shards`` into phase 4's report byte
+   for byte; each step's build and lookup walls and launches are
+   printed.
 
 Phase 4 also runs the proteome with ``--sort-chunks 1`` and with
 ``--sort-chunks 1 --device-sort`` (each report equal to the unsorted one)
@@ -205,7 +217,8 @@ of one of the entry's figures lost its kernel records, launch gaps and
 host syncs included; a kernel and its yardstick are timed the same way),
 the bound and share at those shapes (no share for ``events_per_run``),
 and ``library_ms``: B13's ``torch.argsort`` beside its binning (and its
-``index_select`` pair beside the un-binning), null for the others (no
+``index_select`` yardstick beside the un-binning, with the un-binning's
+own bound and share), null for the others (no
 single PyTorch call computes a first-event window probe, a shard's first
 match or the grouping machine); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
@@ -2110,9 +2123,69 @@ def _traced_library_runs(run, dev, reps, flush, pad):
 
 
 def bound_route_unbin(n, answered):
-    """B13's un-binning: each query's cell in and its two answer bytes out
-    (6 B), and the two answer bytes of each answered query's cell."""
-    return bound(6 * n + 2 * answered, n)
+    """B13's un-binning: each query's cell in (4 B) and its offset, state
+    and overflow flag out (3 B), and the two answer bytes of each answered
+    query's cell."""
+    return bound(7 * n + 2 * answered, n)
+
+
+@contextlib.contextmanager
+def routed_trips():
+    """Counts, for the enclosed work, the routed lookup's probes, its
+    exchanges (``forward``: the fingerprint and home bins; ``answer``: the
+    u8 back buffers) and its read-backs (copies to the host of an
+    un-binning's [3, ld] buffer), each taken by a spy; yields the counts.
+    """
+    import torch
+
+    from kmergutsjava_tpu_torch.parallel import routed_lookup
+
+    counts = {"probes": 0, "forward_exchanges": 0, "answer_exchanges": 0,
+              "read_backs": 0, "shards": 0}
+    real_a2a = routed_lookup.all_to_all
+    real_probe = routed_lookup.RoutedLookup.probe
+    real_cpu = torch.Tensor.cpu
+    inside = []
+
+    def a2a(mesh, sends, outs):
+        answer = any(o is not None and o.dtype == torch.uint8 for o in outs)
+        counts["answer_exchanges" if answer else "forward_exchanges"] += 1
+        return real_a2a(mesh, sends, outs)
+
+    def probe(self, values):
+        counts["probes"] += 1
+        counts["shards"] += len([t for t in range(self.n_shards)
+                                 if self.mesh.local(0, t)])
+        inside.append(True)
+        try:
+            return real_probe(self, values)
+        finally:
+            inside.pop()
+
+    def cpu(self, *args, **kwargs):
+        if inside and self.dtype == torch.uint8 and self.dim() == 2 \
+                and self.shape[0] == 3:
+            counts["read_backs"] += 1
+        return real_cpu(self, *args, **kwargs)
+
+    routed_lookup.all_to_all = a2a
+    routed_lookup.RoutedLookup.probe = probe
+    torch.Tensor.cpu = cpu
+    try:
+        yield counts
+    finally:
+        routed_lookup.all_to_all = real_a2a
+        routed_lookup.RoutedLookup.probe = real_probe
+        torch.Tensor.cpu = real_cpu
+
+
+def check_trips(label, trips):
+    """The routed lookup's return trip: one answer exchange a probe and one
+    read-back a shard of this process."""
+    if trips["answer_exchanges"] != trips["probes"] \
+            or trips["read_backs"] != trips["shards"]:
+        raise RuntimeError(f"{label}: {trips}: not one answer exchange a "
+                           "probe and one read-back a shard")
 
 
 def mesh_devices_of_card():
@@ -2145,13 +2218,14 @@ def mesh_runs(work, big, faa, reads, tj_launches, fused_launches):
     def one(label, aa, backend, predicted, cli_mesh=None, **cfg):
         reset_counts()
         out = os.path.join(work, f"mesh_{len(os.listdir(work))}.txt")
-        if cli_mesh:
-            info, secs = run_cli(big, query[aa], out, "cuda",
-                                 ("--backend", backend, "--mesh", cli_mesh),
-                                 aa=aa)
-        else:
-            info, secs = run_engine(big, query[aa], out, aa=aa,
-                                    backend=backend, **cfg)
+        with routed_trips() as trips:
+            if cli_mesh:
+                info, secs = run_cli(big, query[aa], out, "cuda",
+                                     ("--backend", backend, "--mesh",
+                                      cli_mesh), aa=aa)
+            else:
+                info, secs = run_engine(big, query[aa], out, aa=aa,
+                                        backend=backend, **cfg)
         counts = read_counts()
         got = read(out)
         m = cached_mesh()
@@ -2160,8 +2234,11 @@ def mesh_runs(work, big, faa, reads, tj_launches, fused_launches):
         print(f"phase 13: {label} backend={backend} mesh={shape} positions="
               f"{len(devs)} distinct_cards={len({str(d) for d in devs})} "
               f"report_bytes={len(got)} identical={got == want[aa]} "
-              f"launches={counts} wall_s={secs:.3f} {phase_ms(info)}",
+              f"launches={counts} wall_s={secs:.3f} {phase_ms(info)}"
+              + (f" routed_trips={trips}" if trips["probes"] else ""),
               flush=True)
+        if trips["probes"]:
+            check_trips(f"phase 13: {label} {backend}", trips)
         if got != want[aa]:
             raise RuntimeError(f"phase 13: {label} {backend} differs from "
                                f"phase {4 if aa else 7}'s report")
@@ -2322,40 +2399,42 @@ def mesh_kernels_vs_twins(dev, big, faa):
     res["route_bins"] = (err, sum(ms), t_ms, bnd, lib_ms)
     cell = got[2]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    back = torch.randint(0, 256, (2, shards * cap), dtype=torch.uint8,
+    back = torch.randint(0, 256, (shards, 2, cap), dtype=torch.uint8,
                          device=dev, generator=gen)
 
     def unbin():
-        return route_bins.unbin(cell, back[0], back[1])
+        return route_bins.unbin(cell, back)
 
     got = unbin()
-    twin = route_bins.unbin_reference(cell, back[0], back[1])
+    twin = route_bins.unbin_reference(cell, back)
     torch.cuda.synchronize(dev)
-    err = max(int((a.int() - b.int()).abs().max())
-              for a, b in zip(got, twin))
-    t_ms = timed(lambda: route_bins.unbin_reference(cell, back[0], back[1]),
-                 dev)
+    err = int((got.int() - twin.int()).abs().max())
+    t_ms = timed(lambda: route_bins.unbin_reference(cell, back), dev)
     bnd = bound_route_unbin(n_loc, int((cell >= 0).sum()))
     timers = [lambda ev: kernel_device_ms(unbin, dev, "route_unbin",
                                           events=ev)]
-    # its library yardstick: each output one index_select of the back
-    # buffer by the cells (the same function where no query overflows)
+    # its library yardstick, where no query overflows (index_select takes
+    # no -1): the same [3, n] answer by PyTorch calls, an index_select of
+    # the back buffer's offsets and states (as [2, T * cap]) by the cells,
+    # and the flags
     if int((cell < 0).sum()) == 0:
         def take():
-            return (torch.index_select(back[0], 0, cell),
-                    torch.index_select(back[1], 0, cell))
+            rows = back.transpose(0, 1).reshape(2, shards * cap)
+            return torch.cat((torch.index_select(rows, 1, cell),
+                              (cell < 0).to(torch.uint8)[None]))
 
-        err = max([err] + [int((a.int() - b.int()).abs().max())
-                           for a, b in zip(take(), got)])
+        err = max(err, int((take().int() - got[:, :n_loc].int()).abs()
+                           .max()))
         timers.append(lambda ev: library_device_ms(
             take, dev, key="index_select", events=ev))
     (ms, kept), *lib = same_timing(*timers)
     lib_ms = lib[0][0] if lib else None
     print(f"phase 13: B13 unbin shard 0 of {shards} queries={n_loc} "
-          f"max_abs_err={err} device_ms={ms[0]:.5f} runs_kept={kept}/5 "
-          f"twin_ms={t_ms:.4f} library_ms={lib_ms} (two index_select of "
-          f"the back buffers by cell) {bound_fields(ms[0], bnd)}",
-          flush=True)
+          f"cap={cap} overflow={int((cell < 0).sum())} max_abs_err={err} "
+          f"device_ms={ms[0]:.5f} runs_kept={kept}/5 twin_ms={t_ms:.4f} "
+          f"library_ms={lib_ms} (the back buffer's rows as [2, T * cap], "
+          f"an index_select of them by cell, the flags, a cat) "
+          f"{bound_fields(ms[0], bnd)}", flush=True)
     res["route_unbin"] = (err, ms[0], t_ms, bnd, lib_ms)
     return res
 
@@ -2702,6 +2781,7 @@ def multiprocess_phase(work, big, faa):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    write_mp_dna(work)
     t0 = time.time()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mp-worker", addr, "2",
@@ -2738,6 +2818,126 @@ def multiprocess_phase(work, big, faa):
                            "4's")
 
 
+MP_READS = 20_000      # phase 7's first reads in phase 15's DNA query
+MP_CONTIG = 150_000    # and the genome's first bases as one long contig
+
+
+def write_mp_dna(work):
+    """Phase 15's DNA query for the fused step: phase 7's first MP_READS
+    reads and the genome's first MP_CONTIG bases as one contig, which is
+    past LONG_NT and goes through the windowed step. Returns its path."""
+    path = os.path.join(work, "mp_dna.fna")
+    with open(os.path.join(work, "reads.fna")) as fh:
+        lines = fh.read().splitlines()[:2 * MP_READS]
+    with open(os.path.join(work, "genome.fna")) as fh:
+        genome = "".join(line.strip() for line in fh
+                         if not line.startswith(">"))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + f"\n>contig\n{genome[:MP_CONTIG]}\n")
+    return path
+
+
+def report_from_hits(data_dir, prep, hits, aa):
+    """The report the engine makes from a lookup's ``prep`` and ``hits``
+    (its grouping, the default parameters)."""
+    from kmergutsjava_tpu_torch.calls.grouping import (
+        GroupingParams, Report, process_aa_seq, process_dna_seq)
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.formats.function_index import \
+        load_function_index
+    from kmergutsjava_tpu_torch.formats.kmer_table import resolve_table_files
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+
+    cfg = EngineConfig(aa=aa, device="cuda")
+    functions = load_function_index(resolve_table_files(data_dir)[1])
+    params = GroupingParams(min_hits=cfg.min_hits,
+                            min_weighted_hits=cfg.min_weighted_hits,
+                            max_gap=cfg.max_gap,
+                            order_constraint=cfg.order_constraint)
+    by_container = Engine(cfg)._bucket_hits(prep, hits, functions, params)
+    out = io.StringIO()
+    report = Report(out)
+    for qid, length in prep.id_len.items():
+        (process_aa_seq if aa else process_dna_seq)(
+            qid, length, by_container, functions, report, params)
+    report.flush()
+    return out.getvalue()
+
+
+def mp_spmd(rank, world, big, table, query, aa, devs, want_report=None):
+    """Phase 15's fused step at one rank: the whole ``query`` through a
+    (2, 2) mesh spanning the ranks (every rank consumes every record and
+    decodes every answer), against a single-process (2, 2) mesh of this
+    rank's card; the hits must be equal, the fused kernel's shard entry
+    must launch (and nothing else), and the report made from the hits must
+    equal ``want_report`` where one is given."""
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
+    from kmergutsjava_tpu_torch.models import spmd
+    from kmergutsjava_tpu_torch.parallel import fused_probe
+    from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
+
+    mode = "aa" if aa else "dna"
+    cfg = EngineConfig(aa=aa, backend="spmd", device="cuda")
+    records = list(read_fasta(query))
+    shard_calls = []
+    real = fused_probe.shard_first_match
+
+    def counted(*args, **kwargs):
+        shard_calls.append(1)
+        return real(*args, **kwargs)
+
+    def run(program):
+        ann = spmd.SpmdAnnotator(table, cfg, program=program)
+        prep = ann.consume(records)
+        return prep, ann.finish()
+
+    reset_counts()
+    t = time.time()
+    prog = spmd.SpmdProgram(table, cfg, mesh=make_mesh(2, 2, devs,
+                                                       distributed=True))
+    built = time.time() - t
+    t = time.time()
+    fused_probe.shard_first_match = counted
+    try:
+        prep, hits = run(prog)
+    finally:
+        fused_probe.shard_first_match = real
+    wall = time.time() - t
+    counts = read_counts()
+    t = time.time()
+    _, want = run(spmd.SpmdProgram(table, EngineConfig(
+        aa=aa, backend="spmd", device="cuda", mesh_shape=(2, 2),
+        mesh_devices=[devs[0]] * 4)))
+    single = time.time() - t
+    same = all(np.array_equal(getattr(hits, c), getattr(want, c))
+               for c in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"))
+    report = ("" if want_report is None else
+              f" report_identical_to_phase_4="
+              f"{report_from_hits(big, prep, hits, aa) == want_report}")
+    print(f"phase 15: rank {rank} spmd {mode} (2, 2) over {world} processes "
+          f"positions={len(prog.mesh.positions())} records={len(records)} "
+          f"build_s={built:.3f} lookup_s={wall:.3f} single_process_s="
+          f"{single:.3f} hits={len(hits)} identical={same}{report} "
+          f"launches={ {'fused_probe': counts['fused_probe']} } "
+          f"shard_entry_calls={len(shard_calls)}", flush=True)
+    if not same:
+        raise RuntimeError(f"rank {rank}: spmd {mode} hits differ from the "
+                           "single-process step's")
+    if want_report is not None and "report_identical_to_phase_4=False" \
+            in report:
+        raise RuntimeError(f"rank {rank}: spmd {mode} report differs from "
+                           "phase 4's")
+    check_launches(f"phase 15 rank {rank} spmd {mode}", counts,
+                   ("fused_probe",))
+    if counts["fused_probe"] != len(shard_calls):
+        raise RuntimeError(f"rank {rank}: spmd {mode} launched the fused "
+                           f"kernel {counts['fused_probe']} times in "
+                           f"{len(shard_calls)} calls of its shard entry")
+
+
 def mp_worker(addr, world, rank, work, big, faa) -> int:
     """One rank of phase 15 (``chip_smoke.py --mp-worker ADDR WORLD RANK
     WORK BIG FAA``): gloo over ``world`` processes, ``4 // world`` mesh
@@ -2755,7 +2955,8 @@ def mp_worker(addr, world, rank, work, big, faa) -> int:
                                                         _cached_read_table)
     from kmergutsjava_tpu_torch.parallel import (routed_lookup,
                                                  sharded_lookup,
-                                                 stream_shards)
+                                                 stream_shards,
+                                                 tilejoin_shards)
     from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
     from kmergutsjava_tpu_torch.parallel.multihost import (
         initialize_distributed, shard_records)
@@ -2789,7 +2990,8 @@ def mp_worker(addr, world, rank, work, big, faa) -> int:
     # the kernels each step must launch at this rank's positions
     must = {"sharded (2, 2)": ("shard_probe",),
             "routed 4": ("route_bins", "route_unbin", "tilejoin"),
-            "stream-shards 4": ("stream",)}
+            "stream-shards 4": ("stream",),
+            "tilejoin-shards (1, 4)": ("tilejoin",)}
     for label, build in (
             ("sharded (2, 2)", lambda: sharded_lookup.ShardedLookup(
                 table, make_mesh(2, 2, devs, distributed=True),
@@ -2799,25 +3001,38 @@ def mp_worker(addr, world, rank, work, big, faa) -> int:
                 probe_window=max(16, table.max_probe))),
             ("stream-shards 4", lambda: stream_shards.StreamShardedLookup(
                 table, stream_shards.make_stream_mesh(4, devs,
-                                                      distributed=True)))):
+                                                      distributed=True))),
+            ("tilejoin-shards (1, 4)",
+             lambda: tilejoin_shards.TileJoinShardedLookup(
+                 table, make_mesh(1, 4, devs, distributed=True)))):
         reset_counts()
         t = time.time()
         lk = build()
         built = time.time() - t
         t = time.time()
-        got = canon(lk.lookup(values, cnt, pos))
+        with routed_trips() as trips:
+            got = canon(lk.lookup(values, cnt, pos))
         wall = time.time() - t
         counts = read_counts()
         same = all(np.array_equal(a, b) for a, b in zip(got, want))
         print(f"phase 15: rank {rank} {label} positions="
               f"{len(lk.mesh.positions())} build_s={built:.3f} lookup_s="
               f"{wall:.3f} hits={len(got[0])} identical={same} launches="
-              f"{ {names[k]: counts[k] for k in names} }", flush=True)
+              f"{ {names[k]: counts[k] for k in names} }"
+              + (f" routed_trips={trips}" if trips["probes"] else ""),
+              flush=True)
         if not same:
             raise RuntimeError(f"rank {rank}: {label} hits differ from the "
                                "single-process lookup's")
         check_launches(f"phase 15 rank {rank} {label}", counts, must[label])
+        if trips["probes"]:
+            check_trips(f"phase 15 rank {rank} {label}", trips)
         del lk
+    with open(os.path.join(work, "big_cuda.txt")) as fh:
+        want_aa = fh.read()
+    mp_spmd(rank, world, big, table, faa, True, devs, want_aa)
+    mp_spmd(rank, world, big, table, os.path.join(work, "mp_dna.fna"),
+            False, devs)
     mine = list(shard_records(read_fasta(faa), rank, world))
     text = "".join(f">{r.id} {r.descr}\n{r.seq}\n" for r in mine)
     reset_counts()
@@ -3146,6 +3361,10 @@ def main() -> int:
                                 "index_select")),
         "library_ms": mesh_cmp["route_bins"][4],
         "unbin_bound_ms": mesh_cmp["route_unbin"][3][0],
+        "unbin_bound_by": mesh_cmp["route_unbin"][3][1],
+        "unbin_share": kernel_bound(
+            mesh_cmp["route_unbin"][1], mesh_cmp["route_unbin"][3],
+            timed_by("route_unbin", "index_select"))["share"],
         "unbin_library_ms": mesh_cmp["route_unbin"][4],
     }, {
         "name": "scan_machine",

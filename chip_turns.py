@@ -29,7 +29,10 @@ whose entry takes no ``order``, such as the parent commit's, is called in
 its own form) and ``--route`` sources of the routing bins
 (csrc/route_bins.cu, ``new``, through the wrapper), the latter in turns
 with ``torch.argsort(owner, stable=True)`` on the same owners (``argsort``,
-the library yardstick); ``--values`` sources of the window kernel
+the library yardstick), and each source's un-binning alone (device time)
+and with its read-backs (host time): the packed entry's one copy of its
+[3, ld] buffer, or the parent's form (two back buffers in, off and state
+out) with its three copies (off, state, the cells for the flags); ``--values`` sources of the window kernel
 (csrc/kmer_windows.cu, ``new``): one with the ragged entry is timed over
 the calls a whole ``--prepare jax`` prepare of the proteome and of the
 read set makes (at each launch budget of ``--budgets``, in bytes: the
@@ -59,7 +62,8 @@ proteome and read-set runs (``--grouping scan`` on the 24M-signature
 table, taken by a spy on the wrapper), each source checked against the
 twin at every flag and emitting record. B13 case: chip_smoke phase 13's
 first source shard of the routed run over 4 (1,009,459 queries, cap
-504,729), each source checked against the twin cell for cell. B8
+504,729), each source checked against the twin cell for cell, its
+un-binning (of seeded answers) too. B8
 cases: the proteome's and the read set's prepares (the calls taken by a
 spy on the wrapper, each call's windows held against the twin; the
 padded launches' values against the twin's). B12 case: chip_smoke phase
@@ -80,6 +84,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -334,17 +339,91 @@ def scan_walls(work, big, faa, reads, scan, runs, rounds):
     return rows
 
 
-def route_lib(path):
-    """The routing library at ``path``, its entries typed as the wrapper
-    types them."""
+def packed_unbin(src):
+    """Whether the routing source's un-binning entry writes the packed
+    [3, ld] answer from one back buffer (else it is the parent's form: two
+    back buffers in, off and state out)."""
+    with open(src) as fh:
+        return "const void* back_state" not in fh.read()
+
+
+def route_lib(path, src):
+    """The routing library at ``path`` (built from ``src``), its entries
+    typed as the wrapper of the source's own commit types them."""
     lib = ctypes.CDLL(path)
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.route_bins.restype = ctypes.c_int
     lib.route_bins.argtypes = [p, p, i64, i64, i64, ctypes.c_int32, i64,
                                p, p, p, p, p, p]
     lib.route_unbin.restype = ctypes.c_int
-    lib.route_unbin.argtypes = [p, i64, p, p, p, p, p]
+    lib.route_unbin.argtypes = ([p, i64, p, i64, p, p] if packed_unbin(src)
+                                else [p, i64, p, p, p, p, p])
     return lib
+
+
+def unbin_runs(lib, src, cell, back):
+    """(launch, read) for ``lib``'s un-binning of ``cell`` against the
+    answers ``back`` [T, 2, cap], as the routed lookup of the source's own
+    commit makes it: launch() runs the kernel alone; read() runs it and
+    its read-backs and returns the [3, n] host answer (offsets, states,
+    overflow flags). The packed entry writes one [3, ld] buffer, read back
+    in one copy; the parent's form takes the offsets and states as two
+    buffers [T * cap], writes off and state, and is read back in three
+    copies (off, state, and the cells for their overflow flags)."""
+    import numpy as np
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.tilejoin import KernelError
+    from kmergutsjava_tpu_torch.parallel.route_bins import row_stride
+
+    n, cap, dev = cell.numel(), back.shape[2], cell.device
+
+    def check(rc):
+        if rc:
+            raise KernelError(f"route_unbin launch failed: CUDA error {rc}")
+
+    if packed_unbin(src):
+        out = torch.empty((3, row_stride(n)), dtype=torch.uint8, device=dev)
+
+        def launch():
+            check(lib.route_unbin(cell.data_ptr(), n, back.data_ptr(), cap,
+                                  out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream))
+            return out
+
+        return launch, lambda: launch().cpu().numpy()[:, :n]
+    b_off, b_state = (back[:, k].contiguous().view(-1) for k in range(2))
+    off = torch.empty(n, dtype=torch.uint8, device=dev)
+    state = torch.empty(n, dtype=torch.uint8, device=dev)
+
+    def launch():
+        check(lib.route_unbin(cell.data_ptr(), n, b_off.data_ptr(),
+                              b_state.data_ptr(), off.data_ptr(),
+                              state.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream))
+        return off, state
+
+    def read():
+        o, s = launch()
+        return np.stack([o.cpu().numpy(), s.cpu().numpy(),
+                         (cell.cpu().numpy() < 0).view(np.uint8)])
+
+    return launch, read
+
+
+def host_ms(run, reps):
+    """The median host milliseconds of ``reps`` runs of ``run`` (which ends
+    in a copy to the host), the card idle before each."""
+    import torch
+
+    run()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 def scan_batches(work, big, faa, reads):
@@ -631,8 +710,8 @@ def main() -> int:
                       for label, _ in fused}, "fused_new")
     scan_runs = {label: scan_entry(ctypes.CDLL(paths["scan_" + label]), src)
                  for label, src in scan}
-    route_libs = {label: route_lib(paths["route_" + label])
-                  for label, _ in route}
+    route_libs = {label: route_lib(paths["route_" + label], src)
+                  for label, src in route}
     values_libs = {label: kmer_windows.bind(ctypes.CDLL(
         paths["values_" + label])) for label, _ in b8}
     shard_libs = {label: shard_lib(paths["shard_" + label])
@@ -727,6 +806,12 @@ def main() -> int:
             table, values, dev)
         owner = smoke.route_owners(h, n_valid, s_loc, shards)
         r_want = route_bins.bins_reference(q, h, n_valid, s_loc, shards, cap)
+        r_cell = r_want[2]
+        r_back = torch.randint(
+            0, 256, (shards, 2, cap), dtype=torch.uint8, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        u_want = route_bins.unbin_reference(r_cell, r_back).cpu().numpy()[
+            :, :r_cell.numel()]
         route.append(("argsort", None))
     for label, _ in b8:
         same = values_check(values_libs[label], v_ragged, v_padded)
@@ -744,13 +829,16 @@ def main() -> int:
               f"the twin", flush=True)
         if label == "new" and not same:
             return smoke.fail("the repository's B12 differs from the twin")
-    for label, _ in route[:-1]:
+    unbins = {}
+    for label, src in route[:-1]:
         with swapped(route_bins, route_libs[label]):
             same = equal(signed(route_bins.bins(q, h, n_valid, s_loc,
                                                 shards, cap)),
                          signed(r_want))
+        unbins[label] = unbin_runs(route_libs[label], src, r_cell, r_back)
+        same = same and (unbins[label][1]() == u_want).all()
         print(f"check B13 {label}: {'equal to' if same else 'DIFFERS from'} "
-              f"the twin", flush=True)
+              f"the twin (bins and un-binning)", flush=True)
         if label == "new" and not same:
             return smoke.fail("the repository's B13 differs from the twin")
 
@@ -812,6 +900,17 @@ def main() -> int:
                          case="shard 0 of 4", ms=sum(by), runs_kept=kept,
                          by_kernel=by))
         print("turn " + json.dumps(rows[-1]), flush=True)
+        if label in unbins:
+            launch, read = unbins[label]
+            ms, kept = smoke.kernel_device_ms(launch, dev, "route_unbin",
+                                              reps=args.reps)
+            rows.append(dict(kernel="B13 unbin", turn=turn, variant=label,
+                             case="shard 0 of 4", ms=ms[0], runs_kept=kept))
+            print("turn " + json.dumps(rows[-1]), flush=True)
+            rows.append(dict(kernel="B13 unbin + read-backs", turn=turn,
+                             variant=label, case="shard 0 of 4",
+                             ms=host_ms(read, 4 * args.reps)))
+            print("turn " + json.dumps(rows[-1]), flush=True)
 
     for turn, (label, _) in enumerate(in_turns(b8, args.rounds)):
         lib = values_libs[label]

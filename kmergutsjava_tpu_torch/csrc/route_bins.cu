@@ -13,16 +13,21 @@
 // owner is T, overflows: its cell is -1 and the host's exact pass answers
 // it. Row t of the bins goes to shard t (the exchange, outside the
 // kernel); the owner probes it, and its answers come back as rows of
-// back[T, cap] in the same cells. route_unbin gathers each query's (off,
-// state) from its cell, 0 for an overflow.
+// back[T, 2, cap] in the same cells, a row of offsets and a row of
+// states for each owner, one piece a (owner, source) pair, so one exchange
+// carries them. route_unbin writes each query's answer in the host's
+// layout: one u8 buffer [3, ld] (ld = n rounded up to 16), a row of
+// offsets, a row of states and a row of overflow flags (1 where the cell
+// is -1; its offset and state are 0), read back in one copy.
 //
 // What bounds it. Per query its home and fingerprint in (6 B) and its cell
 // out (4 B), then the bins written (6 B a cell); the un-binning reads a
-// cell index and two answer bytes and writes two. All of it is bytes, and
-// small beside the probe's random reads. Stability comes from tiles of
-// 1024 queries in order. A first kernel ranks each query within its tile
-// (warps by __match_any_sync, then a prefix over the tile's 32 warps in
-// shared memory) and counts the tile's queries per owner; a second scans
+// cell (4 B) and the two answer bytes of each answered cell, and writes
+// 3 B. All of it is bytes, and small beside the probe's random reads.
+// Stability comes from tiles of 1024 queries in order. A first kernel
+// ranks each query within its tile (warps by __match_any_sync, then a
+// prefix over the tile's 32 warps in shared memory) and counts the
+// tile's queries per owner; a second scans
 // those counts over the tiles, a block an owner: a block-wide exclusive
 // scan (warp shuffles, then the 32 warps' sums in shared memory) over
 // 1024 tiles at a time with a carried total, which also leaves each
@@ -30,9 +35,20 @@
 // each owner's total with FP_EMPTY and 0; a fourth adds the two ranks and
 // scatters into the bins, so no cell is written twice. A scan of one
 // thread an owner, walking every tile in turn, would keep T + 1 threads of
-// the card busy. Every kernel's name starts with route_, so that a trace
-// tells them apart. The TPU program's argsort, searchsorted and scatter
-// with a parking column are XLA forms and are not carried.
+// the card busy. The un-binning takes 2 consecutive queries a thread in
+// blocks of 256: one 8-byte load of their cells, their four answer bytes
+// from the back buffer (an owner's queries hold consecutive cells, so a
+// warp's reads fall into a few short runs, and the buffer is small enough
+// to stay in L2), and one 2-byte store into each of the three rows, whose
+// 16-byte row stride keeps every row aligned. Of 1, 2, 4, 8 and 16 queries
+// a thread and blocks of 128 to 1024, two a thread in 256 measured fastest
+// (more threads in flight over the cell -> answer dependence); with the L2
+// cold it is held by the cells' stream from device memory and that
+// dependence: four a thread without the gather took 18% less time than
+// with it (PERF.md). Every kernel's name
+// starts with route_, so that a trace tells them apart. The TPU program's
+// argsort, searchsorted and scatter with a parking column are XLA forms
+// and are not carried.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libroute_bins.so route_bins.cu
@@ -49,6 +65,7 @@ constexpr int kWarps = kTile / 32;
 constexpr int kMaxShards = 256;   // owners are 0..T, so T + 1 <= 257
 constexpr int kScanThreads = 1024; // tiles a scan block takes at a time
 constexpr int kFillThreads = 256;
+constexpr int kUnbinThreads = 256;  // a block of the un-binning
 
 __device__ __forceinline__ int owner_of(const int32_t* __restrict__ homes,
                                         int64_t i, int64_t n_valid,
@@ -164,16 +181,44 @@ route_scatter_kernel(const uint16_t* __restrict__ q_fp,
   }
 }
 
-__global__ void __launch_bounds__(kTile)
-route_unbin_kernel(const int32_t* __restrict__ cell, int64_t n,
-             const uint8_t* __restrict__ back_off,
-             const uint8_t* __restrict__ back_state,
-             uint8_t* __restrict__ off, uint8_t* __restrict__ state) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-  if (i >= n) return;
-  const int32_t c = __ldg(cell + i);
-  off[i] = c >= 0 ? __ldg(back_off + c) : 0;
-  state[i] = c >= 0 ? __ldg(back_state + c) : 0;
+// The answer of the query whose cell is c, a byte of row ``row`` (0:
+// offset, 1: state) of the back buffer [T, 2, cap]: owner c / cap, rank
+// c % cap.
+__device__ __forceinline__ uint32_t answer_byte(
+    const uint8_t* __restrict__ back, int32_t c, uint32_t cap, int row) {
+  if (c < 0) return 0;
+  const uint32_t owner = static_cast<uint32_t>(c) / cap;
+  return __ldg(back + static_cast<int64_t>(c) + (owner + row) * cap);
+}
+
+__global__ void __launch_bounds__(kUnbinThreads)
+route_unbin_kernel(const int32_t* __restrict__ cell, int64_t n, int64_t ld,
+                   const uint8_t* __restrict__ back, uint32_t cap,
+                   uint8_t* __restrict__ out) {
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * kUnbinThreads + threadIdx.x) * 2;
+  if (i0 >= ld) return;
+  const int64_t live = n - i0;  // this thread's queries below n
+  int32_t c[2];
+  if (live >= 2) {  // cell + i0 is 8-byte aligned
+    const int2 a = __ldg(reinterpret_cast<const int2*>(cell + i0));
+    c[0] = a.x;
+    c[1] = a.y;
+  } else {  // the tail, and the row padding past n (all 0)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) c[k] = k < live ? __ldg(cell + i0 + k) : -1;
+  }
+  uint32_t word[3] = {0, 0, 0};  // the two queries' bytes of each row
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    word[0] |= answer_byte(back, c[k], cap, 0) << (8 * k);
+    word[1] |= answer_byte(back, c[k], cap, 1) << (8 * k);
+    word[2] |= static_cast<uint32_t>(k < live && c[k] < 0) << (8 * k);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    *reinterpret_cast<uint16_t*>(out + r * ld + i0) =
+        static_cast<uint16_t>(word[r]);
 }
 
 }  // namespace
@@ -215,21 +260,23 @@ int route_bins(const void* q_fp, const void* homes, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Gathers each of n queries' answer from its cell on ``stream``; returns a
-// CUDA error code. Inputs cell[n], back_off[T * cap], back_state[T * cap];
-// outputs off[n], state[n].
-int route_unbin(const void* cell, int64_t n, const void* back_off,
-                const void* back_state, void* off, void* state,
-                void* stream) {
-  if (n < 0 || n >= (1LL << 31)) return cudaErrorInvalidValue;
+// Writes each of n queries' answer from its cell on ``stream``, in the
+// host's layout; returns a CUDA error code. Inputs cell[n] and back[T, 2,
+// cap]; output out[3, ld] (ld = n rounded up to 16): offsets, states and
+// overflow flags, 0 past n.
+int route_unbin(const void* cell, int64_t n, const void* back, int64_t cap,
+                void* out, void* stream) {
+  const int64_t ld = (n + 15) / 16 * 16;
+  if (n < 0 || n >= (1LL << 31) || cap < 1 || cap >= (1LL << 31))
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const int64_t blocks = (n + kTile - 1) / kTile;
-  route_unbin_kernel<<<static_cast<unsigned>(blocks), kTile, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cell), n,
-      static_cast<const uint8_t*>(back_off),
-      static_cast<const uint8_t*>(back_state), static_cast<uint8_t*>(off),
-      static_cast<uint8_t*>(state));
+  const int64_t per_block = 2 * kUnbinThreads;  // two queries a thread
+  route_unbin_kernel<<<static_cast<unsigned>((ld + per_block - 1) /
+                                             per_block),
+                       kUnbinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cell), n, ld,
+      static_cast<const uint8_t*>(back), static_cast<uint32_t>(cap),
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,12 @@ other shape runs the JAX step's body: each batch's rows split over the
 data axis, the fused kernel in the shard probe B12's form
 (``parallel/shard_probe.py``) on every position's rows against its table
 shard, the answers summed over the table axis; that answer is the JAX
-step's, bit for bit.
+step's, bit for bit. A caller may give ``SpmdProgram`` a mesh over the
+processes of a distributed run (as the JAX program's mesh spans them after
+``jax.distributed.initialize``): every rank consumes the same records in
+the same batches, runs its own positions, and reads every answer back in
+the same order (``MeshAnswer.read``, an all-gather), so every rank's hits
+are the same. The engine's own meshes stay in one process.
 
 Hits come back as (container, position, metadata) columns that feed the
 standard grouping machine, so reports are byte-identical to every other
@@ -109,11 +114,19 @@ class SpmdProgram:
     on (a larger mesh's positions each issue on their own). Shared across
     engine runs (a server reuses it per table, as the other backends'
     lookups); per-run bookkeeping lives in SpmdAnnotator. Too few devices
-    for the mesh, or a window past 128, is a ValueError."""
+    for the mesh, or a window past 128, is a ValueError.
 
-    def __init__(self, table: KmerTable, cfg):
+    ``mesh`` (default: one made from ``cfg``, in this process) may be a
+    caller's, a mesh over the processes of a distributed run among them
+    (``make_mesh(..., distributed=True)``): then every rank builds the
+    program, consumes the same records in the same batches, runs its own
+    positions and decodes the whole answer, so every rank's hits are the
+    same. The engine's own meshes stay in one process."""
+
+    def __init__(self, table: KmerTable, cfg, mesh=None):
         from ..parallel import annotate_step as st
-        from ..parallel.mesh import (default_mesh_shape, make_mesh,
+        from ..parallel.mesh import (DATA_AXIS, TABLE_AXIS,
+                                     default_mesh_shape, make_mesh,
                                      mesh_devices)
 
         if table.max_probe is None:
@@ -129,11 +142,16 @@ class SpmdProgram:
         self.table = table
         self.aa = bool(cfg.aa)
         self.pw = pw
-        devices = mesh_devices(cfg.device, cfg.mesh_devices)
-        self.mesh_shape = tuple(cfg.mesh_shape
-                                or default_mesh_shape(len(devices)))
-        self.mesh = make_mesh(*self.mesh_shape, devices=devices)
-        self.one_device = self.mesh_shape == (1, 1)
+        if mesh is None:
+            devices = mesh_devices(cfg.device, cfg.mesh_devices)
+            mesh = make_mesh(*(cfg.mesh_shape
+                               or default_mesh_shape(len(devices))),
+                             devices=devices)
+        self.mesh = mesh
+        self.mesh_shape = (mesh.shape[DATA_AXIS], mesh.shape[TABLE_AXIS])
+        # a (1, 1) mesh over processes takes the mesh step: the ranks
+        # without its position still read every answer
+        self.one_device = self.mesh_shape == (1, 1) and not mesh.distributed
         if self.one_device:
             self.device, self.stream = self.mesh.at(0, 0)
             with self.device_work("plane upload"):

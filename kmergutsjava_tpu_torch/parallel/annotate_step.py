@@ -22,7 +22,10 @@ fused kernel in the shard probe B12's form (``fused_probe.py``
 ``shard_first_match``) on data slice d's rows against table shard t's
 slice of the plane, and each data row's answers are summed
 (``mesh.psum``): per window the first fingerprint-match slot + 1, 0 for
-none, bit for bit the JAX step's answer (``MeshAnswer``).
+none, bit for bit the JAX step's answer (``MeshAnswer``). On a mesh over
+processes each rank runs its own positions, a row's sum is an
+``all_reduce`` where the row spans ranks, and every rank reads every row
+(``fetch_global``).
 
 Either way the host verifies each candidate against the query value
 recomputed at its coordinates (``ops/hostvalues.py``) and gathers the
@@ -73,13 +76,16 @@ def candidate_slots(values: np.ndarray, off: np.ndarray, num_sigs: int
 
 class MeshAnswer(NamedTuple):
     """A mesh step's answer: each data row's int32 slot + 1 on its first
-    position, for the first ``shape[0]`` of the padded batch's rows."""
+    position of this process (None for a row this process holds no
+    position of), for the first ``shape[0]`` of the padded batch's rows."""
     mesh: Mesh
     rows: list
     shape: tuple
 
     def read(self) -> np.ndarray:
-        """The answer on the host, of ``shape``."""
+        """The answer on the host, of ``shape`` (every row's, on every
+        rank of a mesh over processes: each rank must read each step's
+        answer, in the same order)."""
         got = fetch_global(self.mesh, self.rows)
         return got.reshape(-1, *self.shape[1:])[:self.shape[0]]
 
@@ -134,8 +140,8 @@ def make_dna_step(table: KmerTable, probe_window: int, device
 
 def sharded_planes(mesh: Mesh, table: KmerTable, probe_window: int) -> dict:
     """The table's plane cut into the mesh's table shards, each on its
-    positions (``fp`` [d][t]), and the slots a shard owns (``s_loc``)."""
-    mesh.one_process("the fused step")
+    positions of this process (``fp`` [d][t]), and the slots a shard owns
+    (``s_loc``)."""
     planes = shard_table_planes(table, mesh.shape[TABLE_AXIS], probe_window)
     return {"fp": place_planes(mesh, planes["fp"]), "s_loc": planes["s_loc"]}
 
@@ -149,7 +155,11 @@ def mesh_step(mesh: Mesh, planes: dict, probe_window: int, num_sigs: int,
     *width(L)). The batch is padded with zero rows (no windows) to a
     multiple of the data axis; position (d, t) uploads data slice d and
     runs the fused kernel's shard entry on it against table shard t;
-    ``psum`` adds row d's answers."""
+    ``psum`` adds row d's answers. On a mesh over processes each rank runs
+    its own positions only, and every rank must make the same steps on
+    the same batches: the padding and the slices do not depend on the
+    rank, ``psum`` joins a row across its ranks and ``MeshAnswer.read``
+    gathers every row on every rank."""
     s_loc = planes["s_loc"]
 
     def step(fp, rows: np.ndarray, *cols):
@@ -162,15 +172,17 @@ def mesh_step(mesh: Mesh, planes: dict, probe_window: int, num_sigs: int,
                 [x, np.zeros((b_pad - b, *x.shape[1:]), x.dtype)]))
         out = []
         for d, (a, e) in enumerate(split_rows(b_pad, n_data)):
-            parts = []
+            parts = [None] * mesh.shape[TABLE_AXIS]
             for t in range(mesh.shape[TABLE_AXIS]):
+                if not mesh.local(d, t):
+                    continue
                 dev, stream = mesh.at(d, t)
                 with on_stream(stream):
                     rows_d, counts, *extra = upload(dev, *(x[a:e]
                                                            for x in arrays))
-                    parts.append(fused_probe.shard_first_match(
+                    parts[t] = fused_probe.shard_first_match(
                         fp[d][t], rows_d, counts, aa, num_sigs, t * s_loc,
-                        s_loc, probe_window, *extra))
+                        s_loc, probe_window, *extra)
             out.append(psum(mesh, d, parts))
         return MeshAnswer(mesh, out, (b, *width(rows.shape[1])))
 

@@ -10,8 +10,11 @@ multi-process path is:
   ranks or for ranks that share a card);
 - a mesh over the processes (``parallel/mesh.py`` ``make_mesh(...,
   distributed=True)``), whose collectives take their process-group form, so
-  that the sharded, routed and stream-shard lookups span processes and
-  every rank gets the whole answer;
+  that the sharded, routed, stream-shard and sharded sparse-probe lookups
+  and the fused step (``models/spmd.py`` ``SpmdProgram(..., mesh=)``) span
+  processes and every rank gets the whole answer (the replicated lookup
+  refuses such a mesh: the JAX package's cannot read its answer across
+  processes either);
 - input sharding at the FASTA level: each process parses only its share of
   the records (round-robin by record index, ``shard_records``); hit
   containers stay where they were parsed, so grouping and report emission

@@ -31,7 +31,10 @@ from .sharded_lookup import split_rows
 class ReplicatedLookup(SparseLookup):
     """The sparse lookup over an ``n x 1`` mesh: the plane on every data
     device, each dispatch's queries split over them. ``chunk`` is a data
-    device's share of a dispatch (default: one device's dispatch)."""
+    device's share of a dispatch (default: one device's dispatch). A mesh
+    over processes is refused (ValueError): the JAX lookup does not run on
+    one either, its ``jax.device_get`` of an answer that spans other
+    processes' devices raises."""
 
     def __init__(self, table: KmerTable, mesh: Mesh,
                  chunk: Optional[int] = None):

@@ -12,9 +12,13 @@ queries in a STABLE sort by owner; ``bins(...)`` lays the queries out in
 ``[T, cap]`` bins of fingerprints (``FP_EMPTY`` in a cell no query takes)
 and homes (0 there), and each query's ``cell`` (``owner * cap + rank``, or
 -1 for an overflow: a rank of ``cap`` or more, or a padded query). Row t of
-the bins goes to shard t; the owner's answers come back in the same cells,
-and ``unbin(...)`` gathers each query's (off, state) from its cell (0 for
-an overflow). Cell for cell, the bins equal ``_routed_step``'s.
+the bins goes to shard t; the owner's answers come back in the same cells
+as a back buffer ``[T, 2, cap]`` (a row of offsets and a row of states for
+each owner, so one exchange carries both), and ``unbin(...)`` writes each
+query's answer in the host's layout: one u8 buffer ``[3, ld]`` (``ld`` =
+``row_stride(n)``) of offsets, states and overflow flags (1 where the cell
+is -1, whose offset and state are 0), which the host reads back in one
+copy. Cell for cell, the bins equal ``_routed_step``'s.
 
 The kernels (``csrc/route_bins.cu``) are compiled with nvcc for sm_90a into
 a plain-C shared library on first use and loaded with ctypes; nothing is
@@ -60,7 +64,7 @@ def load_kernel() -> ctypes.CDLL:
         lib.route_bins.argtypes = [p, p, i64, i64, i64, ctypes.c_int32, i64,
                                    p, p, p, p, p, p]
         lib.route_unbin.restype = ctypes.c_int
-        lib.route_unbin.argtypes = [p, i64, p, p, p, p, p]
+        lib.route_unbin.argtypes = [p, i64, p, i64, p, p]
         _lib = lib
         return lib
 
@@ -98,14 +102,29 @@ def bins_reference(q_fp: torch.Tensor, homes: torch.Tensor, n_valid: int,
             bin_home.view(n_shards, cap), cell.to(torch.int32))
 
 
-def unbin_reference(cell: torch.Tensor, back_off: torch.Tensor,
-                    back_state: torch.Tensor):
-    """Plain PyTorch twin of the un-binning: (off u8 [n], state u8 [n])."""
+def row_stride(n: int) -> int:
+    """The row stride of the un-binning's output for ``n`` queries: ``n``
+    rounded up to 16, so that every row starts at a 16-byte boundary and
+    the kernel's 2-byte stores are aligned in every row."""
+    return -(-n // 16) * 16
+
+
+def unbin_reference(cell: torch.Tensor, back: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the un-binning: u8 [3, row_stride(n)] of each
+    query's offset, state and overflow flag, 0 past n."""
+    n = cell.numel()
+    cap = back.shape[2]
+    out = torch.zeros((3, row_stride(n)), dtype=torch.uint8,
+                      device=cell.device)
     ok = cell >= 0
     c = torch.where(ok, cell, 0).to(torch.int64)
+    at = c + torch.div(c, cap, rounding_mode="floor") * cap
+    flat = back.reshape(-1)
     zero = torch.zeros((), dtype=torch.uint8, device=cell.device)
-    return (torch.where(ok, back_off.reshape(-1)[c], zero),
-            torch.where(ok, back_state.reshape(-1)[c], zero))
+    out[0, :n] = torch.where(ok, flat[at], zero)
+    out[1, :n] = torch.where(ok, flat[at + cap], zero)
+    out[2, :n] = (~ok).to(torch.uint8)
+    return out
 
 
 def _check_1d(name, t, dt, device) -> None:
@@ -158,38 +177,39 @@ def bins(q_fp: torch.Tensor, homes: torch.Tensor, n_valid: int, s_loc: int,
     return bin_qfp, bin_home, cell
 
 
-def unbin(cell: torch.Tensor, back_off: torch.Tensor,
-          back_state: torch.Tensor):
-    """(off u8 [n], state u8 [n]): each query's answer from its cell of
-    ``back_*`` (u8, T * cap cells), 0 for an overflow. CPU tensors run the
+def unbin(cell: torch.Tensor, back: torch.Tensor) -> torch.Tensor:
+    """Each query's answer from its cell of ``back`` (u8 [T, 2, cap]: each
+    owner's offsets, then its states), in the host's layout: u8 [3,
+    row_stride(n)] of offsets, states and overflow flags (an overflow's
+    offset and state are 0; columns past n are 0). CPU tensors run the
     plain twin; CUDA tensors launch the kernel (or raise KernelError)."""
     global unbin_launches
     dev = cell.device
     _check_1d("cell", cell, torch.int32, dev)
-    for name, t in (("back_off", back_off), ("back_state", back_state)):
-        if t.dtype != torch.uint8 or not t.is_contiguous() \
-                or t.device != dev:
-            raise KernelError(f"{name} must be a contiguous uint8 tensor on "
-                              f"{dev}, got {t.dtype} on {t.device}")
-    if back_off.numel() != back_state.numel():
-        raise KernelError("back_off and back_state differ in size")
+    if back.dtype != torch.uint8 or back.dim() != 3 or back.shape[1] != 2 \
+            or not back.is_contiguous() or back.device != dev:
+        raise KernelError(f"back must be a contiguous uint8 tensor [T, 2, "
+                          f"cap] on {dev}, got {back.dtype} "
+                          f"{tuple(back.shape)} on {back.device}")
+    n, cap = cell.numel(), back.shape[2]
+    if n >= 1 << 31 or not 1 <= cap < 1 << 31:
+        raise KernelError(f"no un-binning of {n} queries at cap {cap}")
     if dev.type == "cpu":
-        return unbin_reference(cell, back_off, back_state)
+        return unbin_reference(cell, back)
     if dev.type != "cuda":
         raise KernelError(f"no routing kernel for device {dev}")
-    n = cell.numel()
-    off = torch.empty(n, dtype=torch.uint8, device=dev)
-    state = torch.empty(n, dtype=torch.uint8, device=dev)
+    if cell.data_ptr() % 8:
+        raise KernelError("cell must start at an 8-byte boundary")
+    out = torch.empty((3, row_stride(n)), dtype=torch.uint8, device=dev)
     if n == 0:
-        return off, state
+        return out
     lib = load_kernel()
-    rc = lib.route_unbin(cell.data_ptr(), n, back_off.data_ptr(),
-                         back_state.data_ptr(), off.data_ptr(),
-                         state.data_ptr(),
+    rc = lib.route_unbin(cell.data_ptr(), n, back.data_ptr(), cap,
+                         out.data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise KernelError(f"routing unbin kernel launch failed: CUDA error "
                           f"{rc}")
     with _lock:
         unbin_launches += 1
-    return off, state
+    return out

@@ -9,8 +9,11 @@ s_loc``) with the routing bins (B13, ``parallel/route_bins.py``), the bins
 are exchanged (``mesh.all_to_all``: one copy for each pair of shards), each
 owner probes the queries it received against its slice with the sparse
 probe (B1, ``lookup/tilejoin.py``, at homes local to the slice), the
-answers return by the mirrored exchange, and B13 gathers them back to query
-order. Per-query traffic does not grow with the shard count.
+answers return by the mirrored exchange (one piece a pair of shards, each
+cell's offset and state together), and B13 writes them back in query
+order, with each query's overflow flag, into one buffer a shard that the
+host reads back in one copy. Per-query traffic does not grow with the
+shard count.
 
 The bins have a fixed capacity, the mean load per owner times a slack
 factor. Queries that would overflow a bin (and padded ones) come back
@@ -114,33 +117,31 @@ class RoutedLookup(HostWindow):
                     answer = tilejoin.probe_answer(
                         self.planes[t], r_qfp.view(-1), local,
                         self.probe_window)
-                    off, state = tilejoin.answer_views(answer, t_n * cap)
-                    answers[t] = (off.view(t_n, cap), state.view(t_n, cap))
-                    # the mirrored exchange's receive buffers
-                    recv[t] = torch.empty((2, t_n, cap), dtype=torch.uint8,
+                    # source s's cells, offsets and states together: a
+                    # [2, cap] view of B1's answer (off, then state at the
+                    # next 16-byte boundary), one piece a pair
+                    _, state = tilejoin.answer_views(answer, t_n * cap)
+                    gap = state.storage_offset() - answer.storage_offset()
+                    answers[t] = answer.as_strided((t_n, 2, cap),
+                                                   (cap, gap, 1))
+                    # the mirrored exchange's receive buffer: back[T, 2, cap]
+                    recv[t] = torch.empty((t_n, 2, cap), dtype=torch.uint8,
                                           device=dev)
-            for k in range(2):  # offsets, then states
-                all_to_all(self.mesh, [
-                    None if a is None else [a[k][s] for s in range(t_n)]
-                    for a in answers], [None if b is None else b[k]
-                                        for b in recv])
+            all_to_all(self.mesh, [None if a is None else list(a)
+                                   for a in answers], recv)
             outs = {}
             for s in mine:
                 with on_stream(at(0, s)[1]):
-                    outs[s] = route_bins.unbin(cells[s], recv[s][0],
-                                               recv[s][1])
+                    outs[s] = route_bins.unbin(cells[s], recv[s])
         parts = {}
         with _device_fault("read-back", "routed probe"):
-            for s in mine:
-                (o, st), cell = outs[s], cells[s]
+            for s in mine:  # one copy a shard: off, state and flag rows
                 with on_stream(at(0, s)[1]):
-                    parts[s] = np.concatenate([
-                        o.cpu().numpy(), st.cpu().numpy(),
-                        (cell.cpu().numpy() < 0).view(np.uint8)])
+                    parts[s] = outs[s].cpu().numpy().reshape(-1)
             if self.mesh.distributed:  # every rank gets the whole answer
                 parts = gather_host(self.mesh, parts, range(t_n), np.uint8)
-        got = np.concatenate([parts[s].reshape(3, n_loc)
-                              for s in range(t_n)], axis=1)
+        got = np.concatenate([
+            parts[s].reshape(3, -1)[:, :n_loc] for s in range(t_n)], axis=1)
         off, state, over = got[0], got[1], got[2].view(bool)
         return off[:n], state[:n], over[:n]
 

@@ -24,7 +24,7 @@ from ..lookup import tilejoin
 from ..lookup.sparse import (FIRST_PASS_WINDOW, HostWindow, SparseLookup,
                              _check_int32_homes, _device_fault, adaptive_w1,
                              on_stream, probe_answer_sorted)
-from .mesh import TABLE_AXIS, Mesh, upload
+from .mesh import TABLE_AXIS, Mesh, gather_host, upload
 from .sharded_lookup import place_planes, shard_table_planes
 
 
@@ -36,14 +36,15 @@ class TileJoinShardedLookup(SparseLookup):
                  probe_window: Optional[int] = None,
                  chunk: Optional[int] = None):
         _check_int32_homes(table.num_sigs)
-        mesh.one_process("the sharded sparse probe")
         HostWindow.__init__(self, table, probe_window)
         self.mesh = mesh
         self.n_shards = mesh.shape[TABLE_AXIS]
         self.w1 = min(adaptive_w1(table, FIRST_PASS_WINDOW),
                       self.full_window)
         self.chunk = chunk if chunk is not None else self.DEFAULT_CHUNK
-        self.device, self._stream = mesh.at(0, 0)
+        mine = [t for t in range(self.n_shards) if mesh.local(0, t)]
+        self.device, self._stream = (mesh.at(0, mine[0]) if mine
+                                     else (None, None))
         planes = shard_table_planes(table, self.n_shards, self.w1)
         self.s_loc = planes["s_loc"]
         with _device_fault("plane upload"):
@@ -52,11 +53,11 @@ class TileJoinShardedLookup(SparseLookup):
     def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray,
                        device_sort: bool = False):
         """Route one chunk's queries to their owner shards (a stable sort by
-        owner), upload each shard's homes, local to its slice, and
-        fingerprints in one copy, and start its probe; returns the pending
-        (per shard: answer buffer and query count, the sort order, the
-        query count) for resolve_probe. With ``device_sort`` each shard's
-        queries are probed in home order."""
+        owner), upload each of this process's shards' homes, local to its
+        slice, and fingerprints in one copy, and start its probe; returns
+        the pending (those shards' answer buffers, the sort order, each
+        shard's bounds in it) for resolve_probe. With ``device_sort`` each
+        shard's queries are probed in home order."""
         homes = np.asarray(homes, np.int32)
         # int16 owners: numpy's stable sort of them is a radix sort
         owner = np.clip(homes // self.s_loc, 0,
@@ -64,30 +65,37 @@ class TileJoinShardedLookup(SparseLookup):
         order = np.argsort(owner, kind="stable")
         bounds = np.searchsorted(owner[order], np.arange(self.n_shards + 1))
         probe = probe_answer_sorted if device_sort else tilejoin.probe_answer
-        answers = []
+        answers = {}  # this process's shards
         with _device_fault("dispatch"):
             for t in range(self.n_shards):
+                if not self.mesh.local(0, t):
+                    continue
                 sel = order[bounds[t]:bounds[t + 1]]
                 dev, stream = self.mesh.at(0, t)
                 with on_stream(stream):
                     h, q = upload(dev, homes[sel] - np.int32(t * self.s_loc),
                                   np.asarray(q_fp, np.uint16)[sel])
-                    answers.append((probe(self.planes[t], q, h, self.w1),
-                                    len(sel)))
-        return answers, order, len(homes)
+                    answers[t] = probe(self.planes[t], q, h, self.w1)
+        return answers, order, bounds
 
     def resolve_probe(self, pending):
-        """Copy each shard's answer back and scatter it to the chunk's
-        query order -> (off, state) numpy u8 arrays."""
-        answers, order, n = pending
+        """Copy each shard's answer back (every shard's, all-gathered, on a
+        mesh over processes) and scatter it to the chunk's query order ->
+        (off, state) numpy u8 arrays."""
+        answers, order, bounds = pending
+        n = len(order)
         off = np.empty(n, np.uint8)
         state = np.empty(n, np.uint8)
-        at = 0
+        got = {}
         with _device_fault("read-back"):
-            for t, (answer, k) in enumerate(answers):
+            for t, answer in answers.items():
                 with on_stream(self.mesh.at(0, t)[1]):
-                    o, s = tilejoin.answer_views(answer.cpu().numpy(), k)
-                sel = order[at:at + k]
-                off[sel], state[sel] = o, s
-                at += k
+                    got[t] = answer.cpu().numpy()
+            if self.mesh.distributed:
+                got = gather_host(self.mesh, got, range(self.n_shards),
+                                  np.uint8)
+        for t in range(self.n_shards):
+            a, b = bounds[t], bounds[t + 1]
+            sel = order[a:b]
+            off[sel], state[sel] = tilejoin.answer_views(got[t], b - a)
         return off, state

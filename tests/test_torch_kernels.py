@@ -1617,15 +1617,14 @@ def test_cuda_route_bins_match_twin(cuda_device, n, shards, cap):
     before = (route_bins.launches, route_bins.unbin_launches)
     got = route_bins.bins(*(x.to(cuda_device) for x in cpu), n_valid, s_loc,
                           shards, cap)
-    back = torch.from_numpy(rng.integers(0, 256, (2, shards * cap)).astype(
+    back = torch.from_numpy(rng.integers(0, 256, (shards, 2, cap)).astype(
         np.uint8))
-    want_u = route_bins.unbin_reference(want[2], back[0], back[1])
-    got_u = route_bins.unbin(got[2], back[0].to(cuda_device),
-                             back[1].to(cuda_device))
+    want_u = route_bins.unbin_reference(want[2], back)
+    got_u = route_bins.unbin(got[2], back.to(cuda_device))
     torch.cuda.synchronize()
     assert (route_bins.launches, route_bins.unbin_launches) == (
         before[0] + 1, before[1] + 1)
-    for a, b in zip((*got, *got_u), (*want, *want_u)):
+    for a, b in zip((*got, got_u), (*want, want_u)):
         assert torch.equal(a.cpu(), b)
     assert int((want[2] < 0).sum()) >= n // 7
 
@@ -1660,18 +1659,50 @@ def test_cuda_route_bins_edge_cases(cuda_device, case):
     before = (route_bins.launches, route_bins.unbin_launches)
     got = route_bins.bins(*(x.to(cuda_device) for x in cpu), n_valid, s_loc,
                           shards, cap)
-    back = torch.from_numpy(rng.integers(0, 256, (2, shards * cap)).astype(
+    back = torch.from_numpy(rng.integers(0, 256, (shards, 2, cap)).astype(
         np.uint8))
-    want_u = route_bins.unbin_reference(want[2], back[0], back[1])
-    got_u = route_bins.unbin(got[2], back[0].to(cuda_device),
-                             back[1].to(cuda_device))
+    want_u = route_bins.unbin_reference(want[2], back)
+    got_u = route_bins.unbin(got[2], back.to(cuda_device))
     torch.cuda.synchronize()
     assert (route_bins.launches, route_bins.unbin_launches) == (
         before[0] + 1, before[1] + 1)
-    for a, b in zip((*got, *got_u), (*want, *want_u)):
+    for a, b in zip((*got, got_u), (*want, want_u)):
         assert torch.equal(a.cpu(), b)
     if case == "all_overflow":
         assert bool((want[2] < 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["phase_13", "tails", "empty",
+                                  "all_overflow", "shards_256"])
+def test_cuda_route_unbin_matches_twin(cuda_device, case):
+    """B13's un-binning on the card equals its twin exactly, one launch a
+    call: at chip_smoke phase 13's shape (shard 0 of the routed run over 4:
+    1,009,459 queries, cap 504,729, cells in owner runs, a few overflows),
+    at every length from 1 to 40 (each tail mod 16 and mod 8), no query,
+    every query overflowing and 256 owners."""
+    from kmergutsjava_tpu_torch.parallel import route_bins
+
+    rng = np.random.default_rng(len(case))
+    shards, cap = {"phase_13": (4, 504_729), "shards_256": (256, 3000)}.get(
+        case, (4, 1000))
+    sizes = {"phase_13": [1_009_459], "tails": range(1, 41), "empty": [0],
+             "all_overflow": [70_001], "shards_256": [300_007]}[case]
+    back = torch.from_numpy(rng.integers(0, 256, (shards, 2, cap)).astype(
+        np.uint8))
+    for n in sizes:
+        owner = np.sort(rng.integers(0, shards, n))
+        cell = (owner * cap + rng.integers(0, cap, n)).astype(np.int32)
+        cell[rng.random(n) < 0.01] = -1
+        if case == "all_overflow":
+            cell[:] = -1
+        cpu = torch.from_numpy(cell)
+        want = route_bins.unbin_reference(cpu, back)
+        before = route_bins.unbin_launches
+        got = route_bins.unbin(cpu.to(cuda_device), back.to(cuda_device))
+        torch.cuda.synchronize()
+        assert route_bins.unbin_launches == before + (1 if n else 0)
+        assert got.shape == want.shape and torch.equal(got.cpu(), want)
 
 
 def _placement(cuda_device, placement):
@@ -2052,9 +2083,12 @@ def test_cuda_multi_process_lookups(cuda_device, tmp_path, backend):
     """tests/test_torch_multiprocess.py's worker on the cards: four ranks
     of one card each under NCCL (the mesh's collectives on the cards), or
     two ranks sharing card 0 under gloo (staged through the host). Every
-    rank's sharded (2, 2), routed 4 and stream-shard 4 hits are the parity
-    scan's, each launching its kernels, and the merged engine shards are
-    the single run's report."""
+    rank's sharded (2, 2), routed 4, stream-shard 4 and sharded sparse
+    probe (tilejoin-shards 4) hits are the parity scan's, each launching
+    its kernels; every rank's fused-step (2, 2) hits equal the
+    single-process ones, launching the fused kernel's shard entry, and the
+    reports made from them equal the port's engine's single run on the
+    card; and the merged engine shards are the single run's report."""
     import io
 
     import test_torch_multiprocess as mp
@@ -2072,8 +2106,19 @@ def test_cuda_multi_process_lookups(cuda_device, tmp_path, backend):
     for _, out in outs:  # every rank holds positions of these meshes
         for line in out.splitlines():
             if line.startswith(("MP-OK sharded", "MP-OK routed 4",
-                                "MP-OK stream")):
+                                "MP-OK stream", "MP-OK tilejoin")):
                 assert "{'B1': 0, 'B2': 0, 'B12': 0, 'B13': 0}" not in line
+            if line.startswith("MP-OK spmd"):
+                assert "{'fused_probe': 0}" not in line
+
+    def port_report(workdir, query, aa):
+        out = io.StringIO()
+        Engine(EngineConfig(aa=aa, min_hits=2)).run(
+            os.path.join(workdir, "d"), os.path.join(workdir, query), out,
+            stdout=True)
+        return out.getvalue()
+
+    mp.check_spmd_reports(tmp_path, world, port_report)
     single = io.StringIO()
     Engine(EngineConfig(aa=True, min_hits=2)).run(
         str(tmp_path / "d"), str(tmp_path / "corpus.faa"), single,

@@ -3,11 +3,17 @@ processes on the CPU, each holding two positions of a mesh that spans both
 (the counterpart of tests/test_multiprocess.py, whose worker runs the JAX
 package), and four of one position each. Each rank runs the sharded lookup
 on a (2, 2) mesh, the routed lookup over 4 shards, the stream shards over
-4 and the routed lookup over 2 (a mesh that leaves some ranks without a
-position), each with the parity scan's hits; checks that the modes with no
-process-group form refuse such a mesh; then runs the engine on its
-round-robin share of a corpus, and the parent merges the report shards and
-holds them to the JAX engine's single run, byte for byte.
+4, the routed lookup over 2 (a mesh that leaves some ranks without a
+position) and the sharded sparse probe over 4 (one-shot, and streamed with
+its chunks sorted on the device), each with the parity scan's hits; the
+fused step (``spmd``) on a (2, 2) mesh over the processes, aa and DNA with
+long records through windows, every rank consuming the whole corpus, its
+hits equal to the single-process port's on a (2, 2) mesh of one process,
+and the report made from them written out; checks that the replicated
+lookup, which has no process-group form, refuses such a mesh; then runs the
+engine on its round-robin share of a corpus. The parent merges the report
+shards and holds them, and each rank's fused-step reports, to the JAX
+engine's single runs, byte for byte.
 
 The worker is this file's ``__main__`` block and imports only the port:
 
@@ -31,8 +37,13 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.abspath(__file__)
 MARKS = ("MP-OK sharded (2, 2)", "MP-OK routed 4", "MP-OK stream-shards 4",
-         "MP-OK routed 2", "MP-OK refusals", "MP-OK engine-shard",
+         "MP-OK routed 2", "MP-OK tilejoin-shards 4",
+         "MP-OK tilejoin-shards 4 streamed", "MP-OK spmd aa (2, 2)",
+         "MP-OK spmd dna (2, 2)", "MP-OK refusals", "MP-OK engine-shard",
          "MP-WORKER-DONE")
+# the fused step's records past these lengths go through windows (the
+# engine's thresholds shrunk, as in tests/test_torch_spmd.py)
+SHORT_LONG = dict(LONG_AA=100, WIN_AA=64, LONG_NT=300, WIN_NT=150)
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
 
@@ -43,7 +54,10 @@ def free_port() -> int:
 
 
 def write_corpus(workdir: str) -> None:
-    """The engine check's data dir and corpus (unique ids, 30 proteins)."""
+    """The engine check's data dir and corpus (unique ids, 30 proteins),
+    and the fused step's queries: the proteins and a long one built from
+    them (``spmd.faa``), reads translated back from them and a long contig
+    (``spmd.fna``)."""
     import numpy as np
 
     from kmergutsjava_tpu_torch.formats.table_tools import (
@@ -57,6 +71,35 @@ def write_corpus(workdir: str) -> None:
         [f"fn{i}" for i in range(5)])
     with open(os.path.join(workdir, "corpus.faa"), "w") as fh:
         fh.write("".join(f">p{i}\n{p}\n" for i, p in enumerate(prots)))
+    joined = "".join(prots)
+    with open(os.path.join(workdir, "spmd.faa"), "w") as fh:
+        fh.write("".join(f">p{i}\n{p}\n" for i, p in enumerate(prots))
+                 + f">long\n{joined[:400]}\n")
+    codon = {}
+    for i, a in enumerate("KNKNTTTTRSRSIIMIQHQHPPPPRRRRLLLLEDEDAAAAGGGG"
+                          "VVVV*Y*YSSSS*CWCLFLF"):
+        codon.setdefault(a, "ACGT"[i // 16] + "ACGT"[i // 4 % 4]
+                         + "ACGT"[i % 4])
+    nt = "".join(codon[c] for c in joined)
+    reads = [nt[a:a + 60] for a in rng.integers(0, len(nt) - 60, 24)]
+    with open(os.path.join(workdir, "spmd.fna"), "w") as fh:
+        fh.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads))
+                 + f">ctg\n{nt[:1200]}\n")
+
+
+def jax_report(workdir: str, query: str, aa: bool) -> str:
+    """The JAX engine's single-run report of ``query`` against the data
+    dir (min_hits 2)."""
+    import io
+
+    from kmergutsjava_tpu.config import EngineConfig as JaxConfig
+    from kmergutsjava_tpu.models.pipeline import Engine as JaxEngine
+
+    out = io.StringIO()
+    JaxEngine(JaxConfig(aa=aa, min_hits=2)).run(
+        os.path.join(workdir, "d"), os.path.join(workdir, query), out,
+        stdout=True)
+    return out.getvalue()
 
 
 def run_ranks(workdir: str, world: int, backend: str, device: str,
@@ -113,6 +156,18 @@ def test_multi_process_gloo(tmp_path, world):
     assert merged == single.getvalue(), \
         "merged multi-process report != the JAX engine's single run"
     assert merged.count("PROTEIN-ID") == 30 and "CALL\t" in merged
+    check_spmd_reports(tmp_path, world, jax_report)
+
+
+def check_spmd_reports(tmp_path, world, single) -> None:
+    """Every rank's fused-step reports (aa, DNA) equal ``single``'s (the
+    JAX engine's, or the port's on the card) byte for byte."""
+    for mode, query in (("aa", "spmd.faa"), ("dna", "spmd.fna")):
+        want = single(str(tmp_path), query, mode == "aa")
+        assert "CALL\t" in want
+        for r in range(world):
+            got = (tmp_path / f"spmd_{mode}_{r}.txt").read_text()
+            assert got == want, f"rank {r}: spmd {mode} report differs"
 
 
 def worker(addr: str, world: int, rank: int, backend: str, device: str,
@@ -189,24 +244,38 @@ def worker(addr: str, world: int, rank: int, backend: str, device: str,
         table, mesh.make_mesh(1, 2, devs, distributed=True),
         probe_window=max(16, table.max_probe)))
 
-    # the modes with no process-group form refuse a mesh over processes
-    from kmergutsjava_tpu_torch.parallel import (annotate_step,
-                                                 replicated_lookup,
+    from kmergutsjava_tpu_torch.lookup.sparse import StreamingLookup
+    from kmergutsjava_tpu_torch.parallel import (replicated_lookup,
                                                  tilejoin_shards)
 
-    for build in (
-            lambda: replicated_lookup.ReplicatedLookup(
-                table, mesh.make_mesh(4, 1, devs, distributed=True)),
-            lambda: tilejoin_shards.TileJoinShardedLookup(
-                table, mesh.make_mesh(1, 4, devs, distributed=True)),
-            lambda: annotate_step.sharded_planes(
-                mesh.make_mesh(2, 2, devs, distributed=True), table, 16)):
-        try:
-            build()
-        except ValueError as ex:
-            assert "one process" in str(ex), ex
-        else:
-            raise AssertionError("a mesh over processes was taken")
+    # a few dispatches a lookup: each resolve one gather a chunk
+    tj = tilejoin_shards.TileJoinShardedLookup(
+        table, mesh.make_mesh(1, 4, devs, distributed=True), chunk=1024)
+    check("tilejoin-shards 4", tj)
+    before = {k: m.launches for k, m in kernels.items()}
+    feed = StreamingLookup(tj, sort_chunks=True, device_sort=True)
+    for a in range(0, len(values), 700):  # the engine's streamed feed
+        feed.add_batch(values[a:a + 700], cnt[a:a + 700], pos[a:a + 700])
+    hits = feed.finish()
+    got = sorted(zip(hits.pos.tolist(), hits.otu.tolist(),
+                     hits.fi.tolist()))
+    assert got == want, "tilejoin-shards 4 streamed: hit mismatch"
+    print(f"MP-OK tilejoin-shards 4 streamed hits={len(got)} launches="
+          f"{ {k: m.launches - before[k] for k, m in kernels.items()} }",
+          flush=True)
+
+    spmd_checks(workdir, world, rank, device, devs)
+
+    # the replicated lookup has no process-group form (nor has the JAX
+    # package's: its answer is a device_get of an array on every process's
+    # devices) and refuses a mesh over processes
+    try:
+        replicated_lookup.ReplicatedLookup(
+            table, mesh.make_mesh(4, 1, devs, distributed=True))
+    except ValueError as ex:
+        assert "one process" in str(ex), ex
+    else:
+        raise AssertionError("a mesh over processes was taken")
     print("MP-OK refusals", flush=True)
 
     import io
@@ -228,6 +297,77 @@ def worker(addr: str, world: int, rank: int, backend: str, device: str,
     dist.barrier()
     dist.destroy_process_group()
     print("MP-WORKER-DONE", flush=True)
+
+
+def spmd_checks(workdir: str, world: int, rank: int, device: str,
+                devs) -> None:
+    """The fused step on a (2, 2) mesh over the processes, aa and DNA (long
+    records through windows, small batches so that several decodes are in
+    flight): every rank consumes the whole corpus, its hits equal the
+    single-process port's on a (2, 2) mesh of this process's device, and
+    the report made from them is written to ``spmd_<mode>_<rank>.txt``."""
+    import io
+
+    import numpy as np
+
+    from kmergutsjava_tpu_torch.calls.grouping import (
+        GroupingParams, Report, process_aa_seq, process_dna_seq)
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
+    from kmergutsjava_tpu_torch.formats.function_index import \
+        load_function_index
+    from kmergutsjava_tpu_torch.formats.kmer_table import (
+        read_table, resolve_table_files)
+    from kmergutsjava_tpu_torch.models import spmd
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+    from kmergutsjava_tpu_torch.parallel import fused_probe, mesh
+
+    for name, value in SHORT_LONG.items():
+        setattr(spmd, name, value)
+    table_path, func_path = resolve_table_files(os.path.join(workdir, "d"))
+    table = read_table(table_path)
+    functions = load_function_index(func_path)
+    for mode, query in (("aa", "spmd.faa"), ("dna", "spmd.fna")):
+        aa = mode == "aa"
+        cfg = EngineConfig(aa=aa, backend="spmd", device=device, min_hits=2)
+        records = list(read_fasta(os.path.join(workdir, query)))
+
+        def hits_of(program):
+            ann = spmd.SpmdAnnotator(table, cfg, program=program,
+                                     batch_rows=5)
+            prep = ann.consume(records)
+            return prep, ann.finish()
+
+        before = fused_probe.launches
+        prog = spmd.SpmdProgram(table, cfg, mesh=mesh.make_mesh(
+            2, 2, devs, distributed=True))
+        prep, hits = hits_of(prog)
+        launched = fused_probe.launches - before
+        one = spmd.SpmdProgram(table, EngineConfig(
+            aa=aa, backend="spmd", device=device, mesh_shape=(2, 2),
+            mesh_devices=[devs[0]] * 4))
+        _, want = hits_of(one)
+        for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
+            np.testing.assert_array_equal(getattr(hits, col),
+                                          getattr(want, col), err_msg=col)
+        params = GroupingParams(min_hits=2,
+                                min_weighted_hits=cfg.min_weighted_hits,
+                                max_gap=cfg.max_gap,
+                                order_constraint=cfg.order_constraint)
+        by_container = Engine(cfg)._bucket_hits(prep, hits, functions,
+                                                params)
+        out = io.StringIO()
+        report = Report(out)
+        for qid, length in prep.id_len.items():
+            (process_aa_seq if aa else process_dna_seq)(
+                qid, length, by_container, functions, report, params)
+        report.flush()
+        with open(os.path.join(workdir, f"spmd_{mode}_{rank}.txt"),
+                  "w") as fh:
+            fh.write(out.getvalue())
+        print(f"MP-OK spmd {mode} (2, 2) positions="
+              f"{len(prog.mesh.positions())} hits={len(hits)} "
+              f"launches={ {'fused_probe': launched} }", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,12 +9,17 @@ under ``shard_map`` on its eight virtual CPU devices.
   over 2, 4 and 8 shards, a forced overflow (slack 0.1) and homes skewed
   onto one shard. Exact.
 - The routed answers (after the exchange, the owner's probe and the
-  un-binning) against the step's: the overflow flags and the offsets
-  exactly, state bit 0 exactly, and bit 1 only where bit 0 is 0. The
+  un-binning, whose one buffer a shard holds the offsets, states and
+  overflow flags in rows of a 16-byte stride) against the step's: the
+  overflow flags and the offsets exactly, state bit 0 exactly, and bit 1
+  only where bit 0 is 0. The
   owner's probe is B1's first event, where the JAX step's state is 3 for a
   candidate with an empty slot after it; the host reads bit 0 first.
 - The verified hits equal the parity scan's, and the ``routed`` backend's
   reports (aa and DNA) the JAX engine's byte for byte.
+- The un-binning's twin against a numpy definition at tails of every
+  length mod 16, no query, every query overflowing and 256 shards; and a
+  spy shows one answer exchange and one read-back a shard per probe.
 """
 import numpy as np
 import pytest
@@ -119,8 +124,27 @@ def test_b13_bins_and_answers_equal_jax_step(monkeypatch, case):
     assert over[:n].any() == (case in ("overflow-4", "skewed-4"))
 
     m = make_mesh(1, n_shards, [torch.device("cpu")] * 8)
+    unbinned = []
+    real_unbin = route_bins.unbin
+
+    def spy(cell, back):
+        unbinned.append(real_unbin(cell, back))
+        return unbinned[-1]
+
+    monkeypatch.setattr(route_bins, "unbin", spy)
     got_off, got_state, got_over = RoutedLookup(
         pt, m, probe_window=pw, slack=slack).probe(values)
+    # each shard's one buffer: [3, n_loc rounded up to 16], the JAX step's
+    # offsets and overflow flags in rows 0 and 2, zeros past n_loc
+    assert len(unbinned) == n_shards
+    for s, buf in enumerate(unbinned):
+        assert buf.dtype == torch.uint8
+        assert tuple(buf.shape) == (3, -(-n_loc // 16) * 16)
+        assert not buf[:, n_loc:].any()
+        lo = s * n_loc
+        b_off, _, b_over = buf.numpy()[:, :n_loc]
+        np.testing.assert_array_equal(b_over.view(bool), over[lo:lo + n_loc])
+        np.testing.assert_array_equal(b_off, off[lo:lo + n_loc])
     np.testing.assert_array_equal(got_over, over[:n])
     np.testing.assert_array_equal(got_off, off[:n])
     np.testing.assert_array_equal(got_state & 1, state[:n] & 1)
@@ -149,11 +173,16 @@ def test_b13_twin_is_a_stable_sort():
     assert cell.tolist() == [4, 0, 5, 2, 1, -1, -1, -1]
     assert b_qfp.view(torch.int16).tolist() == [[2, 5], [4, -1], [1, 3]]
     assert b_home.tolist() == [[3, 1], [12, 0], [25, 27]]
+    # back[owner, 0] its offsets, back[owner, 1] its states
     back_off = torch.arange(6, dtype=torch.uint8) + 10
     back_state = torch.arange(6, dtype=torch.uint8) % 3
-    off, state = route_bins.unbin(cell, back_off, back_state)
+    back = torch.stack((back_off.view(3, 2), back_state.view(3, 2)), 1)
+    out = route_bins.unbin(cell, back.contiguous())
+    assert tuple(out.shape) == (3, 16) and not out[:, 8:].any()
+    off, state, over = out[:, :8]
     assert off.tolist() == [14, 10, 15, 12, 11, 0, 0, 0]
     assert state.tolist() == [1, 0, 2, 2, 1, 0, 0, 0]
+    assert over.tolist() == [0, 0, 0, 0, 0, 1, 1, 1]
 
 
 def test_cpu_wrappers_count_no_launch():
@@ -161,23 +190,24 @@ def test_cpu_wrappers_count_no_launch():
     h = torch.arange(10, dtype=torch.int32)
     _, _, cell = route_bins.bins(torch.zeros(10, dtype=torch.uint16), h, 10,
                                  5, 2, 8)
-    route_bins.unbin(cell, torch.zeros(16, dtype=torch.uint8),
-                     torch.zeros(16, dtype=torch.uint8))
+    route_bins.unbin(cell, torch.zeros((2, 2, 8), dtype=torch.uint8))
     assert (route_bins.launches, route_bins.unbin_launches) == before
 
 
 @pytest.mark.parametrize("bad", ["homes_i64", "qfp_i16", "length",
-                                 "shards", "cell_i64", "back_i32"])
+                                 "shards", "cell_i64", "back_i32",
+                                 "back_flat"])
 def test_wrappers_reject_bad_inputs(bad):
     h = torch.zeros(4, dtype=torch.int32)
     q = torch.zeros(4, dtype=torch.uint16)
     with pytest.raises(KernelError):
-        if bad in ("cell_i64", "back_i32"):
+        if bad in ("cell_i64", "back_i32", "back_flat"):
             cell = torch.zeros(4, dtype=torch.int64 if bad == "cell_i64"
                                else torch.int32)
-            back = torch.zeros(8, dtype=torch.int32 if bad == "back_i32"
-                               else torch.uint8)
-            route_bins.unbin(cell, back, back)
+            back = torch.zeros((2, 2, 2), dtype=torch.int32
+                               if bad == "back_i32" else torch.uint8)
+            route_bins.unbin(cell, back.view(-1) if bad == "back_flat"
+                             else back)
         else:
             args = dict(q_fp=q, homes=h, n_valid=4, s_loc=5, n_shards=2,
                         cap=4)
@@ -240,3 +270,77 @@ def test_routed_backend_reports_equal_jax(corpus, mode):  # noqa: F811
         got, want = both(d, texts[mode], mode == "aa", backend="routed",
                          mesh_shape=shape, min_hits=2)
         assert got == want and "CALL\t" in got
+
+
+def unbin_numpy(cell, back):
+    """The un-binning by its definition: [3, n rounded up to 16] of each
+    query's offset and state from its owner's rows of ``back`` [T, 2, cap]
+    (0 for an overflow) and its overflow flag, zeros past n."""
+    n, cap = len(cell), back.shape[2]
+    out = np.zeros((3, -(-n // 16) * 16), np.uint8)
+    for i, c in enumerate(cell):
+        if c < 0:
+            out[2, i] = 1
+        else:
+            out[0, i], out[1, i] = back[c // cap, :, c % cap]
+    return out
+
+
+@pytest.mark.parametrize("case", ["tails", "empty", "all_overflow",
+                                  "shards_256"])
+def test_b13_unbin_twin_at_the_edges(case):
+    """The un-binning's twin against ``unbin_numpy``: every length from 1
+    to 33 (each tail mod 16 and mod 8, cells and overflows mixed), no
+    query, every query overflowing, and 256 owners."""
+    rng = np.random.default_rng(len(case))
+    sizes = {"tails": range(1, 34), "empty": [0], "all_overflow": [1000],
+             "shards_256": [5001]}[case]
+    shards, cap = (256, 30) if case == "shards_256" else (4, 9)
+    for n in sizes:
+        cell = rng.integers(-1, shards * cap, n).astype(np.int32)
+        if case == "all_overflow":
+            cell[:] = -1
+        back = rng.integers(0, 256, (shards, 2, cap)).astype(np.uint8)
+        got = route_bins.unbin(torch.from_numpy(cell), torch.from_numpy(back))
+        np.testing.assert_array_equal(got.numpy(), unbin_numpy(cell, back))
+        if case == "all_overflow":
+            assert got[2, :n].all() and not got[:2].any()
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_routed_probe_makes_one_answer_exchange_and_one_read_back_a_shard(
+        monkeypatch, n_shards):
+    """A spy on the routed lookup's exchanges and on every copy to the
+    host while it probes: the fingerprints and homes go out in two
+    exchanges, the answers come back in one (of u8 [T, 2, cap] back
+    buffers), and each shard's answer is read back in one copy of its
+    [3, ld] buffer; the probe's result is the one without the spies."""
+    from kmergutsjava_tpu_torch.parallel import routed_lookup
+
+    rng, sig, _, pt = tables(n_shards, 3000, 0.7)
+    values, _, _ = make_queries(rng, sig["kmers"], 4001)
+    lk = RoutedLookup(pt, make_mesh(1, n_shards, [torch.device("cpu")] * 8),
+                      probe_window=max(16, pt.max_probe))
+    want = lk.probe(values)
+    exchanges, copies = [], []
+    real_a2a, real_cpu = routed_lookup.all_to_all, torch.Tensor.cpu
+
+    def a2a(mesh, sends, outs):
+        exchanges.append([o.dtype for o in outs if o is not None])
+        return real_a2a(mesh, sends, outs)
+
+    def cpu(self, *a, **kw):
+        copies.append((self.dtype, tuple(self.shape)))
+        return real_cpu(self, *a, **kw)
+
+    monkeypatch.setattr(routed_lookup, "all_to_all", a2a)
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    got = lk.probe(values)
+    monkeypatch.undo()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    answers = [e for e in exchanges if e[0] == torch.uint8]
+    assert len(exchanges) == 3 and len(answers) == 1
+    assert exchanges[0][0] == torch.uint16 and exchanges[1][0] == torch.int32
+    n_loc = -(-len(values) // n_shards)
+    assert copies == [(torch.uint8, (3, -(-n_loc // 16) * 16))] * n_shards
