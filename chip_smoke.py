@@ -7,6 +7,10 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
 Phases (one line each; the run stops with a non-zero exit at the first
 failure and then prints no result):
 
+0. the host C++ libraries (feeder, scatter, grouping, fasta), built with g++
+   from the port's own kmergutsjava_tpu_torch/native/ (``native.status()``,
+   one line): the run stops unless all four loaded from there, so every
+   wall printed later is the native host path's, never the numpy twins';
 1. the card's name and power limit (nvidia-smi); build of the CUDA kernels
    (csrc/tilejoin.cu, csrc/stream_probe.cu, csrc/block_probe.cu,
    csrc/tjgather.cu, csrc/kmer_windows.cu, csrc/shard_probe.cu,
@@ -179,7 +183,15 @@ failure and then prints no result):
    its shard entry; then each rank's engine over its ``shard_records``
    share, merged by ``merge_report_shards`` into phase 4's report byte
    for byte; each step's build and lookup walls and launches are
-   printed.
+   printed;
+16. the randomized differential on the card: the soak rounds of
+   tests/torch_soak_rounds.py (random tables and query sets) for the
+   seeds in ``SOAK_SEEDS``, every port run of each round on cuda (each
+   backend, the mesh backends on positions of card 0, the grouping
+   kernel's, the home-sorted and the device prepare's runs, a checkpoint
+   run) byte-equal to the port's ``parity`` run on the CPU; the phase's
+   wall and each kernel counter's total over it (``SOAK_COUNTERS``) are
+   printed, and a total of 0 (a kernel the rounds bypassed) fails it.
 
 Phase 4 also runs the proteome with ``--sort-chunks 1`` and with
 ``--sort-chunks 1 --device-sort`` (each report equal to the unsorted one)
@@ -3054,6 +3066,75 @@ def mp_worker(addr, world, rank, work, big, faa) -> int:
     return 0
 
 
+# phase 16's rounds, chosen from the generator's keywords so that between
+# them they hold aa (11, 15, 22, 26, 28, 30, 37) and DNA (10, 12, 18, 20,
+# 24), a gzipped table (10, 30), a spill (-l: 12, 15, 18, 24, 26, 37),
+# duplicate ids (11, 18, 26, 28, 37), debug (20, 24, 28), load 0.95 (18,
+# 22, 28, 37) and --grouping scan on more than one container (every round
+# without debug)
+SOAK_SEEDS = (10, 11, 12, 15, 18, 20, 22, 24, 26, 28, 30, 37)
+# the kernel counters that phase 16's runs must each move: (module, count)
+SOAK_COUNTERS = (("tilejoin", "launches"), ("stream", "launches"),
+                 ("blockprobe", "launches"), ("fused_probe", "launches"),
+                 ("kmer_windows", "ragged_launches"),
+                 ("shard_probe", "launches"), ("route_bins", "launches"),
+                 ("route_bins", "unbin_launches"),
+                 ("scan_machine", "launches"))
+
+
+def first_difference(want, got):
+    """The first line where two reports differ, as text."""
+    a, b = want.splitlines(), got.splitlines()
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"line {i + 1}: want {x!r}, got {y!r}"
+    return f"line {min(len(a), len(b)) + 1}: {len(a)} lines against {len(b)}"
+
+
+def soak_phase(work):
+    """Phase 16: every port run of each SOAK_SEEDS round on the card
+    against the port's parity run on the CPU; the counts of SOAK_COUNTERS
+    over the phase must all be above 0."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_soak_rounds as rounds
+
+    mods = kernel_modules()
+    threads = os.environ.get("KMER_NATIVE_THREADS")
+    reset_counts()
+    t0 = time.time()
+    n_runs = 0
+    try:  # the runs' info lines (without -o, on stdout) are dropped
+        with contextlib.redirect_stdout(io.StringIO()):
+            for seed in SOAK_SEEDS:
+                tmp = os.path.join(work, f"soak_{seed}")
+                os.makedirs(tmp)
+                rng, d, fasta, kw = rounds.make_round(seed, tmp)
+                base = rounds.parity_report(d, fasta, kw)
+                for label, got in rounds.port_reports(
+                        seed, tmp, rng, d, fasta, kw, "cuda",
+                        os.environ.__setitem__):
+                    n_runs += 1
+                    if got != base:
+                        raise RuntimeError(
+                            f"phase 16: seed {seed}: {label} differs from "
+                            f"the port's parity run on the CPU at "
+                            f"{first_difference(base, got)}")
+    finally:
+        if threads is None:
+            os.environ.pop("KMER_NATIVE_THREADS", None)
+        else:
+            os.environ["KMER_NATIVE_THREADS"] = threads
+    wall = time.time() - t0
+    totals = {f"{m}.{c}": getattr(mods[m], c) for m, c in SOAK_COUNTERS}
+    print(f"phase 16: soak seeds {list(SOAK_SEEDS)}: {n_runs} runs on cuda, "
+          f"each byte-equal to the port's parity run on the CPU; "
+          f"wall_s={wall:.3f}", flush=True)
+    print(f"phase 16: kernel launch totals {json.dumps(totals)}", flush=True)
+    zero = [k for k, n in totals.items() if n == 0]
+    if zero:
+        raise RuntimeError(f"phase 16: the rounds never launched {zero}")
+
+
 def _u(x):
     """A tensor's values as int64 (u16 storage widened)."""
     import torch
@@ -3114,6 +3195,15 @@ def main() -> int:
     except ImportError as ex:
         return fail(f"the port's package is not beside this script: {ex}")
     dev = torch.device("cuda", 0)
+
+    from kmergutsjava_tpu_torch.utils import native
+    host = native.status()
+    print(f"host libraries: {json.dumps(host)}", flush=True)
+    own = os.path.join(HERE, "kmergutsjava_tpu_torch", "native")
+    not_own = [name for name, st in host.items()
+               if not st["loaded"] or os.path.dirname(st["source"]) != own]
+    if not_own:
+        return fail(f"host libraries {not_own} not loaded from {own}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3233,6 +3323,8 @@ def main() -> int:
                             f"the {label} run's batch")
         clear_engine_caches()
         multiprocess_phase(work, big, faa)
+        clear_engine_caches()
+        soak_phase(work)
 
     print(json.dumps({"kernels": [{
         "name": "tilejoin_first_event",

@@ -1,4 +1,4 @@
-"""Batch grouping through the native core (kmergutsjava_tpu/native/grouping.cpp).
+"""Batch grouping through the native core (native/grouping.cpp).
 
 One ctypes call runs the exact CALL/OTU state machine over every container
 in the batch; Python only formats the CALL text (Java HALF_UP "%f" via
@@ -150,7 +150,7 @@ def try_native_report(prep, hits, functions: Sequence[str], aa: bool,
                       report, p: GroupingParams) -> bool:
     """Render the WHOLE non-debug grouping phase natively: one global
     (container, position) sort, one group_batch call, one emit_report call
-    (kmergutsjava_tpu/native/grouping.cpp) producing the complete report
+    (native/grouping.cpp) producing the complete report
     text — no per-sequence Python. Byte-identical to the process_aa_seq /
     process_dna_seq path (pinned by tests/test_grouping_fastpath.py and the
     corpus tests); returns False when the native library is unavailable so

@@ -59,7 +59,7 @@ def read_fasta(source: Union[str, TextIO]) -> Iterator[FastaRecord]:
     """Yield FastaRecord from a path (optionally .gz) or an open text stream.
 
     Paths and in-memory streams go through the native bulk parser
-    (kmergutsjava_tpu/native/fasta.cpp, one pass over the whole buffer) when the toolchain
+    (native/fasta.cpp, one pass over the whole buffer) when the toolchain
     is available and the input is under 2 GB; other streams (e.g. stdin)
     keep the line-by-line Python parser. Both are differentially pinned
     to the scalar Java oracle by tests/test_fasta_fuzz.py. The bulk

@@ -305,7 +305,7 @@ class StreamLookup:
         return tiles, homes, flat_u[inv], shift_u[inv]
 
     def _scatter_native(self, lib, values, tiles=None, occ=None):
-        """C++ scatter (``kmergutsjava_tpu/native/scatter.cpp``) in the
+        """C++ scatter (``native/scatter.cpp``) in the
         ``rows=1, block=S`` layout: cell (c, h) at ``c*S + h``, output
         element ``(c//4)*S + h``. Dedup is by (home, fingerprint) against
         the tile itself, so it holds across streaming chunks; channel ranks

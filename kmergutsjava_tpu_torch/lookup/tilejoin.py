@@ -77,8 +77,10 @@ def _nvcc() -> str:
 
 
 def build_cuda_library(source: str) -> ctypes.CDLL:
-    """Compile ``source`` with nvcc for sm_90a into ``build/lib<name>.so``
-    (only when the source or a header in ``HEADERS`` is newer than the
+    """Compile ``source`` with nvcc for sm_90a into ``lib<name>.so`` in the
+    host libraries' build directory (``utils/native.py`` ``BUILD_DIR``: the
+    package's ``build/``, or the per-user cache where that is not writable;
+    only when the source or a header in ``HEADERS`` is newer than the
     library) and load it. Raises KernelError. Callers hold their own lock
     and cache the result."""
     from ..utils.native import BUILD_DIR, compile_to, stale

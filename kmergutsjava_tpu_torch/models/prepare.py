@@ -403,9 +403,9 @@ def prepare_dna_numpy(records: Iterable[FastaRecord],
 
 def _prepare_native(records: Iterable[FastaRecord], store: QueryKmerStore,
                     aa: bool, flush_chars: int = 8_000_000):
-    """C++ feeder path (kmergutsjava_tpu/native/feeder.cpp via ctypes).
-    Returns None when the native library is unavailable (caller falls back
-    to numpy)."""
+    """C++ feeder path (native/feeder.cpp via ctypes).
+    Returns None when the native library is unavailable (no g++, or
+    KMER_NO_NATIVE_FEEDER; the caller falls back to numpy)."""
     from ..utils.native import load_feeder
 
     lib = load_feeder()

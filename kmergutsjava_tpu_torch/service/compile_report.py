@@ -7,8 +7,8 @@ the equivalent artifact is produced directly: a JSON document describing
 the module, its RPC surface (service/SPEC.md is the source of truth) and
 the build environment.
 
-The RPC surface is the JAX package's, so ``spec_file`` names its
-kmergutsjava_tpu/service/SPEC.md (read, not imported); the build
+The RPC surface is the JAX package's; ``spec_file`` names this package's
+own copy of its spec, service/SPEC.md, shipped as package data; the build
 environment is torch's and CUDA's.
 
 Usage: python -m kmergutsjava_tpu_torch.service.compile_report [out.json]
@@ -39,9 +39,8 @@ RPC_METHODS = [
 def build_report() -> dict:
     import platform
 
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    spec = os.path.join(repo, "kmergutsjava_tpu", "service", "SPEC.md")
+    spec = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "SPEC.md")
     report = {
         "module_name": "KmerGutsJava",
         "implementation": "kmergutsjava-tpu PyTorch/CUDA port "

@@ -1,16 +1,25 @@
 """ctypes loaders for the host C++ components (feeder, FASTA parser,
 grouping core, scatter/verify helpers).
 
-The C++ is host code shared with the JAX package: it is compiled by path
-from ``kmergutsjava_tpu/native/*.cpp`` (read only, never written to) into
-this package's own git-ignored ``build/`` directory. Each loader builds its
-shared library on demand with g++ and returns None when no toolchain is
-available, so callers fall back to their numpy twins.
+The C++ is this package's own: ``native/*.cpp`` (and ``native/threading.h``)
+ship as package data and are compiled with g++ on first use into the
+package's git-ignored ``build/`` directory, or, where that is not writable,
+into ``~/.cache/kmergutsjava_tpu_torch``; the CUDA kernels are built into the
+same directory (``lookup/tilejoin.py`` ``build_cuda_library``).
+
+A loader returns None, so that its callers take their numpy twins, in two
+cases only: no g++ on ``PATH`` (and no library built already), or the
+library's ``KMER_NO_NATIVE_*`` switch set. A missing source, a failed
+compile or a failed bind raises NativeBuildError: a copy of the package
+that cannot build its host code never runs silently on the slower twins.
+``status()`` tells, for each library, whether it loaded, from where, and
+why not.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 import threading
 from typing import Optional
@@ -20,9 +29,31 @@ import numpy as np
 _lock = threading.Lock()
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG_DIR), "kmergutsjava_tpu",
-                        "native")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
+_SRC_DIR = os.path.join(_PKG_DIR, "native")
+_HEADER = os.path.join(_SRC_DIR, "threading.h")
+
+
+class NativeBuildError(RuntimeError):
+    """A host library's source is missing, g++ refused it, or the library
+    did not load or bind."""
+
+
+def _writable(path: str) -> bool:
+    """Writable by this process, and not marked read-only by its mode bits
+    (a directory made read-only is left alone even by root, whom access()
+    lets write anywhere)."""
+    return os.access(path, os.W_OK) and bool(os.stat(path).st_mode & 0o222)
+
+
+def _build_dir() -> str:
+    own = os.path.join(_PKG_DIR, "build")
+    if _writable(own if os.path.isdir(own) else _PKG_DIR):
+        return own
+    return os.path.join(os.path.expanduser("~"), ".cache",
+                        "kmergutsjava_tpu_torch")
+
+
+BUILD_DIR = _build_dir()
 
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -35,8 +66,8 @@ def stale(out: str, sources) -> bool:
     """True when ``out`` is missing or older than any existing source."""
     if not os.path.exists(out):
         return True
-    newest = max(os.path.getmtime(s) for s in sources if os.path.exists(s))
-    return os.path.getmtime(out) < newest
+    times = [os.path.getmtime(s) for s in sources if os.path.exists(s)]
+    return bool(times) and os.path.getmtime(out) < max(times)
 
 
 def compile_to(cmd_head, out: str) -> None:
@@ -55,35 +86,69 @@ def compile_to(cmd_head, out: str) -> None:
             os.remove(tmp)
 
 
+def _so_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, name + ".so")
+
+
 def _build(name: str) -> Optional[ctypes.CDLL]:
+    """The library, built first when it is older than its sources; None
+    when it needs a build and there is no g++ on PATH."""
     src = os.path.join(_SRC_DIR, name + ".cpp")
-    so = os.path.join(BUILD_DIR, name + ".so")
-    try:
-        if stale(so, (src, os.path.join(_SRC_DIR, "threading.h"))):
+    so = _so_path(name)
+    missing = [p for p in (src, _HEADER) if not os.path.exists(p)]
+    if missing:
+        raise NativeBuildError(f"missing native source {', '.join(missing)}")
+    if stale(so, (src, _HEADER)):
+        if shutil.which("g++") is None:
+            return None
+        try:
             compile_to(["g++", "-O3", "-shared", "-fPIC", "-pthread", src,
                         "-o"], so)
+        except subprocess.CalledProcessError as ex:
+            raise NativeBuildError(
+                f"g++ failed on {src}:\n{ex.stderr}") from ex
+        except OSError as ex:
+            raise NativeBuildError(f"cannot build {so}: {ex}") from ex
+    try:
         return ctypes.CDLL(so)
-    except Exception:
-        return None
+    except OSError as ex:
+        raise NativeBuildError(f"cannot load {so}: {ex}") from ex
 
 
+# name -> the loaded library, or None with the reason in _why, or the
+# NativeBuildError raised again on every later call
 _libs: dict = {}
+_why: dict = {}
 
 
 def _load(name: str, env_off: str, bind) -> Optional[ctypes.CDLL]:
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        lib = None
-        if not os.environ.get(env_off):
-            lib = _build(name)
-            if lib is not None:
-                try:
-                    bind(lib)
-                except Exception:
-                    lib = None
-        _libs[name] = lib
+        if name not in _libs:
+            _libs[name] = _try_load(name, env_off, bind)
+        lib = _libs[name]
+        if isinstance(lib, NativeBuildError):
+            raise lib
         return lib
+
+
+def _try_load(name: str, env_off: str, bind):
+    if os.environ.get(env_off):
+        _why[name] = f"{env_off} is set"
+        return None
+    try:
+        lib = _build(name)
+        if lib is None:
+            _why[name] = "no g++ on PATH"
+            return None
+        try:
+            bind(lib)
+        except AttributeError as ex:
+            raise NativeBuildError(
+                f"cannot bind {_so_path(name)}: {ex}") from ex
+        return lib
+    except NativeBuildError as ex:
+        _why[name] = str(ex)
+        return ex
 
 
 def _bind_feeder(lib) -> None:
@@ -193,3 +258,24 @@ def _bind_fasta(lib) -> None:
 def load_fasta() -> Optional[ctypes.CDLL]:
     """Native bulk FASTA parser; None without g++."""
     return _load("fasta", "KMER_NO_NATIVE_FASTA", _bind_fasta)
+
+
+_LOADERS = {"feeder": load_feeder, "scatter": load_scatter,
+            "grouping": load_grouping, "fasta": load_fasta}
+
+
+def status() -> dict:
+    """For each host library (building it where needed): whether it
+    loaded, its source and ``.so`` paths, and why not (None when
+    loaded)."""
+    out = {}
+    for name, loader in _LOADERS.items():
+        try:
+            loaded = loader() is not None
+        except NativeBuildError:
+            loaded = False
+        out[name] = {"loaded": loaded,
+                     "source": os.path.join(_SRC_DIR, name + ".cpp"),
+                     "so": _so_path(name),
+                     "why_not": None if loaded else _why.get(name)}
+    return out

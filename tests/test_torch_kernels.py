@@ -11,7 +11,10 @@ that has no JAX: there, from the repository root,
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 runs the ``cuda`` tests too, which compare each CUDA kernel with its twin on
-the card (exact: the codes are integers). Elsewhere they skip."""
+the card (exact: the codes are integers), and ``test_cuda_soak_round``
+holds every port run of tests/torch_soak_rounds.py's randomized rounds on
+the card to the port's parity engine on the CPU (``-k soak``; its 400
+slow seeds only with ``-m slow``). Elsewhere they skip."""
 import glob
 import os
 
@@ -2126,3 +2129,32 @@ def test_cuda_multi_process_lookups(cuda_device, tmp_path, backend):
     assert merge_report_shards([
         (tmp_path / f"report_{r}.txt").read_text()
         for r in range(world)]) == single.getvalue()
+
+
+# the randomized differential on the card (tests/torch_soak_rounds.py's
+# rounds): these seeds in the default run, the CPU soak's 400 slow seeds
+# (tests/test_torch_soak.py) only under -m slow
+CUDA_SOAK_SEEDS = tuple(range(10, 50))
+CUDA_SOAK_SLOW_SEEDS = tuple(range(1000, 1400))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [*CUDA_SOAK_SEEDS, *(
+    pytest.param(s, marks=pytest.mark.slow) for s in CUDA_SOAK_SLOW_SEEDS)])
+def test_cuda_soak_round(cuda_device, seed, tmp_path, monkeypatch, request):
+    """Every port run of the seed's round on the card (each backend, the
+    mesh backends on positions of card 0, the grouping kernel's, the
+    home-sorted and the device prepare's runs, a checkpoint run) writes
+    the report of the port's parity engine on the CPU, byte for byte."""
+    if (seed in CUDA_SOAK_SLOW_SEEDS
+            and "slow" not in (request.config.getoption("markexpr") or "")):
+        pytest.skip("the 400 slow rounds run only under -m slow")
+    from torch_soak_rounds import make_round, parity_report, port_reports
+
+    tmp = str(tmp_path)
+    rng, d, fasta, kw = make_round(seed, tmp)
+    base = parity_report(d, fasta, kw)
+    for label, got in port_reports(seed, tmp, rng, d, fasta, kw, "cuda",
+                                   monkeypatch.setenv):
+        assert got == base, (f"seed {seed}: {label} diverged from the "
+                             "port's parity engine on the CPU")

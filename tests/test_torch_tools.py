@@ -2,8 +2,9 @@
 and packaging, on the CPU: ``build-table`` from both packages on the same
 FASTA and flags writes byte-identical data dirs; ``check-table`` prints the
 same lines and exit codes as the JAX package's, on a good table and on
-each broken one; the compile report names torch and CUDA, not jax; and
-the package data holds every kernel source and the header they share."""
+each broken one; the compile report names torch and CUDA, not jax, and
+the port's own copy of the spec; and the package data holds every kernel
+source, the headers they share, the host C++ and the spec."""
 import fnmatch
 import glob
 import importlib
@@ -160,19 +161,23 @@ def test_compile_report_names_torch_and_cuda(tmp_path, capsys):
     assert "jax" not in rep
     assert rep["torch"] == torch.__version__
     assert rep["cuda"] == torch.version.cuda
-    for key in ("module_name", "rpc_prefix", "functions", "spec_file",
-                "version"):
+    for key in ("module_name", "rpc_prefix", "functions", "version"):
         assert rep[key] == want[key]
-    assert rep["spec_file"].endswith(os.path.join("kmergutsjava_tpu",
-                                                  "service", "SPEC.md"))
+    # the port's own copy of the spec, the same text as the JAX package's
+    assert rep["spec_file"] == os.path.join(REPO, "kmergutsjava_tpu_torch",
+                                            "service", "SPEC.md")
+    with open(rep["spec_file"], "rb") as fh, open(want["spec_file"],
+                                                  "rb") as jfh:
+        assert fh.read() == jfh.read()
     assert "PyTorch" in rep["language"] and "CUDA" in rep["language"]
     assert rep["implementation"] != want["implementation"]
 
 
 def test_package_data_holds_every_kernel_source_and_header():
-    """An installed port builds every kernel: each csrc/*.cu and each
-    header in tilejoin.HEADERS matches a package-data pattern, and each
-    console script names a callable of the port."""
+    """An installed port builds every kernel and its host code and serves
+    its spec: each csrc/*.cu, each header in tilejoin.HEADERS, each
+    native/*.cpp and native/*.h and service/SPEC.md matches a package-data
+    pattern, and each console script names a callable of the port."""
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
         project = tomllib.load(fh)
     patterns = project["tool"]["setuptools"]["package-data"][
@@ -181,7 +186,11 @@ def test_package_data_holds_every_kernel_source_and_header():
     sources = glob.glob(os.path.join(pkg, "csrc", "*.cu"))
     assert len(sources) == 9  # kmer_windows, shard_probe, route_bins,
     # scan_machine, fused_probe too
-    for path in (*sources, *tilejoin.HEADERS):
+    natives = glob.glob(os.path.join(pkg, "native", "*.cpp"))
+    assert len(natives) == 4  # feeder, scatter, grouping, fasta
+    owned = (*natives, os.path.join(pkg, "native", "threading.h"),
+             os.path.join(pkg, "service", "SPEC.md"))
+    for path in (*sources, *tilejoin.HEADERS, *owned):
         rel = os.path.relpath(path, pkg)
         assert os.path.exists(path), rel
         assert any(fnmatch.fnmatch(rel, p) for p in patterns), rel
