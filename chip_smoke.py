@@ -436,10 +436,10 @@ def kernel_device_ms(run, dev, marker, reps=5, key=None, events=False):
     one of a tuple of markers), in the order one ``run()`` launches them,
     averaged over ``reps`` runs:
     the kernel events (CUPTI's device timestamps) of a torch.profiler
-    trace, read from its Chrome trace as chip_profile.py reads it. Before
-    each run a 256 MB write evicts the L2 and the card is synchronised, so
-    each run starts as cold as the engine's first chunk and its launches
-    overlap nothing. ``run()`` launches no other kernel, so the flush
+    trace, read from its Chrome trace. Before each run a 256 MB write
+    evicts the L2 and the card is synchronised, so each run starts as
+    cold as the engine's first chunk and its launches overlap nothing.
+    ``run()`` launches no other kernel, so the flush
     kernels (an add over the buffer) split the trace into runs on the
     device's own clock. The tracer can drop a kernel's record: a run that
     does not show the most common count is left out, and a trace that

@@ -14,6 +14,7 @@ import sys
 from typing import List, Optional
 
 from .config import EngineConfig
+from .utils.timing import record, span
 
 USAGE = """Usage: kmer_guts [options] -D DataDir
 Arguments:
@@ -39,7 +40,7 @@ Arguments:
  --device-sort - (optional) with --sort-chunks 1, run that sort on the device (also env KMER_DEVICE_SORT)
  --platform NAME - (optional) device platform, the first of a comma list: cpu (= --device cpu), gpu or cuda (= --device cuda)
  --threads N - (optional) native host-stage threads (default: all cores; also env KMER_NATIVE_THREADS)
- --profile DIR - (optional) write a torch.profiler trace of the run
+ --profile DIR - (optional) write a torch.profiler trace of the run (DIR/trace.json) and its span and counter totals (DIR/spans.json)
  --checkpoint FILE - (optional) restartable run: commit progress to FILE after every batch and resume from it on restart (requires -q and -o, refuses -d; output is byte-identical to a single run)
  --checkpoint-every N - (optional) sequences per committed batch (default 100000)
 """
@@ -159,6 +160,13 @@ def parse_args(argv: List[str]):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # one run record a call, argument parsing to return (a --profile run
+    # writes it as spans.json)
+    with record("cli.main"):
+        return _main(argv)
+
+
+def _main(argv: Optional[List[str]]) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
         (cfg, data_dir, query, output, n_threads,
@@ -173,8 +181,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         # the native stages read this per call (getenv)
         os.environ["KMER_NATIVE_THREADS"] = str(n_threads)
     if ckpt is not None:
-        from .models.checkpoint import (DEFAULT_BATCH_GROUPS, CheckpointError,
-                                        run_with_checkpoint)
+        with span("cli.imports"):
+            from .models.checkpoint import (DEFAULT_BATCH_GROUPS,
+                                            CheckpointError,
+                                            run_with_checkpoint)
 
         # a KernelError is no CheckpointError: it propagates with its
         # traceback, and the sidecar stays at the last committed batch
@@ -185,7 +195,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("Error: " + str(ex), file=sys.stderr)
             return 3
         return 0
-    from .models.pipeline import Engine
+    with span("cli.imports"):  # torch and the engine
+        from .models.pipeline import Engine
 
     engine = Engine(cfg)
     if output is not None:

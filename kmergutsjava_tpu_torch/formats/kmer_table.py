@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..constants import EMPTY_KMER, ENTRY_SIZE, MAX_ENCODED, TABLE_VERSION
+from ..utils.timing import span
 
 SLOT_DTYPE = np.dtype(
     [
@@ -274,7 +275,8 @@ def read_table(path: str, mmap: bool = True) -> KmerTable:
         except (OSError, ValueError, KeyError):
             pass
     if table.max_probe is None:
-        table.compute_max_probe()
+        with span("table.max_probe"):
+            table.compute_max_probe()
     return table
 
 

@@ -32,6 +32,7 @@ import torch
 
 from ..constants import EMPTY_KMER
 from ..formats.kmer_table import KmerTable
+from ..utils.timing import count, span
 from . import tilejoin
 from .parity import LookupHits
 
@@ -284,10 +285,11 @@ class SparseLookup(HostWindow):
                  chunk: Optional[int] = None, device: str = "cuda",
                  first_pass_window: int = FIRST_PASS_WINDOW):
         _check_int32_homes(table.num_sigs)
-        super().__init__(table, probe_window)
-        w1 = min(adaptive_w1(table, first_pass_window), self.full_window)
-        self._setup(fingerprint_plane(table, table.num_sigs), w1, chunk,
-                    device)
+        with span("lookup.build.plane"):
+            super().__init__(table, probe_window)
+            w1 = min(adaptive_w1(table, first_pass_window), self.full_window)
+            fp = fingerprint_plane(table, table.num_sigs)
+        self._setup(fp, w1, chunk, device)
 
     @classmethod
     def from_numpy(cls, table: KmerTable, fp_flat: np.ndarray,
@@ -317,10 +319,13 @@ class SparseLookup(HostWindow):
         self.chunk = chunk if chunk is not None else self.DEFAULT_CHUNK
         self.device = torch_device(device)
         # w1 slots of FP_EMPTY past the end: every home's window is in range
-        plane = np.concatenate([fp_flat, np.full(w1, FP_EMPTY, np.uint16)])
-        self._stream = owned_stream(self.device)
-        with on_stream(self._stream):
-            self.fp = torch.from_numpy(plane).to(self.device)
+        with span("lookup.build.plane"):
+            plane = np.concatenate([fp_flat,
+                                    np.full(w1, FP_EMPTY, np.uint16)])
+        with span("lookup.build.upload"):
+            self._stream = owned_stream(self.device)
+            with on_stream(self._stream):
+                self.fp = torch.from_numpy(plane).to(self.device)
 
     def dispatch_probe(self, q_fp: np.ndarray, homes: np.ndarray,
                        device_sort: bool = False):
@@ -337,8 +342,10 @@ class SparseLookup(HostWindow):
         host = np.empty(at + 2 * n, np.uint8)
         host[:4 * n].view(np.int32)[:] = homes
         host[at:].view(np.uint16)[:] = q_fp
+        count("sparse.bytes_up", host.nbytes)
         probe = probe_answer_sorted if device_sort else tilejoin.probe_answer
-        with on_stream(self._stream), _device_fault("dispatch"):
+        with span("sparse.dispatch"), on_stream(self._stream), \
+                _device_fault("dispatch"):
             buf = torch.from_numpy(host).to(self.device)
             return probe(self.fp, buf[at:].view(torch.uint16),
                          buf[:4 * n].view(torch.int32), self.w1), n
@@ -348,8 +355,11 @@ class SparseLookup(HostWindow):
         numpy u8 arrays in the caller's query order (state 0 = exact host
         pass). A device fault surfacing here is a KernelError."""
         answer, n = pending
-        with on_stream(self._stream), _device_fault("read-back"):
-            return tilejoin.answer_views(answer.cpu().numpy(), n)
+        with span("sparse.resolve"), on_stream(self._stream), \
+                _device_fault("read-back"):
+            host = answer.cpu().numpy()
+        count("sparse.bytes_down", host.nbytes)
+        return tilejoin.answer_views(host, n)
 
     def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,
                progress=None, compute_kmers_found: bool = True
@@ -374,8 +384,9 @@ class SparseLookup(HostWindow):
             off[s:e], state[s:e] = self.resolve_probe(p)
             if progress is not None:
                 progress.update(e, int((state[s:e] & 1).sum()))
-        (c, p_, otu, avg, fi, wt), mv = self._verify_emit(
-            values, homes, off, state, cnt_id, pos, compute_kmers_found)
+        with span("sparse.verify"):
+            (c, p_, otu, avg, fi, wt), mv = self._verify_emit(
+                values, homes, off, state, cnt_id, pos, compute_kmers_found)
         return LookupHits(c, p_, otu, avg, fi, wt,
                           int(np.unique(mv).size) if compute_kmers_found
                           else -1)
@@ -461,17 +472,20 @@ class StreamingLookup:
 
     def _put_checked(self, q, item) -> None:
         """Bounded put that can't deadlock on a dead consumer: re-check the
-        shared worker error whenever the queue stays full."""
+        shared worker error whenever the queue stays full. The feed's
+        puts on the dispatch queue are its wait, ``prepare.feed_wait``."""
         import queue
 
-        while True:
-            if self._worker_error is not None:
-                raise self._worker_error
-            try:
-                q.put(item, timeout=1.0)
-                return
-            except queue.Full:
-                continue
+        with (span("prepare.feed_wait") if q is self._dq
+              else contextlib.nullcontext()):
+            while True:
+                if self._worker_error is not None:
+                    raise self._worker_error
+                try:
+                    q.put(item, timeout=1.0)
+                    return
+                except queue.Full:
+                    continue
 
     def _take(self, k: int):
         out_v, out_c, out_p = [], [], []
@@ -508,8 +522,9 @@ class StreamingLookup:
 
     def _resolve_item(self, values, cnt, pos, homes, out) -> None:
         off, state = self.lk.resolve_probe(out)
-        piece, mv = self.lk._verify_emit(values, homes, off, state, cnt,
-                                         pos, self.compute_kmers_found)
+        with span("sparse.verify"):
+            piece, mv = self.lk._verify_emit(values, homes, off, state, cnt,
+                                             pos, self.compute_kmers_found)
         self._pieces.append(piece)
         if self.compute_kmers_found:
             self._matched_values.append(mv)

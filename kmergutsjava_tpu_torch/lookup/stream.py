@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..formats.kmer_table import KmerTable
+from ..utils.timing import count, span
 from .parity import LookupHits
 from .sparse import (FP_EMPTY, FP_MOD, HostWindow, _device_fault,
                      fingerprint_plane, on_stream, owned_stream, torch_device)
@@ -222,21 +223,23 @@ class StreamLookup:
             raise ValueError(
                 "max_probe exceeds the packed-offset budget (64); rebuild "
                 "the table at a lower load factor or use the xla backend")
-        # exact path: host verification column + full-window fallback
-        self._exact = HostWindow(table, probe_window)
-        self.slots = -(-s // SLOT_ALIGN) * SLOT_ALIGN
-        fp = fingerprint_plane(table, self.slots + self.w)
-        # Per-slot distance to the first empty slot at or after it, capped
-        # at w: stop-at-empty depends only on the table, so it is computed
-        # here once and applied on the host. (The padded tail is all empty,
-        # so every slot has a next empty.)
-        n = len(fp)
-        e_idx = np.where(fp == FP_EMPTY, np.arange(n, dtype=np.int64),
-                         np.int64(2 * n))
-        nxt = np.minimum.accumulate(e_idx[::-1])[::-1]
-        self.fe_plane = np.minimum(nxt - np.arange(n, dtype=np.int64),
-                                   self.w).astype(np.uint8)
-        self._place_plane(fp, device)
+        with span("lookup.build.plane"):
+            # exact path: host verification column + full-window fallback
+            self._exact = HostWindow(table, probe_window)
+            self.slots = -(-s // SLOT_ALIGN) * SLOT_ALIGN
+            fp = fingerprint_plane(table, self.slots + self.w)
+            # Per-slot distance to the first empty slot at or after it,
+            # capped at w: stop-at-empty depends only on the table, so it
+            # is computed here once and applied on the host. (The padded
+            # tail is all empty, so every slot has a next empty.)
+            n = len(fp)
+            e_idx = np.where(fp == FP_EMPTY, np.arange(n, dtype=np.int64),
+                             np.int64(2 * n))
+            nxt = np.minimum.accumulate(e_idx[::-1])[::-1]
+            self.fe_plane = np.minimum(nxt - np.arange(n, dtype=np.int64),
+                                       self.w).astype(np.uint8)
+        with span("lookup.build.upload"):
+            self._place_plane(fp, device)
 
     def _place_plane(self, fp: np.ndarray, device: str) -> None:
         """Upload the plane to ``device``, on a stream the lookup owns."""
@@ -254,9 +257,21 @@ class StreamLookup:
         lookup's stream, so the caller may reuse ``tiles`` on return."""
         with on_stream(self._stream), \
                 _device_fault("pass", "stream probe"):
-            t = torch.from_numpy(tiles).to(self.device)
+            with span("stream.upload"):
+                t = torch.from_numpy(tiles).to(self.device)
             out = stream_probe(self.fp, t, self.w, self.channels)
-            return out.cpu().numpy()
+            with span("stream.readback"):
+                return out.cpu().numpy()
+
+    def _pass(self, tiles: np.ndarray, queries: int) -> np.ndarray:
+        """``_probe`` of one plane pass over ``queries`` scattered queries,
+        counted."""
+        out = self._probe(tiles)
+        count("stream.passes", 1)
+        count("stream.queries", queries)
+        count("stream.bytes_up", tiles.nbytes)
+        count("stream.bytes_down", out.nbytes)
+        return out
 
     def _scatter(self, values: np.ndarray, tiles: Optional[np.ndarray] = None,
                  occ: Optional[np.ndarray] = None):
@@ -272,9 +287,10 @@ class StreamLookup:
         from ..utils.native import load_scatter
 
         lib = load_scatter()
-        if lib is not None:
-            return self._scatter_native(lib, values, tiles, occ)
-        return self._scatter_numpy(values, tiles, occ)
+        with span("stream.scatter"):
+            if lib is not None:
+                return self._scatter_native(lib, values, tiles, occ)
+            return self._scatter_numpy(values, tiles, occ)
 
     def _scatter_numpy(self, values, tiles=None, occ=None):
         """numpy twin of ``scatter_chunk``: duplicate values share one tile
@@ -335,12 +351,13 @@ class StreamLookup:
             z = np.zeros(0)
             return LookupHits.from_lists(z, z, z, z, z, z, 0)
         tiles, homes, flat, shift = self._scatter(values)
-        out = self._probe(tiles)
         cnt = np.ascontiguousarray(
             np.broadcast_to(np.asarray(cnt_id, dtype=np.int64), (n,)))
         pos = np.ascontiguousarray(pos, dtype=np.int64)
-        return self._decode(out, [(values, cnt, pos, homes, flat, shift)],
-                            n, progress, compute_kmers_found)
+        with span("stream.pass"):
+            out = self._pass(tiles, n)
+            return self._decode(out, [(values, cnt, pos, homes, flat, shift)],
+                                n, progress, compute_kmers_found)
 
     def _decode(self, out, chunks, n_total: int, progress,
                 compute_kmers_found: bool, want_values: bool = False):
@@ -354,11 +371,13 @@ class StreamLookup:
         from ..utils.native import load_scatter
 
         lib = load_scatter()
-        if lib is not None:
-            return self._decode_native(lib, out, chunks, n_total, progress,
-                                       compute_kmers_found, want_values)
-        return self._decode_numpy(out, chunks, n_total, progress,
-                                  compute_kmers_found, want_values)
+        with span("stream.decode"):
+            if lib is not None:
+                return self._decode_native(lib, out, chunks, n_total,
+                                           progress, compute_kmers_found,
+                                           want_values)
+            return self._decode_numpy(out, chunks, n_total, progress,
+                                      compute_kmers_found, want_values)
 
     def _decode_native(self, lib, out, chunks, n_total: int, progress,
                        compute_kmers_found: bool, want_values: bool = False):
@@ -523,34 +542,39 @@ class StreamingStreamLookup:
         probe's read-back has synchronized the upload by then)."""
         if not self._pending:
             return
-        out = self.lk._probe(self.qfp_tiles)
-        self.passes += 1
-        if self.compute_kmers_found:
-            hits, vals = self.lk._decode(out, self._chunks, self._pending,
-                                         None, False, want_values=True)
-            self._pass_values.append(np.unique(vals))
-        else:
-            hits = self.lk._decode(out, self._chunks, self._pending, None,
-                                   False)
-        self._passes.append(hits)
-        self._chunks = []
-        self._pending = 0
-        self.qfp_tiles.fill(0)
-        self._occ.fill(0)
+        with span("stream.pass"):
+            out = self.lk._pass(self.qfp_tiles, self._pending)
+            self.passes += 1
+            if self.compute_kmers_found:
+                hits, vals = self.lk._decode(out, self._chunks,
+                                             self._pending, None, False,
+                                             want_values=True)
+                self._pass_values.append(np.unique(vals))
+            else:
+                hits = self.lk._decode(out, self._chunks, self._pending,
+                                       None, False)
+            self._passes.append(hits)
+            self._chunks = []
+            self._pending = 0
+            with span("stream.reset"):
+                self.qfp_tiles.fill(0)
+                self._occ.fill(0)
 
     def _put_checked(self, item) -> None:
         """Bounded put that can't deadlock on a dead worker: re-check the
-        worker error whenever the queue stays full."""
+        worker error whenever the queue stays full. Its time is the
+        feed's wait on the worker, ``prepare.feed_wait``."""
         import queue
 
-        while True:
-            if self._worker_error is not None:
-                raise self._worker_error
-            try:
-                self._queue.put(item, timeout=1.0)
-                return
-            except queue.Full:
-                continue
+        with span("prepare.feed_wait"):
+            while True:
+                if self._worker_error is not None:
+                    raise self._worker_error
+                try:
+                    self._queue.put(item, timeout=1.0)
+                    return
+                except queue.Full:
+                    continue
 
     def add_batch(self, values: np.ndarray, cnt_id, pos: np.ndarray) -> None:
         values = np.ascontiguousarray(values, dtype=np.int64)
@@ -587,14 +611,16 @@ class StreamingStreamLookup:
                                      0 if self.compute_kmers_found else -1)
 
     def finish(self, progress=None) -> LookupHits:
-        self._join_worker()
+        with span("engine.worker_wait"):
+            self._join_worker()
         if not self._passes:
             if not self.total_fed:
                 return self.partial_hits()
-            out = self.lk._probe(self.qfp_tiles)
-            self.passes += 1
-            return self.lk._decode(out, self._chunks, self._pending,
-                                   progress, self.compute_kmers_found)
+            with span("stream.pass"):
+                out = self.lk._pass(self.qfp_tiles, self._pending)
+                self.passes += 1
+                return self.lk._decode(out, self._chunks, self._pending,
+                                       progress, self.compute_kmers_found)
         # multi-pass: flush the tail, then merge the per-pass hits
         self._flush_now()
         passes = self._passes

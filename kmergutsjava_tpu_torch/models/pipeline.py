@@ -28,7 +28,6 @@ the report goes to a file.
 from __future__ import annotations
 
 import sys
-import time
 import traceback
 from typing import Dict, Optional, TextIO
 
@@ -54,6 +53,7 @@ from ..lookup.tilejoin import KernelError
 from ..ops import kmer_windows
 from ..parallel import route_bins, shard_probe
 from ..parallel.mesh import default_mesh_shape, mesh_devices
+from ..utils.timing import maybe_profile, record, span
 from .prepare import Prepared
 
 # Device-resident lookups are expensive to (re)build: a host->device plane
@@ -204,13 +204,14 @@ def _table_ident(table_path: str):
 def _cached_read_table(table_path: str):
     """Single-slot host-table cache keyed by (realpath, mtime, size):
     re-reading a multi-GB file per run would dominate repeated runs."""
-    ident = _table_ident(table_path)
-    tbl = _TABLE_CACHE.get(ident)
-    if tbl is None:
-        tbl = read_table(table_path)
-        _TABLE_CACHE.clear()
-        _TABLE_CACHE[ident] = tbl
-    return tbl
+    with span("table.read"):
+        ident = _table_ident(table_path)
+        tbl = _TABLE_CACHE.get(ident)
+        if tbl is None:
+            tbl = read_table(table_path)
+            _TABLE_CACHE.clear()
+            _TABLE_CACHE[ident] = tbl
+        return tbl
 
 
 def _cached_lookup(backend: str, table_path: str, table, cfg: EngineConfig):
@@ -226,7 +227,8 @@ def _cached_lookup(backend: str, table_path: str, table, cfg: EngineConfig):
            str(torch_device(cfg.device)))
     lk = _LOOKUP_CACHE.get(key)
     if lk is None:
-        lk = _build_lookup(backend, table, cfg)
+        with span("lookup.build"):
+            lk = _build_lookup(backend, table, cfg)
         _LOOKUP_CACHE.clear()
         _LOOKUP_CACHE[key] = lk
     return lk
@@ -320,13 +322,14 @@ class Engine:
 
     def run(self, data_dir: str, query: Optional[str], out_stream: TextIO,
             stdout: bool = False, query_stream: Optional[TextIO] = None) -> None:
-        from ..utils.timing import maybe_profile
-
         # _run may resolve backend "auto" (or degrade to "parity") by
         # rebinding self.config; restore so a reused Engine re-resolves
         orig_config = self.config
         try:
-            with maybe_profile(self.config.profile_dir):
+            # the caller's run record (the CLI's, a request's), else one
+            # of this run's own
+            with record("engine.run"), \
+                    maybe_profile(self.config.profile_dir):
                 self._run(data_dir, query, out_stream, stdout, query_stream)
         finally:
             self.config = orig_config
@@ -356,32 +359,10 @@ class Engine:
             else:
                 self.config = cfg = _replace_backend(
                     cfg, choice or _auto_candidates(cfg)[1])
-        if on_cuda and cfg.grouping_impl == "scan":
-            scan_machine.load_kernel()
-        if on_cuda and (cfg.prepare_impl == "jax"
-                        or (cfg.backend == "spmd" and not table.truncated)):
-            kmer_windows.load_kernel()
-        if on_cuda and not table.truncated:
-            # a build failure raises here, before any work, and never
-            # degrades; a deferred choice may run either side, the block
-            # probe's exact rest runs the tile-join kernel, and so do the
-            # replicated lookup and the routed owners' probes
-            sparse = _auto_candidates(cfg)[1] if deferred is not None \
-                else cfg.backend
-            if deferred is not None or cfg.backend in (
-                    "xla", "pallas", "spmd", "replicated", "routed"):
-                tilejoin.load_kernel()
-            if deferred is not None or cfg.backend == "stream":
-                stream_kernel.load_kernel()
-            if cfg.backend == "pallas":
-                blockprobe.load_kernel()
-            if sparse == "routed":
-                route_bins.load_kernel()
-            if cfg.backend == "sharded" or (
-                    cfg.backend == "spmd"
-                    and tuple(cfg.mesh_shape or default_mesh_shape(
-                        _mesh_size(cfg))) != (1, 1)):
-                shard_probe.load_kernel()
+        if on_cuda:
+            self._cuda_init(cfg)
+            with span("kernel.load"):
+                self._load_kernels(cfg, table, deferred)
 
         # --- phase 1: prepare (ref :776-795) ---
         # xla backend: the feeder streams k-mer batches straight into the
@@ -390,10 +371,78 @@ class Engine:
         # scatters into the persistent query tiles; finish() runs the
         # plane pass(es). Parity and pallas buffer through the bounded-RAM
         # store, as in the JAX engine.
-        t1 = time.time()
+        with span("engine.prepare") as phase:
+            streaming, store, spmd, feed, cfg = self._front_end(
+                cfg, table, deferred)
+            try:
+                with span("prepare.feed"):
+                    prep = self._prepare(query, query_stream, feed, spmd)
+                rec = None
+                if store is not None:
+                    rec = store.finalize(
+                        require_sorted=(cfg.backend == "parity"))
+            except Exception:
+                if store is not None:
+                    store.close()
+                raise
+        self._info("Preparation time: %d ms." % phase.ms, report, stdout)
+
+        # --- phase 2: lookup (ref :796-803) ---
+        with span("engine.lookup") as phase:
+            if cfg.debug:
+                report.println(
+                    "Kmer-table info: numSigs=%d, entrySize=%d, version=%d"
+                    % (table.num_sigs, ENTRY_SIZE, table.version))
+            hits: LookupHits
+            try:
+                if streaming is not None:
+                    hits = streaming.finish()
+                elif spmd is not None:
+                    hits = spmd.finish()
+                else:
+                    hits = self._lookup(table, rec)
+            except TableTruncatedError as ex:
+                # ref :797-802 — EOFException: partial results +
+                # "Error: null"
+                traceback.print_exc(file=sys.stderr)
+                self._info("Error: null", report, stdout)
+                hits = ex.partial
+            except KernelError:
+                # a kernel fault is the port's own failure, not the
+                # reference's lookup error: never turn it into a report
+                raise
+            except Exception as ex:  # noqa: BLE001
+                # the reference catches ANY lookup failure, reports it, and
+                # still groups whatever hits were found (ref :797-802)
+                traceback.print_exc(file=sys.stderr)
+                self._info("Error: " + (str(ex) or "null"), report, stdout)
+                if streaming is not None:
+                    hits = streaming.partial_hits()
+                elif spmd is not None:
+                    hits = spmd.partial_hits()
+                else:
+                    hits = LookupHits.from_lists([], [], [], [], [], [], 0)
+            finally:
+                if store is not None:
+                    store.close()
+        self._info("Lookup time: %d ms." % phase.ms, report, stdout)
+        if cfg.debug:
+            report.println("Kmers found: %d (pos-count=%d)"
+                           % (hits.kmers_found, len(hits)))
+
+        # --- phase 3: group (ref :804-819) ---
+        with span("engine.group") as phase:
+            self._group(prep, hits, functions, report)
+        self._info("Grouping time: %d ms." % phase.ms, report, stdout)
+
+    def _front_end(self, cfg: EngineConfig, table, deferred):
+        """The lookup's front end that phase 1 feeds: (streaming, store,
+        spmd, feed, cfg), ``cfg`` rebound where a backend degrades to the
+        parity scan."""
         streaming = None
         store = None
         spmd = None
+        feed = None  # the fused path takes the records itself
         if deferred is not None:
             streaming = feed = deferred
         elif cfg.backend == "spmd" and not table.truncated:
@@ -435,91 +484,50 @@ class Engine:
             store = QueryKmerStore(table.num_sigs, cfg.input_size_limit,
                                    cfg.resolved_temp_dir())
             feed = store
-        try:
-            prep = None
-            if spmd is not None:
-                prep = spmd.consume(read_fasta(query if query is not None
-                                               else query_stream))
-            elif cfg.prepare_impl == "native":
-                # fully-native fast path: bulk parse + feeder share one
-                # buffer, no per-record Python (None = fall through)
-                from .prepare import try_prepare_bulk
+        return streaming, store, spmd, feed, cfg
 
-                prep = try_prepare_bulk(query, query_stream, feed, cfg.aa)
-            if prep is None:
-                records = read_fasta(query if query is not None
-                                     else query_stream)
-                from .prepare import (prepare_aa_native, prepare_aa_numpy,
-                                      prepare_dna_native, prepare_dna_numpy)
+    def _prepare(self, query, query_stream, feed, spmd):
+        """Phase 1's work: the FASTA parsed and encoded into ``feed`` (the
+        fused path's annotator instead where ``spmd`` is set); returns the
+        run's Prepared."""
+        cfg = self.config
+        if spmd is not None:
+            return spmd.consume(read_fasta(query if query is not None
+                                           else query_stream))
+        prep = None
+        if cfg.prepare_impl == "native":
+            # fully-native fast path: bulk parse + feeder share one
+            # buffer, no per-record Python (None = fall through)
+            from .prepare import try_prepare_bulk
 
-                if cfg.prepare_impl == "native":
-                    prep = (prepare_aa_native(records, feed) if cfg.aa
-                            else prepare_dna_native(records, feed))
-                elif cfg.prepare_impl == "jax":
-                    # the window kernel's ragged entry on the device
-                    from .prepare import prepare_aa, prepare_dna
+            prep = try_prepare_bulk(query, query_stream, feed, cfg.aa)
+        if prep is None:
+            records = read_fasta(query if query is not None
+                                 else query_stream)
+            from .prepare import (prepare_aa_native, prepare_aa_numpy,
+                                  prepare_dna_native, prepare_dna_numpy)
 
-                    prep = (prepare_aa(records, feed,
-                                       min_bucket=cfg.length_bucket_base,
-                                       device=cfg.device) if cfg.aa
-                            else prepare_dna(records, feed,
-                                             device=cfg.device))
-                if prep is None:  # numpy, or no toolchain
-                    prep = (prepare_aa_numpy(records, feed) if cfg.aa
-                            else prepare_dna_numpy(records, feed))
-            rec = (store.finalize(require_sorted=(cfg.backend == "parity"))
-                   if store is not None else None)
-        except Exception:
-            if store is not None:
-                store.close()
-            raise
-        self._info("Preparation time: %d ms." % int((time.time() - t1) * 1000),
-                   report, stdout)
+            if cfg.prepare_impl == "native":
+                prep = (prepare_aa_native(records, feed) if cfg.aa
+                        else prepare_dna_native(records, feed))
+            elif cfg.prepare_impl == "jax":
+                # the window kernel's ragged entry on the device
+                from .prepare import prepare_aa, prepare_dna
 
-        # --- phase 2: lookup (ref :796-803) ---
-        t2 = time.time()
-        if cfg.debug:
-            report.println("Kmer-table info: numSigs=%d, entrySize=%d, version=%d"
-                           % (table.num_sigs, ENTRY_SIZE, table.version))
-        hits: LookupHits
-        try:
-            if streaming is not None:
-                hits = streaming.finish()
-            elif spmd is not None:
-                hits = spmd.finish()
-            else:
-                hits = self._lookup(table, rec)
-        except TableTruncatedError as ex:
-            # ref :797-802 — EOFException: partial results + "Error: null"
-            traceback.print_exc(file=sys.stderr)
-            self._info("Error: null", report, stdout)
-            hits = ex.partial
-        except KernelError:
-            # a kernel fault is the port's own failure, not the reference's
-            # lookup error: never turn it into a report
-            raise
-        except Exception as ex:  # noqa: BLE001
-            # the reference catches ANY lookup failure, reports it, and
-            # still groups whatever hits were found (ref :797-802)
-            traceback.print_exc(file=sys.stderr)
-            self._info("Error: " + (str(ex) or "null"), report, stdout)
-            if streaming is not None:
-                hits = streaming.partial_hits()
-            elif spmd is not None:
-                hits = spmd.partial_hits()
-            else:
-                hits = LookupHits.from_lists([], [], [], [], [], [], 0)
-        finally:
-            if store is not None:
-                store.close()
-        self._info("Lookup time: %d ms." % int((time.time() - t2) * 1000),
-                   report, stdout)
-        if cfg.debug:
-            report.println("Kmers found: %d (pos-count=%d)"
-                           % (hits.kmers_found, len(hits)))
+                prep = (prepare_aa(records, feed,
+                                   min_bucket=cfg.length_bucket_base,
+                                   device=cfg.device) if cfg.aa
+                        else prepare_dna(records, feed, device=cfg.device))
+            if prep is None:  # numpy, or no toolchain
+                prep = (prepare_aa_numpy(records, feed) if cfg.aa
+                        else prepare_dna_numpy(records, feed))
+        return prep
 
-        # --- phase 3: group (ref :804-819) ---
-        t3 = time.time()
+    def _group(self, prep, hits, functions, report) -> None:
+        """The report's text from the hits: the native grouping where it
+        serves the run, else the containers through the host machine or
+        (``--grouping scan``) the grouping kernel."""
+        cfg = self.config
         params = GroupingParams(
             min_hits=cfg.min_hits, min_weighted_hits=cfg.min_weighted_hits,
             max_gap=cfg.max_gap, order_constraint=cfg.order_constraint,
@@ -533,22 +541,63 @@ class Engine:
             # to the general path when the library is unavailable)
             from ..calls.batch_native import try_native_report
 
-            if try_native_report(prep, hits, functions, cfg.aa, report,
-                                 params):
-                self._info("Grouping time: %d ms."
-                           % int((time.time() - t3) * 1000), report, stdout)
-                return
+            with span("group.native"):
+                if try_native_report(prep, hits, functions, cfg.aa, report,
+                                     params):
+                    return
         container_hits = self._bucket_hits(prep, hits, functions, params)
         if scan:
-            self._group_scan(prep, container_hits, functions, report, params)
+            with span("group.scan"):
+                self._group_scan(prep, container_hits, functions, report,
+                                 params)
         else:
             process_seq = process_aa_seq if cfg.aa else process_dna_seq
             for query_id, seq_len in prep.id_len.items():
                 process_seq(query_id, seq_len, container_hits, functions,
                             report, params)
                 report.flush()
-        self._info("Grouping time: %d ms." % int((time.time() - t3) * 1000),
-                   report, stdout)
+
+    @staticmethod
+    def _cuda_init(cfg: EngineConfig) -> None:
+        """The run's first CUDA touch, under its own span: CUDA and the
+        device's context come up here (a no-op once they are up), not
+        inside the first upload."""
+        import torch
+
+        with span("cuda.init"):
+            torch.cuda.init()
+            torch.cuda.synchronize(torch_device(cfg.device))
+
+    @staticmethod
+    def _load_kernels(cfg: EngineConfig, table, deferred) -> None:
+        """Build (where needed) and load the CUDA kernels the run's backend
+        may launch."""
+        if cfg.grouping_impl == "scan":
+            scan_machine.load_kernel()
+        if (cfg.prepare_impl == "jax"
+                or (cfg.backend == "spmd" and not table.truncated)):
+            kmer_windows.load_kernel()
+        if not table.truncated:
+            # a build failure raises here, before any work, and never
+            # degrades; a deferred choice may run either side, the block
+            # probe's exact rest runs the tile-join kernel, and so do the
+            # replicated lookup and the routed owners' probes
+            sparse = _auto_candidates(cfg)[1] if deferred is not None \
+                else cfg.backend
+            if deferred is not None or cfg.backend in (
+                    "xla", "pallas", "spmd", "replicated", "routed"):
+                tilejoin.load_kernel()
+            if deferred is not None or cfg.backend == "stream":
+                stream_kernel.load_kernel()
+            if cfg.backend == "pallas":
+                blockprobe.load_kernel()
+            if sparse == "routed":
+                route_bins.load_kernel()
+            if cfg.backend == "sharded" or (
+                    cfg.backend == "spmd"
+                    and tuple(cfg.mesh_shape or default_mesh_shape(
+                        _mesh_size(cfg))) != (1, 1)):
+                shard_probe.load_kernel()
 
     # containers of more hits than this go to the host machine, as in the
     # JAX engine (there they would set its padded batch's length)

@@ -46,6 +46,7 @@ from typing import Optional
 
 from .. import __version__
 from ..config import EngineConfig
+from ..utils import timing
 from .metrics import MetricsRegistry
 
 GIT_URL = "https://github.com/kbaseapps/KmerGutsJava"
@@ -86,6 +87,9 @@ class KmerGutsService:
                    "FASTA bytes received by annotate (inline uploads)")
         m.describe("async_jobs", "gauge",
                    "Async jobs tracked, by state")
+        m.describe("engine_span_seconds", "histogram",
+                   "Time an annotate request spent in each of the engine's "
+                   "spans (its total over the request), by span")
 
     def ready(self):
         """Readiness: a status-only server (no -D) is ready; with a data
@@ -166,14 +170,21 @@ class KmerGutsService:
                              by=len(p["fasta"]))
         # device-resident table planes are per-call state, and each cached
         # lookup owns one CUDA stream: one request at a time on the engine
+        asked = time.perf_counter_ns()
         with self._lock:
-            if "fasta" in p:
-                Engine(cfg).run(self.data_dir, None, out, stdout=True,
-                                query_stream=io.StringIO(p["fasta"]))
-            elif "fasta_path" in p:
-                Engine(cfg).run(self.data_dir, p["fasta_path"], out, stdout=True)
-            else:
-                raise RpcError("annotate needs 'fasta' or 'fasta_path'")
+            with timing.record("service.annotate") as rec:
+                rec.add("service.lock_wait", time.perf_counter_ns() - asked)
+                if "fasta" in p:
+                    Engine(cfg).run(self.data_dir, None, out, stdout=True,
+                                    query_stream=io.StringIO(p["fasta"]))
+                elif "fasta_path" in p:
+                    Engine(cfg).run(self.data_dir, p["fasta_path"], out,
+                                    stdout=True)
+                else:
+                    raise RpcError("annotate needs 'fasta' or 'fasta_path'")
+        for name, got in rec.as_dict()["spans"].items():
+            self.metrics.observe("engine_span_seconds", got["ns"] / 1e9,
+                                 {"span": name})
         return [{"report": out.getvalue()}]
 
     def warm(self, params):

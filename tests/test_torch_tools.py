@@ -149,6 +149,15 @@ def test_check_table_equals_jax(proteins, tmp_path, capsys, kind):
         assert rc == 1 and "PROBLEM: " in text and PROBLEMS[kind] in text
 
 
+# what the port's SPEC.md adds to the JAX package's list of /metrics
+SPAN_METRICS = """, and `engine_span_seconds`
+  {span}: a histogram of each successful annotate request's time in
+  each of the engine's spans (`utils/timing.py`; its total over the
+  request), among them `service.lock_wait` (the wait for the engine
+  lock), `service.annotate` (the request under the lock) and the phases
+  `engine.prepare`, `engine.lookup`, `engine.group`""".encode()
+
+
 def test_compile_report_names_torch_and_cuda(tmp_path, capsys):
     import torch
 
@@ -164,11 +173,14 @@ def test_compile_report_names_torch_and_cuda(tmp_path, capsys):
     for key in ("module_name", "rpc_prefix", "functions", "version"):
         assert rep[key] == want[key]
     # the port's own copy of the spec, the same text as the JAX package's
+    # but for the one family the port's /metrics adds: the engine's spans
     assert rep["spec_file"] == os.path.join(REPO, "kmergutsjava_tpu_torch",
                                             "service", "SPEC.md")
     with open(rep["spec_file"], "rb") as fh, open(want["spec_file"],
                                                   "rb") as jfh:
-        assert fh.read() == jfh.read()
+        port, jax = fh.read(), jfh.read()
+    assert port.count(SPAN_METRICS) == 1
+    assert port.replace(SPAN_METRICS, b"") == jax
     assert "PyTorch" in rep["language"] and "CUDA" in rep["language"]
     assert rep["implementation"] != want["implementation"]
 
