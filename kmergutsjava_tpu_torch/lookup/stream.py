@@ -137,17 +137,19 @@ def _check(fp, qfp_tiles, w, channels) -> None:
                           f"{qfp_tiles.shape[1]} slots + window {w}")
 
 
-def _run(fp, qfp_tiles, w, channels, reps: Optional[int]):
+def _run(fp, qfp_tiles, w, channels, reps: Optional[int], out=None):
     """The twin for CPU tensors; else one launch of the ``stream_probe``
-    entry (``reps`` None) or of ``stream_probe_reps``. Returns (out,
-    launched)."""
+    entry (``reps`` None) or of ``stream_probe_reps``, into ``out`` where
+    given. Returns (out, launched)."""
     if fp.device.type == "cpu":
-        return stream_probe_reference(fp, qfp_tiles, w, channels), False
+        got = stream_probe_reference(fp, qfp_tiles, w, channels)
+        return (got if out is None else out.copy_(got)), False
     if fp.device.type != "cuda":
         raise KernelError(f"no stream kernel for device {fp.device}")
     slots = qfp_tiles.shape[1]
-    out = torch.empty((channels // 4, slots), dtype=torch.int32,
-                      device=fp.device)
+    if out is None:
+        out = torch.empty((channels // 4, slots), dtype=torch.int32,
+                          device=fp.device)
     if slots == 0:
         return out, False
     lib = load_kernel()
@@ -161,16 +163,26 @@ def _run(fp, qfp_tiles, w, channels, reps: Optional[int]):
 
 
 def stream_probe(fp: torch.Tensor, qfp_tiles: torch.Tensor, w: int,
-                 channels: int = CHANNELS) -> torch.Tensor:
+                 channels: int = CHANNELS,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw first fingerprint-match offset of every (channel, slot) tile cell
     in the ``w``-slot window from that slot (``w`` if none), packed four
-    channels per int32: int32 ``[channels/4, S]`` on the inputs' device.
-    CPU tensors run the plain twin; CUDA tensors launch the kernel on the
-    current stream (or raise KernelError). fp: u16 ``[>= S + w]``,
-    qfp_tiles: u16 ``[channels, S]``."""
+    channels per int32: int32 ``[channels/4, S]`` on the inputs' device,
+    written into ``out`` where given (a contiguous tensor of that shape
+    and device). CPU tensors run the plain twin; CUDA tensors launch the
+    kernel on the current stream (or raise KernelError). fp: u16
+    ``[>= S + w]``, qfp_tiles: u16 ``[channels, S]``."""
     global launches
     _check(fp, qfp_tiles, w, channels)
-    out, launched = _run(fp, qfp_tiles, w, channels, None)
+    if out is not None and (
+            out.dtype != torch.int32 or not out.is_contiguous()
+            or tuple(out.shape) != (channels // 4, qfp_tiles.shape[1])
+            or out.device != fp.device):
+        raise KernelError(f"out must be a contiguous int32 "
+                          f"{(channels // 4, qfp_tiles.shape[1])} tensor on "
+                          f"{fp.device}, got {out.dtype} "
+                          f"{tuple(out.shape)} on {out.device}")
+    out, launched = _run(fp, qfp_tiles, w, channels, None, out)
     if launched:
         with _lock:
             launches += 1
@@ -196,6 +208,91 @@ def stream_probe_reps(fp: torch.Tensor, qfp_tiles: torch.Tensor, w: int,
     return out
 
 
+class PassSet:
+    """The buffers of one plane pass: the host tiles u16 ``[C, S]`` and
+    the slot occupancy u8 ``[num_sigs]`` that the scatter fills, the host
+    answers int32 ``[C/4, S]`` that the read-back fills, and the device's
+    tiles and answers (None where the lookup's ``_probe`` places its own).
+
+    ``pinned``: the host tiles and answers are page-locked, one block of
+    torch's pinned host allocator (which rounds it up to a power of two),
+    so both copies run at the link's speed without holding up the host.
+    Tiles and occupancy are all zero whenever a set is free."""
+
+    def __init__(self, channels: int, slots: int, num_sigs: int,
+                 device: torch.device, pinned: bool, on_device: bool,
+                 pooled: bool):
+        rows = channels // 4
+        if pinned:
+            tile_bytes = channels * slots * 2
+            host = torch.empty(tile_bytes + rows * slots * 4,
+                               dtype=torch.uint8, pin_memory=True).numpy()
+            host.fill(0)
+            self.tiles = host[:tile_bytes].view(np.uint16).reshape(
+                channels, slots)
+            self.answers = host[tile_bytes:].view(np.int32).reshape(
+                rows, slots)
+        else:
+            self.tiles = np.zeros((channels, slots), dtype=np.uint16)
+            self.answers = np.zeros((rows, slots), dtype=np.int32)
+        self.occ = np.zeros(num_sigs, dtype=np.uint8)
+        self.pinned = pinned
+        self.pooled = pooled
+        self.dev_tiles = self.dev_answers = None
+        if on_device:
+            self.dev_tiles = torch.empty((channels, slots),
+                                         dtype=torch.uint16, device=device)
+            self.dev_answers = torch.empty((rows, slots), dtype=torch.int32,
+                                           device=device)
+
+    def zero(self) -> None:
+        with span("stream.reset"):
+            self.tiles.fill(0)
+            self.occ.fill(0)
+
+
+class PassSetPool:
+    """A lookup's two pass sets, made and zeroed once when it is built.
+
+    ``take`` hands out a free set; where none is free but one is being
+    zeroed it waits for that one (``stream.set_wait``); where none is
+    either (two live front ends, or a one-shot lookup during a stream) it
+    makes a fresh plain set (``stream.fresh_sets``), which is dropped when
+    given back. A taker that zeroes its set elsewhere marks it ``retire``
+    first and ``give_back`` once it is zero."""
+
+    def __init__(self, make, size: int = 2):
+        self._make = make
+        self._cond = threading.Condition()
+        self.sets = [make(pooled=True) for _ in range(size)]
+        self._free = list(self.sets)
+        self._zeroing: list = []
+
+    def take(self) -> PassSet:
+        with self._cond:
+            if not self._free and self._zeroing:
+                with span("stream.set_wait"):
+                    self._cond.wait_for(
+                        lambda: self._free or not self._zeroing)
+            if self._free:
+                count("stream.fresh_sets", 0)
+                return self._free.pop()
+        count("stream.fresh_sets", 1)
+        return self._make(pooled=False)
+
+    def retire(self, s: PassSet) -> None:
+        if s.pooled:
+            with self._cond:
+                self._zeroing.append(s)
+
+    def give_back(self, s: PassSet) -> None:
+        if s.pooled:
+            with self._cond:
+                self._zeroing = [z for z in self._zeroing if z is not s]
+                self._free.append(s)
+                self._cond.notify_all()
+
+
 class StreamLookup:
     """Dense-regime lookup: slot-major query tiles against one pass over the
     device-resident fingerprint plane. Same exact-result contract as the
@@ -203,7 +300,12 @@ class StreamLookup:
 
     All device work is issued on one CUDA stream the lookup owns; a torch
     RuntimeError from upload, launch or read-back becomes a KernelError.
+    A pass runs on a set of ``_sets``, the lookup's pool of two; on CUDA
+    their host buffers are page-locked.
     """
+
+    # whether a pass set carries device tiles and answers for ``_probe``
+    _probe_on_device = True
 
     def __init__(self, table: KmerTable, probe_window: Optional[int] = None,
                  device: str = "cuda", channels: int = CHANNELS):
@@ -240,6 +342,8 @@ class StreamLookup:
                                        self.w).astype(np.uint8)
         with span("lookup.build.upload"):
             self._place_plane(fp, device)
+        with on_stream(self._stream), _device_fault("upload", "stream probe"):
+            self._sets = PassSetPool(self._new_set)
 
     def _place_plane(self, fp: np.ndarray, device: str) -> None:
         """Upload the plane to ``device``, on a stream the lookup owns."""
@@ -248,28 +352,45 @@ class StreamLookup:
         with on_stream(self._stream), _device_fault("upload", "stream probe"):
             self.fp = torch.from_numpy(fp).to(self.device)
 
+    def _new_set(self, pooled: bool) -> PassSet:
+        """A zeroed pass set: the pool's own are page-locked on CUDA, a
+        fresh one is plain."""
+        return PassSet(self.channels, self.slots, self.num_sigs, self.device,
+                       pinned=pooled and self.device.type == "cuda",
+                       on_device=self._probe_on_device, pooled=pooled)
+
     def new_tiles(self) -> np.ndarray:
         return np.zeros((self.channels, self.slots), dtype=np.uint16)
 
-    def _probe(self, tiles: np.ndarray) -> np.ndarray:
-        """Upload the tiles, run one plane pass, read the packed answer
-        back: int32 ``[channels/4, S]``. The read-back synchronizes the
-        lookup's stream, so the caller may reuse ``tiles`` on return."""
+    def _probe(self, s: PassSet) -> np.ndarray:
+        """Run one plane pass over the set's tiles: up into its device
+        tiles, one launch into its device answers, the packed answers back
+        into its host answers, int32 ``[channels/4, S]``, returned. Both
+        copies are issued without blocking on the lookup's stream, and the
+        read-back ends with that stream synchronized, so the caller may
+        reuse the tiles on return."""
         with on_stream(self._stream), \
                 _device_fault("pass", "stream probe"):
             with span("stream.upload"):
-                t = torch.from_numpy(tiles).to(self.device)
-            out = stream_probe(self.fp, t, self.w, self.channels)
+                s.dev_tiles.copy_(torch.from_numpy(s.tiles),
+                                  non_blocking=True)
+            stream_probe(self.fp, s.dev_tiles, self.w, self.channels,
+                         out=s.dev_answers)
             with span("stream.readback"):
-                return out.cpu().numpy()
+                torch.from_numpy(s.answers).copy_(s.dev_answers,
+                                                  non_blocking=True)
+                if self._stream is not None:
+                    self._stream.synchronize()
+        return s.answers
 
-    def _pass(self, tiles: np.ndarray, queries: int) -> np.ndarray:
-        """``_probe`` of one plane pass over ``queries`` scattered queries,
-        counted."""
-        out = self._probe(tiles)
+    def _pass(self, s: PassSet, queries: int) -> np.ndarray:
+        """``_probe`` of one plane pass over ``queries`` queries scattered
+        into set ``s``, counted."""
+        out = self._probe(s)
         count("stream.passes", 1)
+        count("stream.pinned_passes", int(s.pinned))
         count("stream.queries", queries)
-        count("stream.bytes_up", tiles.nbytes)
+        count("stream.bytes_up", s.tiles.nbytes)
         count("stream.bytes_down", out.nbytes)
         return out
 
@@ -343,21 +464,28 @@ class StreamLookup:
     def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,
                progress=None, compute_kmers_found: bool = True
                ) -> LookupHits:
-        """One-shot lookup of a buffered query batch: scatter, one plane
-        pass, decode."""
+        """One-shot lookup of a buffered query batch: scatter into a set of
+        the pool, one plane pass, decode, and the set zeroed and given
+        back."""
         values = np.ascontiguousarray(values, dtype=np.int64)
         n = len(values)
         if n == 0:
             z = np.zeros(0)
             return LookupHits.from_lists(z, z, z, z, z, z, 0)
-        tiles, homes, flat, shift = self._scatter(values)
         cnt = np.ascontiguousarray(
             np.broadcast_to(np.asarray(cnt_id, dtype=np.int64), (n,)))
         pos = np.ascontiguousarray(pos, dtype=np.int64)
-        with span("stream.pass"):
-            out = self._pass(tiles, n)
-            return self._decode(out, [(values, cnt, pos, homes, flat, shift)],
-                                n, progress, compute_kmers_found)
+        s = self._sets.take()
+        try:
+            _, homes, flat, shift = self._scatter(values, s.tiles, s.occ)
+            with span("stream.pass"):
+                out = self._pass(s, n)
+                return self._decode(out,
+                                    [(values, cnt, pos, homes, flat, shift)],
+                                    n, progress, compute_kmers_found)
+        finally:
+            s.zero()
+            self._sets.give_back(s)
 
     def _decode(self, out, chunks, n_total: int, progress,
                 compute_kmers_found: bool, want_values: bool = False):
@@ -476,48 +604,74 @@ class StreamingStreamLookup:
     """Feed-as-you-parse front end for the stream kernel.
 
     Duck-types the query store's ``add_batch`` so the prepare phase scatters
-    each chunk of query k-mers straight into the persistent tiles (a
-    per-slot channel-occupancy counter carries collision ranks across
-    chunks), and ``finish()`` runs the plane pass. Bounded memory (the
-    reference's inputSizeLimit, ref KmerGutsJava.java:822-889): every
-    ``flush_limit`` queries, one pass probes, decodes, keeps only the hits
-    and resets the tiles and occupancy. Each pass is exact on its own
-    queries; extra passes re-stream the plane.
+    each chunk of query k-mers straight into a pass set's tiles (a per-slot
+    channel-occupancy counter carries collision ranks across chunks), and
+    ``finish()`` runs the last plane pass. Bounded memory (the reference's
+    inputSizeLimit, ref KmerGutsJava.java:822-889): every ``flush_limit``
+    queries, one pass probes, decodes and keeps only the hits. Each pass is
+    exact on its own queries; extra passes re-stream the plane.
 
-    One worker thread runs the native scatter (a ctypes call that releases
-    the GIL) and the passes, in feed order, while the caller keeps parsing;
-    all tile, chunk and pass state is the worker's until the final join.
+    Three threads. The caller parses and feeds. A worker runs the native
+    scatter (a ctypes call that releases the GIL) in feed order; at a flush
+    it hands the full set to the pass thread and scatters on into the
+    lookup's other set. The pass thread runs the passes in order (upload,
+    probe, read-back, decode), then zeroes each set for the next. All tile
+    and chunk state is the worker's until it is joined. ``finish()`` runs
+    the tail pass beside the pass thread and merges the passes' hits in
+    pass order; the last set is zeroed on the pass thread after that, and
+    ``close()`` waits for it.
+
+    Memory stays within what one pass in flight and the feed's
+    ``FEED_CHUNKS`` queued chunks hold: a chunk scattered while a pass is
+    in flight keeps its place among those until no pass is in flight.
     """
 
     _FLUSH = object()  # queue marker: run one bounded-memory pass
+    FEED_CHUNKS = 4
 
     def __init__(self, lk: StreamLookup, compute_kmers_found: bool = False,
                  flush_limit: Optional[int] = None):
+        import queue
+
         self.lk = lk
         self.compute_kmers_found = compute_kmers_found
         self.flush_limit = flush_limit
-        self.qfp_tiles = lk.new_tiles()
-        self._occ = np.zeros(lk.num_sigs, dtype=np.uint8)
+        self._set: Optional[PassSet] = lk._sets.take()  # being scattered
+        self._owned = [self._set]  # every set this front end took
         self._chunks: list = []   # per chunk: (v, cnt, pos, homes, flat, shift)
-        self._passes: list = []   # completed passes' LookupHits
-        self._pass_values: list = []  # per pass: unique hit values (debug)
-        self._pending = 0         # queries scattered but not yet probed
+        self._pending = 0         # queries scattered into _set
+        self._results: list = []  # per pass handed off: its Future
         self.passes = 0           # plane passes run
         self._since_flush = 0     # feed-side trigger counter
         self.total_fed = 0
         self._worker_error: Optional[BaseException] = None
+        self._abort = False
+        self._retired = False
+        # a chunk takes a feed slot when fed and frees it when the worker
+        # takes it up, or, scattered beside a pass in flight, once no pass
+        # is in flight
+        self._slots = threading.Semaphore(self.FEED_CHUNKS)
+        self._lock = threading.Lock()
+        self._in_flight = 0
+        self._held = 0
+        self._spare = queue.Queue()  # own sets the pass thread has zeroed
+        self._pass_q = queue.Queue()
+        self._passer = threading.Thread(target=self._pass_loop, daemon=True)
+        self._passer.start()
         self._start_worker()
 
     def _start_worker(self) -> None:
         import queue
 
-        self._queue = queue.Queue(maxsize=4)
+        self._queue = queue.Queue()
 
         def drain():
             while True:
                 item = self._queue.get()
                 if item is None:
                     return
+                if self._abort:
+                    continue
                 try:
                     if item is StreamingStreamLookup._FLUSH:
                         self._flush_now()
@@ -531,50 +685,118 @@ class StreamingStreamLookup:
         self._worker.start()
 
     def _scatter_chunk(self, values, cnt, pos) -> None:
+        if self._set is None:
+            self._set = self._next_set()
+        with self._lock:
+            beside = self._in_flight > 0
+            self._held += beside
+        if not beside:
+            self._slots.release()
         _, homes, flat, shift = self.lk._scatter(
-            values, tiles=self.qfp_tiles, occ=self._occ)
+            values, tiles=self._set.tiles, occ=self._set.occ)
         self._chunks.append((values, cnt, pos, homes, flat, shift))
         self._pending += len(values)
+        count("stream.overlap_queries", len(values) if beside else 0)
+
+    def _next_set(self) -> PassSet:
+        """The set to scatter into after a hand-off: the lookup's other one
+        while this front end holds one, else its own back from the pass
+        thread once zeroed."""
+        if len(self._owned) < 2:
+            s = self.lk._sets.take()
+            self._owned.append(s)
+            return s
+        with span("stream.set_wait"):
+            return self._spare.get()
 
     def _flush_now(self) -> None:
-        """One bounded-memory pass over everything scattered so far: probe,
-        decode, keep only the hits, reset the tiles and occupancy (the
-        probe's read-back has synchronized the upload by then)."""
-        if not self._pending:
-            return
+        """One bounded-memory pass over everything scattered since the
+        last: the set goes to the pass thread, and the next chunk takes
+        another."""
+        if self._pending:
+            self._hand_off()
+
+    def _hand_off(self) -> None:
+        from concurrent.futures import Future
+
+        done = Future()
+        with self._lock:
+            self._in_flight += 1
+        self._results.append(done)
+        self._pass_q.put((self._set, self._chunks, self._pending, done))
+        self.passes += 1
+        self._set, self._chunks, self._pending = None, [], 0
+
+    def _run_pass(self, s: PassSet, chunks, n: int):
+        """One plane pass over the ``n`` queries of ``chunks`` in set
+        ``s``: (hits, the hits' distinct values or None)."""
         with span("stream.pass"):
-            out = self.lk._pass(self.qfp_tiles, self._pending)
-            self.passes += 1
-            if self.compute_kmers_found:
-                hits, vals = self.lk._decode(out, self._chunks,
-                                             self._pending, None, False,
-                                             want_values=True)
-                self._pass_values.append(np.unique(vals))
-            else:
-                hits = self.lk._decode(out, self._chunks, self._pending,
-                                       None, False)
-            self._passes.append(hits)
-            self._chunks = []
-            self._pending = 0
-            with span("stream.reset"):
-                self.qfp_tiles.fill(0)
-                self._occ.fill(0)
+            out = self.lk._pass(s, n)
+            if not self.compute_kmers_found:
+                return self.lk._decode(out, chunks, n, None, False), None
+            hits, vals = self.lk._decode(out, chunks, n, None, False,
+                                         want_values=True)
+            return hits, np.unique(vals)
+
+    def _pass_loop(self) -> None:
+        """The pass thread: each pass handed off, in order, then its set
+        zeroed for the worker; last the retirement of every set."""
+        while True:
+            job = self._pass_q.get()
+            if job is None:
+                return
+            s, chunks, n, done = job
+            if done is None:
+                self._give_back(s)
+                continue
+            try:
+                done.set_result(self._run_pass(s, chunks, n))
+            except BaseException as ex:  # surfaced at finish()
+                done.set_exception(ex)
+            finally:
+                self._pass_ended()
+                s.zero()
+                self._spare.put(s)
+
+    def _pass_ended(self) -> None:
+        """A pass is decoded: once none is in flight, the chunks scattered
+        beside it free their feed slots."""
+        with self._lock:
+            self._in_flight -= 1
+            free = 0 if self._in_flight else self._held
+            self._held -= free
+        if free:
+            self._slots.release(free)
+
+    def _retire(self) -> None:
+        """Once the worker is joined: the pass thread zeroes the last set
+        after the passes queued before it, gives every set back to the
+        lookup, and ends."""
+        if self._retired:
+            return
+        self._retired = True
+        for s in self._owned:
+            self.lk._sets.retire(s)
+        self._pass_q.put((self._set, None, 0, None))
+        self._pass_q.put(None)
+
+    def _give_back(self, last: Optional[PassSet]) -> None:
+        if last is not None:
+            last.zero()
+        for s in self._owned:
+            self.lk._sets.give_back(s)
 
     def _put_checked(self, item) -> None:
-        """Bounded put that can't deadlock on a dead worker: re-check the
-        worker error whenever the queue stays full. Its time is the
-        feed's wait on the worker, ``prepare.feed_wait``."""
-        import queue
-
+        """Take a feed slot, then queue the chunk; a dead worker frees no
+        slot, so its error is re-checked while none is free. Its time is
+        the feed's wait on the worker, ``prepare.feed_wait``."""
         with span("prepare.feed_wait"):
             while True:
                 if self._worker_error is not None:
                     raise self._worker_error
-                try:
-                    self._queue.put(item, timeout=1.0)
-                    return
-                except queue.Full:
-                    continue
+                if self._slots.acquire(timeout=1.0):
+                    break
+        self._queue.put(item)
 
     def add_batch(self, values: np.ndarray, cnt_id, pos: np.ndarray) -> None:
         values = np.ascontiguousarray(values, dtype=np.int64)
@@ -588,19 +810,20 @@ class StreamingStreamLookup:
         self._since_flush += n
         self._put_checked((values, cnt, pos))
         if self.flush_limit and self._since_flush >= self.flush_limit:
-            # the pass queues behind the pending chunks: the worker probes
-            # and decodes while this thread keeps parsing and feeding
+            # the pass queues behind the pending chunks: the pass thread
+            # probes and decodes while the worker scatters on and this
+            # thread keeps parsing and feeding
             self._since_flush = 0
-            self._put_checked(StreamingStreamLookup._FLUSH)
+            self._queue.put(StreamingStreamLookup._FLUSH)
 
-    def _join_worker(self) -> None:
+    def _join_worker(self, raise_error: bool = True) -> None:
         if self._worker is not None:
             self._queue.put(None)
             self._worker.join()
             self._worker = None
             self._queue = None
-            if self._worker_error is not None:
-                raise self._worker_error
+        if raise_error and self._worker_error is not None:
+            raise self._worker_error
 
     def partial_hits(self) -> LookupHits:
         """Nothing is probed before finish(); an error mid-prepare has found
@@ -611,20 +834,30 @@ class StreamingStreamLookup:
                                      0 if self.compute_kmers_found else -1)
 
     def finish(self, progress=None) -> LookupHits:
-        with span("engine.worker_wait"):
-            self._join_worker()
-        if not self._passes:
-            if not self.total_fed:
-                return self.partial_hits()
-            with span("stream.pass"):
-                out = self.lk._pass(self.qfp_tiles, self._pending)
+        try:
+            with span("engine.worker_wait"):
+                self._join_worker()
+            if not self._results:
+                if not self.total_fed:
+                    return self.partial_hits()
+                with span("stream.pass"):
+                    out = self.lk._pass(self._set, self._pending)
+                    self.passes += 1
+                    return self.lk._decode(out, self._chunks, self._pending,
+                                           progress, self.compute_kmers_found)
+            # several passes: the tail beside the pass thread, then every
+            # pass's hits in pass order
+            tail = []
+            if self._pending:
                 self.passes += 1
-                return self.lk._decode(out, self._chunks, self._pending,
-                                       progress, self.compute_kmers_found)
-        # multi-pass: flush the tail, then merge the per-pass hits
-        self._flush_now()
-        passes = self._passes
-        kf = (int(np.unique(np.concatenate(self._pass_values)).size)
+                tail.append(self._run_pass(self._set, self._chunks,
+                                           self._pending))
+            with span("engine.worker_wait"):
+                done = [d.result() for d in self._results] + tail
+        finally:
+            self._retire()
+        passes = [hits for hits, _ in done]
+        kf = (int(np.unique(np.concatenate([v for _, v in done])).size)
               if self.compute_kmers_found else -1)
         merged = LookupHits(
             cnt_id=np.concatenate([p.cnt_id for p in passes]),
@@ -637,3 +870,14 @@ class StreamingStreamLookup:
         if progress is not None:
             progress.update(self.total_fed, len(merged))
         return merged
+
+    def close(self) -> None:
+        """Stop the threads (finish() need not have run: a failed prepare
+        drops what is queued) and wait until every set is zeroed and back
+        with the lookup (``stream.set_wait``)."""
+        if self._worker is not None:
+            self._abort = True
+            self._join_worker(raise_error=False)
+        self._retire()
+        with span("stream.set_wait"):
+            self._passer.join()

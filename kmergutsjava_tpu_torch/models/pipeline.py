@@ -173,6 +173,10 @@ class _DeferredAutoFeed:
         return LookupHits.from_lists(z, z, z, z, z, z,
                                      0 if self.cfg.debug else -1)
 
+    def close(self) -> None:
+        if self._stream is not None:
+            self._stream.close()
+
     def finish(self) -> LookupHits:
         if self._stream is not None:
             return self._stream.finish()
@@ -289,6 +293,7 @@ class Engine:
         self._report: Optional[Report] = None
         self._stdout = True
         self._table_path: Optional[str] = None
+        self._front = None  # the run's streaming front end, closed after it
 
     def _info(self, message: str, report: Report, stdout: bool) -> None:
         # ref printInfoLine :891-898
@@ -330,9 +335,22 @@ class Engine:
             # of this run's own
             with record("engine.run"), \
                     maybe_profile(self.config.profile_dir):
-                self._run(data_dir, query, out_stream, stdout, query_stream)
+                try:
+                    self._run(data_dir, query, out_stream, stdout,
+                              query_stream)
+                finally:
+                    self._close_front_end()
         finally:
             self.config = orig_config
+
+    def _close_front_end(self) -> None:
+        """Stop the streaming front end's threads, inside the run's record:
+        the stream front end zeroes its last set while grouping runs, and
+        its time lands in this run."""
+        front, self._front = self._front, None
+        close = getattr(front, "close", None)
+        if close is not None:
+            close()
 
     def _run(self, data_dir: str, query: Optional[str], out_stream: TextIO,
              stdout: bool = False, query_stream: Optional[TextIO] = None) -> None:
@@ -374,6 +392,7 @@ class Engine:
         with span("engine.prepare") as phase:
             streaming, store, spmd, feed, cfg = self._front_end(
                 cfg, table, deferred)
+            self._front = streaming
             try:
                 with span("prepare.feed"):
                     prep = self._prepare(query, query_stream, feed, spmd)

@@ -20,7 +20,7 @@ import torch
 
 from ..formats.kmer_table import KmerTable
 from ..lookup.sparse import _device_fault, on_stream
-from ..lookup.stream import SLOT_ALIGN, StreamLookup, stream_probe
+from ..lookup.stream import SLOT_ALIGN, PassSet, StreamLookup, stream_probe
 from .mesh import TABLE_AXIS, Mesh, gather_host, make_mesh
 
 
@@ -41,7 +41,11 @@ def make_stream_mesh(n_shards: int, devices: List[torch.device],
 class StreamShardedLookup(StreamLookup):
     """Stream-kernel lookup with the plane and tiles split over a ``1 x T``
     mesh. Same exact-result contract as ``StreamLookup`` (host
-    verification and the exact fallback are inherited unchanged)."""
+    verification and the exact fallback are inherited unchanged). Its
+    pass sets hold host buffers only: ``_probe`` places each shard's
+    columns itself."""
+
+    _probe_on_device = False
 
     def __init__(self, table: KmerTable, mesh: Mesh,
                  probe_window: Optional[int] = None):
@@ -71,12 +75,14 @@ class StreamShardedLookup(StreamLookup):
                         fp[a:b + self.w]).to(dev)
             self.mesh.synchronize()
 
-    def _probe(self, tiles: np.ndarray) -> np.ndarray:
-        """Each shard's columns of the tiles up (one copy a channel), one
-        plane pass a shard, the packed answers back and joined in slot
-        order: int32 ``[channels/4, S]``. On a mesh over processes each
+    def _probe(self, s: PassSet) -> np.ndarray:
+        """Each shard's columns of the set's tiles up (one copy a channel,
+        from page-locked memory where the set is), one plane pass a shard,
+        the packed answers back and joined in slot order: int32
+        ``[channels/4, S]``. On a mesh over processes each
         rank passes its own shards (every rank holds the same tiles) and
         the answers are all-gathered, so every rank decodes all of them."""
+        tiles = s.tiles
         outs = {}
         with _device_fault("pass", "stream probe"):
             for t in self.mine:

@@ -529,6 +529,65 @@ def test_cuda_streaming_stream_lookup_matches_cpu(cuda_device):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
 
 
+@pytest.mark.cuda
+def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
+    """On the card the stream lookup's two pass sets are page-locked; a
+    pass through a set (both copies non-blocking on the lookup's stream)
+    gives the twin's answers on the same tiles; and a two-pass front end
+    (the tail pass at finish) gives the one-shot lookup's hits, every pass
+    counted as page-locked, with both sets back and zero after it."""
+    from kmergutsjava_tpu_torch.constants import MAX_ENCODED
+    from kmergutsjava_tpu_torch.formats.kmer_table import build_table
+    from kmergutsjava_tpu_torch.lookup.stream import (StreamingStreamLookup,
+                                                      StreamLookup)
+    from kmergutsjava_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(23)
+    kmers = rng.choice(MAX_ENCODED, 300_000, replace=False).astype(np.int64)
+    n = len(kmers)
+    table = build_table(kmers, rng.integers(0, 20, n).astype(np.int32),
+                        rng.integers(0, 500, n).astype(np.int32),
+                        rng.integers(0, 97, n).astype(np.int32),
+                        rng.random(n).astype(np.float32), load_factor=0.6)
+    values = np.concatenate([rng.choice(kmers, 300_000),
+                             rng.integers(0, MAX_ENCODED, 100_000)])
+    cnt = np.repeat(np.arange(8, dtype=np.int64), 50_000)
+    pos = np.arange(len(values), dtype=np.int64)
+    lk = StreamLookup(table, device=str(cuda_device))
+    for s in lk._sets.sets:
+        assert s.pinned and torch.from_numpy(s.tiles).is_pinned()
+        assert torch.from_numpy(s.answers).is_pinned()
+        assert s.dev_tiles.device.type == "cuda"
+    s = lk._sets.take()
+    lk._scatter(values, s.tiles, s.occ)
+    got = lk._probe(s).copy()
+    want = stream.stream_probe_reference(lk.fp.cpu(),
+                                         torch.from_numpy(s.tiles.copy()),
+                                         lk.w, lk.channels)
+    np.testing.assert_array_equal(got, want.numpy())
+    s.zero()
+    lk._sets.give_back(s)
+    one = lk.lookup(values, cnt, pos)
+    with timing.record("t.root"):
+        st = StreamingStreamLookup(lk, compute_kmers_found=True,
+                                   flush_limit=200_000)
+        for a in range(0, len(values), 60_000):
+            st.add_batch(values[a:a + 60_000], cnt[a:a + 60_000],
+                         pos[a:a + 60_000])
+        two = st.finish()
+        st.close()
+    counters = timing.recent_runs()[-1]["counters"]
+    assert st.passes == counters["stream.pinned_passes"] == 2
+    assert counters["stream.fresh_sets"] == 0
+    assert len(one) > 0 and one.kmers_found == two.kmers_found
+    order = [np.lexsort((h.pos, h.cnt_id)) for h in (one, two)]
+    for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
+        np.testing.assert_array_equal(getattr(one, col)[order[0]],
+                                      getattr(two, col)[order[1]])
+    for s in lk._sets.sets:
+        assert not s.tiles.any() and not s.occ.any()
+
+
 @pytest.mark.parametrize("reps", [1, 3])
 def test_stream_reps_cpu_runs_twin_and_counts_no_launch(reps):
     fp, tiles = _stream_inputs(2000, 24, 4, seed=33)

@@ -6,8 +6,16 @@ interpret mode, its layout converted) bit for bit, and ``StreamLookup`` /
 parity scan ``lookup_stream``, one-shot, chunked, in several bounded-memory
 passes, with channel overflow and with 8 channels. The native scatter and
 decode are held against their numpy twins in the port's ``[C, S]`` layout.
-Exact everywhere: offsets and hits are integers, weights are copied table
+The double-buffered passes (a pass on its own thread while the worker
+scatters into the lookup's other set) keep the hits and their pass order,
+reuse the lookup's two sets and give them back zeroed, also after a failure,
+and hold no more queries than one pass and four queued chunks. Exact
+everywhere: offsets and hits are integers, weights are copied table
 values."""
+import sys
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +27,8 @@ from kmergutsjava_tpu.lookup.parity import lookup_stream
 from kmergutsjava_tpu_torch.lookup import stream
 from kmergutsjava_tpu_torch.lookup.stream import (StreamingStreamLookup,
                                                   StreamLookup)
-from kmergutsjava_tpu_torch.utils import native
+from kmergutsjava_tpu_torch.utils import native, timing
+from kmergutsjava_tpu_torch.utils.timing import record
 
 from test_torch_kernels import _stream_inputs
 from test_torch_lookup import _queries, _tables
@@ -203,6 +212,197 @@ def test_streaming_worker_error_surfaces_at_finish(monkeypatch):
         for part in np.array_split(np.arange(len(values)), 6):
             s.add_batch(values[part], cnt[part], pos[part])
         s.finish()
+
+
+def _slow_decode(monkeypatch, lk, seconds=0.25):
+    """Decodes off the main thread (the pass thread's) take ``seconds``
+    more, so a pass is still in flight while the worker fills the other
+    set. Returns the per-pass query counts, in decode order."""
+    orig = lk._decode
+    decoded = []
+
+    def slow(out, chunks, n_total, *a, **k):
+        if threading.current_thread() is not threading.main_thread():
+            time.sleep(seconds)
+        got = orig(out, chunks, n_total, *a, **k)
+        decoded.append(n_total)
+        return got
+
+    monkeypatch.setattr(lk, "_decode", slow)
+    return decoded
+
+
+def _feed(fronts, values, cnt, pos, n_chunks):
+    """Every front end of ``fronts`` fed the same chunks, in turns."""
+    for part in np.array_split(np.arange(len(values)), n_chunks):
+        for s in fronts:
+            s.add_batch(values[part], cnt[part], pos[part])
+
+
+def _pool_back_and_zero(lk):
+    """Both of the lookup's sets are free again, all zero."""
+    pool = lk._sets
+    assert len(pool.sets) == 2 and not pool._zeroing
+    assert {id(s) for s in pool._free} == {id(s) for s in pool.sets}
+    for s in pool.sets:
+        assert not s.tiles.any() and not s.occ.any()
+
+
+def _pass_bounds(n, n_chunks, flush_limit):
+    """Where the passes of ``n`` queries fed in ``n_chunks`` chunks end."""
+    bounds, since = [0], 0
+    for part in np.array_split(np.arange(n), n_chunks):
+        since += len(part)
+        if since >= flush_limit:
+            bounds.append(int(part[-1]) + 1)
+            since = 0
+    return bounds + ([n] if bounds[-1] < n else [])
+
+
+@pytest.mark.parametrize("n_chunks", [8, 9])   # 9: a tail pass at finish
+@pytest.mark.parametrize("kmers_found", [True, False])
+def test_streaming_double_buffered_passes(monkeypatch, kmers_found,
+                                          n_chunks):
+    """Several passes, each decoded slowly on the pass thread while the
+    worker scatters into the other set: the hits equal the one-shot lookup
+    of each pass's queries, concatenated in pass order, the one-shot
+    lookup's and the parity scan's; the kmers-found union holds across
+    passes."""
+    jax_t, port_t, kmers = _tables(1500, seed=43, load_factor=0.8)
+    values, cnt, pos = _queries(kmers, 4000, seed=44)
+    values[::4] = values[0]
+    lk = StreamLookup(port_t, device="cpu")
+    want = lk.lookup(values, cnt, pos, compute_kmers_found=kmers_found)
+    bounds = _pass_bounds(len(values), n_chunks, 800)
+    in_order = [lk.lookup(values[a:b], cnt[a:b], pos[a:b])
+                for a, b in zip(bounds, bounds[1:])]
+    decoded = _slow_decode(monkeypatch, lk)
+    with record("t.root"):
+        s = StreamingStreamLookup(lk, compute_kmers_found=kmers_found,
+                                  flush_limit=800)
+        _feed([s], values, cnt, pos, n_chunks)
+        got = s.finish()
+        s.close()
+    counters = timing.recent_runs()[-1]["counters"]
+    assert s.passes == len(in_order) >= 4
+    assert sorted(decoded) == sorted(np.diff(bounds).tolist())
+    assert counters["stream.overlap_queries"] > 0
+    assert counters["stream.fresh_sets"] == 0
+    assert counters["stream.pinned_passes"] == 0  # no page-locking on CPU
+    _same(got, want)
+    par = lookup_stream(jax_t, values, cnt, pos)
+    for a, b in zip(_canon(got), _canon(par)):
+        np.testing.assert_array_equal(a, b)
+    assert got.kmers_found == (par.kmers_found if kmers_found else -1)
+    for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
+        np.testing.assert_array_equal(
+            getattr(got, col),
+            np.concatenate([getattr(h, col) for h in in_order]))
+    _pool_back_and_zero(lk)
+
+
+def test_front_ends_in_a_row_reuse_the_two_sets(monkeypatch):
+    """Two front ends one after another run every pass on the lookup's
+    own two sets (the same buffers), and give both back all zero."""
+    _, port_t, kmers = _tables(1200, seed=45, load_factor=0.7)
+    values, cnt, pos = _queries(kmers, 3000, seed=46)
+    lk = StreamLookup(port_t, device="cpu")
+    want = lk.lookup(values, cnt, pos)
+    pool_tiles = {s.tiles.ctypes.data for s in lk._sets.sets}
+    orig, used = lk._pass, []
+
+    def spy(s, queries):
+        used.append(s.tiles.ctypes.data)
+        return orig(s, queries)
+
+    monkeypatch.setattr(lk, "_pass", spy)
+    for _ in range(2):
+        used.clear()
+        s = StreamingStreamLookup(lk, compute_kmers_found=True,
+                                  flush_limit=1000)
+        _feed([s], values, cnt, pos, 6)
+        _same(s.finish(), want)
+        s.close()
+        assert s.passes == 3 and set(used) == pool_tiles
+        _pool_back_and_zero(lk)
+
+
+def test_two_live_front_ends_stay_exact():
+    """Two front ends fed in turns hold a set each; the first one's second
+    set is a fresh one, counted (the other's is fresh too, or the first's
+    once it is zeroed), and both stay exact."""
+    _, port_t, kmers = _tables(1200, seed=47, load_factor=0.7)
+    values, cnt, pos = _queries(kmers, 3000, seed=48)
+    lk = StreamLookup(port_t, device="cpu")
+    want = lk.lookup(values, cnt, pos)
+    with record("t.root"):
+        fronts = [StreamingStreamLookup(lk, compute_kmers_found=True,
+                                        flush_limit=1000) for _ in range(2)]
+        _feed(fronts, values, cnt, pos, 6)
+        got = [s.finish() for s in fronts]
+        for s in fronts:
+            s.close()
+    for g in got:
+        _same(g, want)
+    assert timing.recent_runs()[-1]["counters"]["stream.fresh_sets"] in (
+        1, 2)
+    _pool_back_and_zero(lk)
+
+
+@pytest.mark.parametrize("where", ["worker", "pass"])
+def test_streaming_error_gives_the_sets_back(monkeypatch, where):
+    """A failure in the worker's scatter or in a pass on the pass thread
+    surfaces by finish(), and the lookup gets both sets back, zeroed."""
+    _, port_t, kmers = _tables(800, seed=49, load_factor=0.6)
+    lk = StreamLookup(port_t, device="cpu")
+    name = "_scatter" if where == "worker" else "_decode"
+    orig, calls = getattr(lk, name), []
+
+    def broken(*a, **k):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError(f"{where} broke")
+        return orig(*a, **k)
+
+    monkeypatch.setattr(lk, name, broken)
+    s = StreamingStreamLookup(lk, flush_limit=100)
+    values, cnt, pos = _queries(kmers, 600, seed=50)
+    with pytest.raises(RuntimeError, match=f"{where} broke"):
+        _feed([s], values, cnt, pos, 6)
+        s.finish()
+    s.close()
+    assert not s._passer.is_alive() and s._worker is None
+    _pool_back_and_zero(lk)
+
+
+def test_streaming_holds_no_more_than_a_pass_and_four_chunks(monkeypatch):
+    """With every pass decoded slowly, the queries fed and not yet decoded
+    never pass the largest pass plus the feed's four chunks (what the
+    front end held when the pass ran on its worker), though chunks are
+    scattered beside the passes. The threads switch often."""
+    _, port_t, kmers = _tables(1500, seed=51, load_factor=0.7)
+    values, cnt, pos = _queries(kmers, 6000, seed=52)
+    lk = StreamLookup(port_t, device="cpu")
+    decoded = _slow_decode(monkeypatch, lk, seconds=0.15)
+    chunk, fed, peak = 200, 0, 0
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with record("t.root"):
+            s = StreamingStreamLookup(lk, flush_limit=700)
+            for a in range(0, len(values), chunk):
+                s.add_batch(values[a:a + chunk], cnt[a:a + chunk],
+                            pos[a:a + chunk])
+                fed += len(values[a:a + chunk])
+                peak = max(peak, fed - sum(decoded))
+            s.finish()
+            s.close()
+    finally:
+        sys.setswitchinterval(old)
+    assert s.passes >= 7
+    assert timing.recent_runs()[-1]["counters"][
+        "stream.overlap_queries"] > 0
+    assert max(decoded) + s.FEED_CHUNKS * chunk >= peak > max(decoded)
 
 
 def _no_native(monkeypatch):
