@@ -57,12 +57,18 @@ failure and then prints no result):
    (120,000 reads of 150 bp from the genome: uniform starts, either strand,
    1% substitutions; 22.5M query 8-mers once stop codons end their
    windows, past numSigs/2.5 and past the 20M input_size_limit), so
-   ``auto`` takes the stream path in two plane passes, and ``--backend
-   pallas`` spills once and runs one block-probe launch; both reports must
-   equal the ``--backend xla`` report byte for byte. Phase times, query
-   rates and launches are printed; then the stream kernel is held against
-   the twin on one pass's real tiles, with the tiles' upload and the
-   answer's read-back timed;
+   ``auto`` takes the stream path in two plane passes (each launching the
+   device scatter a chunk, B2 once and the device resolve a chunk), and
+   ``--backend pallas`` spills once and runs one block-probe launch; both
+   reports must equal the ``--backend xla`` report byte for byte. Phase
+   times, query rates and launches are printed; then the read set's own
+   chunks (the prepare's, grouped into the engine's two passes) go through
+   the stream lookup's device stages: each chunk scattered by the scatter
+   kernel (its twin timed from the same tiles and occupancy), each pass's
+   split checked valid, B2 held against its twin on the first pass's
+   tiles, each chunk resolved by the resolve kernel and its twin on the
+   same channels and answers (slots and counts equal bit for bit), every
+   launch timed against its twin with its bound;
 8. the block probe against its plain PyTorch twin on that table's plane,
    with the read set's queries in prepare's order and in the store's
    (home, value) order (the engine's); every (off, state) must be equal;
@@ -208,7 +214,8 @@ sweep, the server's requests) starts with every launch count at 0 and must
 launch its kernels and no others. The line before the last is a JSON object with each kernel's
 name, source, the TPU kernel it replaces, its launches on its path (phase
 4's cuda run for the tile join, phase 6's cuda ``auto`` run for the stream
-kernel, phase 7's ``pallas`` run for the block probe, phase 9's rows for
+kernel, phase 7's ``auto`` run for its device scatter and resolve, phase
+7's ``pallas`` run for the block probe, phase 9's rows for
 the repetition launch, phase 10's sweep for the lane gather, phase 12's
 proteome ``--prepare jax`` run for the window kernel (its ragged entry's
 calls; the read set's beside them), phase
@@ -217,7 +224,8 @@ phase 13 beside it), phase 13's sharded (2, 2) run for B12 and routed run
 for B13, phase 14's proteome run for B11), its largest
 disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
-phase 7's pass; phases 8, 9 and 10; phase 12's proteome prepare's calls
+phase 7's passes, each of its scatter and resolve launches summed;
+phases 8, 9 and 10; phase 12's proteome prepare's calls
 for the window kernel's ragged entry (the read set's and the padded
 entry's beside it), its proteome bucket batch for the fused kernel, with
 the window kernel plus B1 beside it and its (2, 2) position's time;
@@ -302,7 +310,8 @@ def fail(msg: str) -> int:
 def kernel_modules():
     """The kernel wrappers' modules, by the name their counts print under."""
     from kmergutsjava_tpu_torch.calls import scan_machine
-    from kmergutsjava_tpu_torch.lookup import (blockprobe, stream, tilejoin,
+    from kmergutsjava_tpu_torch.lookup import (blockprobe, stream,
+                                               stream_tiles, tilejoin,
                                                tjgather)
     from kmergutsjava_tpu_torch.ops import kmer_windows
     from kmergutsjava_tpu_torch.parallel import (fused_probe, route_bins,
@@ -311,7 +320,8 @@ def kernel_modules():
     return dict(tilejoin=tilejoin, stream=stream, blockprobe=blockprobe,
                 tjgather=tjgather, kmer_windows=kmer_windows,
                 shard_probe=shard_probe, route_bins=route_bins,
-                scan_machine=scan_machine, fused_probe=fused_probe)
+                scan_machine=scan_machine, fused_probe=fused_probe,
+                stream_tiles=stream_tiles)
 
 
 def reset_counts():
@@ -319,9 +329,12 @@ def reset_counts():
     window kernel's padded values and ragged entries' and the routing
     bins' un-binning entry's too)."""
     mods = kernel_modules()
-    for m in mods.values():
-        m.launches = 0
+    for name, m in mods.items():
+        if name != "stream_tiles":
+            m.launches = 0
     mods["stream"].reps_launches = 0
+    mods["stream_tiles"].scatter_launches = 0
+    mods["stream_tiles"].resolve_launches = 0
     mods["kmer_windows"].values_launches = 0
     mods["kmer_windows"].ragged_launches = 0
     mods["route_bins"].unbin_launches = 0
@@ -329,11 +342,14 @@ def reset_counts():
 
 def read_counts():
     mods = kernel_modules()
-    got = {name: m.launches for name, m in mods.items()}
+    got = {name: m.launches for name, m in mods.items()
+           if name != "stream_tiles"}
     got["stream_reps"] = mods["stream"].reps_launches
     got["kmer_values"] = mods["kmer_windows"].values_launches
     got["kmer_ragged"] = mods["kmer_windows"].ragged_launches
     got["route_unbin"] = mods["route_bins"].unbin_launches
+    got["stream_scatter"] = mods["stream_tiles"].scatter_launches
+    got["stream_resolve"] = mods["stream_tiles"].resolve_launches
     return got
 
 
@@ -709,6 +725,14 @@ def query_values(path, aa=True):
     """The query 8-mer values the prepare phase feeds the lookup, in order."""
     import numpy as np
 
+    return np.concatenate(query_chunks(path, aa))
+
+
+def query_chunks(path, aa=True):
+    """The prepare phase's ``add_batch`` chunks of query 8-mer values, in
+    the order it feeds them to the lookup."""
+    import numpy as np
+
     from kmergutsjava_tpu_torch.models.prepare import (prepare_aa_numpy,
                                                        prepare_dna_numpy,
                                                        try_prepare_bulk)
@@ -724,7 +748,7 @@ def query_values(path, aa=True):
     c = Collect()
     if try_prepare_bulk(path, None, c, aa) is None:
         (prepare_aa_numpy if aa else prepare_dna_numpy)(read_fasta(path), c)
-    return np.concatenate(c.parts)
+    return c.parts
 
 
 def engine_launches(lk, chunks):
@@ -774,9 +798,12 @@ def write_proteome(prots, path):
         fh.write("".join(f">{p.id} {p.descr}\n{p.seq}\n" for p in prots))
 
 
+# the stream lookup on one card: B2 and its device scatter and resolve (the
+# sharded stream lookup scatters and decodes on the host: B2 alone)
+STREAM_KERNELS = ("stream", "stream_scatter", "stream_resolve")
 # the kernels each backend's cuda run must launch, and those it may launch
 # (the block probe's exact rest runs the tile join)
-BACKEND_KERNELS = {"auto": (("stream",), ()), "xla": (("tilejoin",), ()),
+BACKEND_KERNELS = {"auto": (STREAM_KERNELS, ()), "xla": (("tilejoin",), ()),
                    "pallas": (("blockprobe",), ("tilejoin",)),
                    "spmd": (("fused_probe",), ())}
 
@@ -1048,20 +1075,22 @@ def write_reads(path, genome, n_reads=N_READS, read_len=READ_LEN,
 
 def dense_run(dev, work, d, table, genome):
     """Phase 7: the read set against phase 4's table, ``auto`` (the stream
-    kernel, two plane passes) and ``--backend pallas`` (the block probe)
-    against ``--backend xla`` on the card, then the stream kernel against
-    the twin on the tiles of one pass's worth of the real queries (the
-    first input_size_limit). Returns ((max_abs_err, kernel_ms, twin_ms,
-    bound), the block probe's launches, the query values)."""
-    import torch
+    lookup: its device scatter, B2 and its device resolve, two plane
+    passes) and ``--backend pallas`` (the block probe) against ``--backend
+    xla`` on the card, then the stream lookup's three kernels against their
+    twins on the read set's own passes (stream_tiles_vs_twins). Returns
+    ((max_abs_err, kernel_ms, twin_ms, bound) of B2 on the first pass's
+    tiles, the block probe's launches, the query values, the scatter's and
+    the resolve's (max_abs_err, kernel_ms, twin_ms, bound, launches))."""
+    import numpy as np
 
-    from kmergutsjava_tpu_torch.lookup import stream
     from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
 
     t0 = time.time()
     fna = os.path.join(work, "reads.fna")
     write_reads(fna, genome)
-    values = query_values(fna, aa=False)
+    chunks = query_chunks(fna, aa=False)
+    values = np.concatenate(chunks)
     n_q = len(values)
     print(f"phase 7: reads={N_READS}x{READ_LEN}bp query_kmers={n_q} "
           f"slots={table.num_sigs} crossover={table.num_sigs / 2.5:.0f} "
@@ -1086,6 +1115,9 @@ def dense_run(dev, work, d, table, genome):
               flush=True)
         check_launches(f"phase 7 {backend}", counts,
                        *BACKEND_KERNELS[backend])
+        if backend == "auto":
+            tiles_launches = (counts["stream_scatter"],
+                              counts["stream_resolve"])
         if backend == "auto" and counts["stream"] < 2:
             # one launch a plane pass; past input_size_limit queries, two
             raise RuntimeError(f"auto made {counts['stream']} plane passes "
@@ -1104,25 +1136,178 @@ def dense_run(dev, work, d, table, genome):
         raise RuntimeError("the stream, xla and pallas reports differ")
 
     lk = StreamLookup(table, device=str(dev))
-    tiles, *_ = lk._scatter(values[:INPUT_SIZE_LIMIT])  # one pass's worth
-    host = torch.from_numpy(tiles)
+    res, scatter, resolve = stream_tiles_vs_twins(dev, lk, chunks)
+    return (res, block_launches, values, (*scatter, tiles_launches[0]),
+            (*resolve, tiles_launches[1]))
+
+
+def engine_passes(chunks, limit=INPUT_SIZE_LIMIT):
+    """The prepare's chunks grouped into the plane passes of the stream
+    front end (``StreamingStreamLookup``): a pass ends after the chunk
+    that brings it to ``limit`` queries."""
+    passes, cur, n = [], [], 0
+    for c in chunks:
+        cur.append(c)
+        n += len(c)
+        if n >= limit:
+            passes.append(cur)
+            cur, n = [], 0
+    return passes + ([cur] if cur else [])
+
+
+def tile_split_faults(values, tiles, occ, res, num_sigs):
+    """The ways a pass's device scatter breaks a valid channel split, each
+    counted (all 0: valid): a placed query's cell holds its fingerprint
+    below its home's count; an overflowed query's home has all C channels,
+    none holding its fingerprint; a home's taken channels hold distinct
+    fingerprints; cells past the count stay 0 (B2's bitmap skip)."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup.sparse import FP_MOD
+
+    t, o, r = _u(tiles), occ.long(), res.long()
+    channels = t.shape[0]
+    homes, fps = values % num_sigs, values % FP_MOD
+    ok = r >= 0
+    ch = torch.arange(channels, device=t.device)[:, None]
+    taken = ch < o[None, :]
+    held = torch.where(taken, t, -1 - ch).sort(0).values
+    hn, fn = homes[~ok], fps[~ok]
+    return {
+        "count_past_c": int((o > channels).sum()),
+        "channel_past_count": int((r[ok] >= o[homes[ok]]).sum()
+                                  + (r >= channels).sum()),
+        "cell_not_fingerprint": int((t[r[ok], homes[ok]] != fps[ok]).sum()),
+        "overflow_home_not_full": int((o[hn] != channels).sum()),
+        "overflow_fingerprint_held": int((t[:, hn] == fn[None, :]).any(
+            0).sum()),
+        "cell_past_count_set": int((t[~taken] != 0).sum()),
+        "fingerprint_twice_in_home": int(((held[1:] == held[:-1])
+                                          & (held[1:] >= 0)).sum()),
+    }
+
+
+def restored_ms(restore, fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events
+    around each run; ``restore()`` before each, outside the events (a
+    kernel that updates its inputs starts from the same state each run)."""
+    import statistics
+
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    got = []
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        got.append(start.elapsed_time(end))
+    return statistics.median(got)
+
+
+def stream_tiles_vs_twins(dev, lk, chunks):
+    """The stream lookup's device stages on the read set's own chunks,
+    pass by pass as the engine makes them (the first input_size_limit
+    queries, then the rest), on the lookup's stream and pass set: each
+    chunk scattered by the scatter kernel, timed against its twin from the
+    same tiles and occupancy; the pass's split checked (tile_split_faults);
+    B2 on the first pass's tiles against its twin (check_stream_kernel);
+    each chunk resolved by the resolve kernel and by its twin on the same
+    channels and answers, slots and counts compared bit for bit, and
+    timed. Returns (B2's (max_abs_err, kernel_ms, twin_ms, bound)), then
+    for the scatter and the resolve (faults or differing slots and counts,
+    kernel_ms, twin_ms, bound), each summed over the launches."""
+    import torch
+
+    from kmergutsjava_tpu_torch.lookup import stream, stream_tiles
+    from kmergutsjava_tpu_torch.lookup.sparse import on_stream
+
+    ns, fw = lk.num_sigs, lk._exact.full_window
+    s = lk._sets.take()
+    b2 = None
+    errs = {"scatter": 0, "resolve": 0}
+    rows = {"scatter": [], "resolve": []}  # (kernel_ms, twin_ms, bytes, ops)
+    with on_stream(lk._stream):
+        for p, chunk_vals in enumerate(engine_passes(chunks)):
+            parts = []
+            for i, c in enumerate(chunk_vals):
+                v = torch.from_numpy(c).to(dev)
+                r = torch.empty(len(c), dtype=torch.int32, device=dev)
+                t0, o0 = s.tiles.clone(), s.occ.clone()
+
+                def restore():
+                    s.tiles.copy_(t0)
+                    s.occ.copy_(o0)
+
+                t_ms = restored_ms(restore, lambda: stream_tiles.
+                                   scatter_reference(v, s.tiles, s.occ, r,
+                                                     ns), 3)
+                k_ms = restored_ms(restore, lambda: stream_tiles.
+                                   scatter_tiles(v, s.tiles, s.occ, r, ns),
+                                   9)
+                cells = int(s.occ.long().sum() - o0.long().sum())
+                nbytes = 12 * len(c) + 3 * cells
+                bnd = bound(nbytes, len(c))
+                print(f"phase 7: scatter pass {p} chunk {i} queries="
+                      f"{len(c)} slots={s.tiles.shape[1]} cells_written="
+                      f"{cells} overflow={int((r < 0).sum())} "
+                      f"kernel_ms={k_ms:.4f} twin_ms={t_ms:.4f} "
+                      f"{bound_fields(k_ms, bnd)}", flush=True)
+                rows["scatter"].append((k_ms, t_ms, nbytes, len(c)))
+                parts.append((v, r))
+                del t0, o0
+            values = torch.cat([v for v, _ in parts])
+            faults = tile_split_faults(values, s.tiles, s.occ,
+                                       torch.cat([r for _, r in parts]), ns)
+            print(f"phase 7: scatter pass {p} queries={len(values)} "
+                  f"split faults {json.dumps(faults)}", flush=True)
+            errs["scatter"] += sum(faults.values())
+            del values
+            if b2 is None:
+                b2 = check_stream_kernel(dev, "phase 7: one pass's tiles "
+                                         "(the device scatter's)", lk.fp,
+                                         s.tiles, lk.w)
+            answers = stream.stream_probe(lk.fp, s.tiles, lk.w, lk.channels,
+                                          out=s.answers)
+            for i, (v, ch) in enumerate(parts):
+                got, want = ch.clone(), ch.clone()
+                kc = torch.zeros(3, dtype=torch.int64, device=dev)
+                tc = torch.zeros(3, dtype=torch.int64, device=dev)
+                args = (answers, lk.fe, lk.hk, ns, lk.w, fw)
+                stream_tiles.resolve_tiles(v, got, *args, kc)
+                stream_tiles.resolve_reference(v, want, *args, tc)
+                err = int((got != want).sum() + (kc != tc).sum())
+                over, fell, hits = kc.tolist()
+                res = ch.clone()
+
+                def restore():
+                    res.copy_(ch)
+
+                k_ms = restored_ms(restore, lambda: stream_tiles.
+                                   resolve_tiles(v, res, *args, kc), 9)
+                t_ms = restored_ms(restore, lambda: stream_tiles.
+                                   resolve_reference(v, res, *args, tc), 3)
+                bnd = bound(29 * len(v), len(v))
+                print(f"phase 7: resolve pass {p} chunk {i} queries={len(v)}"
+                      f" overflow={over} fallback={fell} hits={hits} "
+                      f"differing={err} kernel_ms={k_ms:.4f} "
+                      f"twin_ms={t_ms:.4f} {bound_fields(k_ms, bnd)}",
+                      flush=True)
+                errs["resolve"] += err
+                rows["resolve"].append((k_ms, t_ms, 29 * len(v), len(v)))
+            del parts, answers
+            s.zero()
     torch.cuda.synchronize(dev)
-    t0 = time.time()
-    dev_tiles = host.to(dev)
-    torch.cuda.synchronize(dev)
-    up_ms = (time.time() - t0) * 1000
-    res = check_stream_kernel(dev, "phase 7: one pass's tiles", lk.fp,
-                              dev_tiles, lk.w)
-    out = stream.stream_probe(lk.fp, dev_tiles, lk.w, lk.channels)
-    torch.cuda.synchronize(dev)
-    t0 = time.time()
-    out.cpu()
-    down_ms = (time.time() - t0) * 1000
-    print(f"phase 7: w={lk.w} tiles_mb={tiles.nbytes / 2**20:.1f} "
-          f"upload_ms={up_ms:.3f} out_mb={out.numel() * 4 / 2**20:.1f} "
-          f"readback_ms={down_ms:.3f} cells_used="
-          f"{int((tiles != 0).sum())}", flush=True)
-    return res, block_launches, values
+    lk._sets.give_back(s)
+    got = [b2]
+    for k in ("scatter", "resolve"):
+        k_ms, t_ms, nbytes, ops = (sum(col) for col in zip(*rows[k]))
+        got.append((errs[k], k_ms, t_ms, bound(nbytes, ops)))
+    return tuple(got)
 
 
 def block_probe_vs_twin(dev, table, values):
@@ -1477,7 +1662,7 @@ def service_phase(work, big, faa, prots, w1, tj_launches):
               f"report_bytes={len(rep.encode())} launches={counts}",
               flush=True)
         same("the read set's report", rep.encode(), want_reads)
-        check_launches("phase 11 stream", counts, ("stream",))
+        check_launches("phase 11 stream", counts, STREAM_KERNELS)
         if counts["stream"] != 2:
             raise RuntimeError(f"phase 11: {counts['stream']} B2 launches "
                                "for the read set, not 2")
@@ -2312,7 +2497,8 @@ def mesh_runs(work, big, faa, reads, tj_launches, fused_launches):
     # the single-device runs in the same conditions, for their wall times
     one("engine proteome single-device", True, "xla",
         {"tilejoin": tj_launches})
-    one("engine reads single-device", False, "auto", {"stream": passes})
+    one("engine reads single-device", False, "auto",
+        {"stream": passes, "stream_scatter": None, "stream_resolve": None})
     return b12, b13, spmd[0]
 
 
@@ -2733,7 +2919,7 @@ def scan_phase(dev, work, corpus, faa, fna, big, reads):
               "past 4,096 hits, on the host machine)", flush=True)
         check_launches(f"phase 14 {label}", counts,
                        ("scan_machine",) if n_cont else (),
-                       ("tilejoin", "stream"))
+                       ("tilejoin", *STREAM_KERNELS))
         if counts["scan_machine"] != (1 if n_cont else 0):
             raise RuntimeError(f"phase 14: {label} launched B11 "
                                f"{counts['scan_machine']} times for "
@@ -3079,7 +3265,9 @@ SOAK_COUNTERS = (("tilejoin", "launches"), ("stream", "launches"),
                  ("kmer_windows", "ragged_launches"),
                  ("shard_probe", "launches"), ("route_bins", "launches"),
                  ("route_bins", "unbin_launches"),
-                 ("scan_machine", "launches"))
+                 ("scan_machine", "launches"),
+                 ("stream_tiles", "scatter_launches"),
+                 ("stream_tiles", "resolve_launches"))
 
 
 def first_difference(want, got):
@@ -3240,11 +3428,17 @@ def main() -> int:
         genome = write_genome(os.path.join(work, "genome.fna"))
         st_launches = golden_dna_run(work, corpus,
                                      os.path.join(work, "genome.fna"))
-        (s_err, s_ms, s_plain_ms, s_bnd), bp_launches, values = dense_run(
-            dev, work, big, table, genome)
+        ((s_err, s_ms, s_plain_ms, s_bnd), bp_launches, values, sc_row,
+         rs_row) = dense_run(dev, work, big, table, genome)
         if s_err != 0:
             return fail("stream kernel and twin disagree on a pass's real "
                         "tiles")
+        if sc_row[0] != 0:
+            return fail("the stream scatter kernel's split of the read set's "
+                        "passes is not valid")
+        if rs_row[0] != 0:
+            return fail("the stream resolve kernel and its twin disagree on "
+                        "the read set's passes")
         bp_err, bp_ms, bp_plain_ms, bp_bnd = block_probe_vs_twin(
             dev, table, values)
         if bp_err != 0:
@@ -3349,7 +3543,22 @@ def main() -> int:
         "ms": s_ms,
         "plain_ms": s_plain_ms,
         **kernel_bound(s_ms, s_bnd, "events"),
-    }, {
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": "kmergutsjava_tpu_torch/csrc/stream_tiles.cu",
+        "replaces": replaces,
+        "launches": row[4],
+        "max_abs_err": row[0],
+        "ms": row[1],
+        "plain_ms": row[2],
+        **kernel_bound(row[1], row[3], "events"),
+    } for name, row, replaces in (
+        ("stream_scatter", sc_row,
+         "kmergutsjava_tpu/native/scatter.cpp:389 (host, per chunk)"),
+        ("stream_resolve", rs_row,
+         "kmergutsjava_tpu/native/scatter.cpp:137, :174 (host, per "
+         "chunk)"))), {
         "name": "block_probe",
         "route": "cuda",
         "source": "kmergutsjava_tpu_torch/csrc/block_probe.cu",

@@ -7,23 +7,33 @@ Replaces the Pallas TPU kernel ``_stream_block_kernel`` of
 are the counterparts of its ``PallasStreamLookup`` and
 ``StreamingStreamLookup``. The regime is dense query sets (a read set or a
 genome against a table of comparable size): instead of one window gather
-per query, queries are scattered on the host by home slot into a dense tile
+per query, queries are scattered by home slot into a dense tile
 ``tiles[c, s]`` (the fingerprint of the c-th distinct query whose home is
-slot ``s``, up to C channels; the rare extras take the exact host pass),
-and one pass over the whole fingerprint plane answers them all. For each
-slot and channel the kernel returns the raw first fingerprint-match offset
-in the ``w``-slot window (``w`` if none), four channels packed per int32.
-Stop-at-empty needs no query data, so the host applies it from a per-slot
-empty-distance plane; candidates are verified against the full k-mer values
-and unresolved queries take the exact full-window pass (the JAX package's
-native decode, ``resolve_slots`` + ``emit_hits``).
+slot ``s``, up to C channels; the rare extras take the exact full-window
+scan), and one pass over the whole fingerprint plane answers them all. For
+each slot and channel the kernel returns the raw first fingerprint-match
+offset in the ``w``-slot window (``w`` if none), four channels packed per
+int32. Stop-at-empty needs no query data, so it is applied per query from a
+per-slot empty-distance plane; candidates are verified against the full
+k-mer values and unresolved queries take the exact full-window scan.
+
+``StreamLookup`` keeps a pass's per-query stages in device memory: the
+plane, the empty-distance plane and the k-mer column stay resident from the
+build; each chunk's values go up and one kernel scatters them into the
+pass's device tiles (``lookup/stream_tiles.py``); after the plane pass a
+second kernel resolves every query to its table slot, the hits are
+compacted on the card in query order, and only their query index and slot
+come back, for the host to build the hit columns. The sharded lookup
+(``parallel/stream_shards.py``) keeps the host scatter and decode of the
+JAX package (``scatter_chunk``, ``resolve_slots`` + ``emit_hits``), on host
+tiles.
 
 Layout: plane u16 ``[S + w]`` (S = the slot count padded to a multiple of
 4, then at least ``w`` FP_EMPTY slots), tiles u16 ``[C, S]``, output
-int32 ``[C/4, S]``: one contiguous plane per channel. The native scatter
-(``scatter_chunk``) produces it with ``rows=1, block=S``. The TPU layout's
-overlapped ``[nsuper, ROWS, BLOCK + HALO]`` rows and its bf16 form are
-Mosaic workarounds and are not carried.
+int32 ``[C/4, S]``: one contiguous plane per channel (the sharded
+lookup's native scatter, ``scatter_chunk``, produces it with ``rows=1,
+block=S``). The TPU layout's overlapped ``[nsuper, ROWS, BLOCK + HALO]``
+rows and its bf16 form are Mosaic workarounds and are not carried.
 
 The kernel (``csrc/stream_probe.cu``) keeps the TPU kernel's output bit for
 bit but not its method: the TPU kernel compares every cell with every
@@ -48,8 +58,9 @@ import torch
 from ..formats.kmer_table import KmerTable
 from ..utils.timing import count, span
 from .parity import LookupHits
-from .sparse import (FP_EMPTY, FP_MOD, HostWindow, _device_fault,
-                     fingerprint_plane, on_stream, owned_stream, torch_device)
+from .sparse import (FP_EMPTY, HostWindow, _device_fault, fingerprint_plane,
+                     on_stream, owned_stream, torch_device)
+from .stream_tiles import resolve_tiles, scatter_tiles
 from .tilejoin import KernelError, _widen, build_cuda_library
 
 CHANNELS = 4      # query channels per slot (home-collision capacity)
@@ -209,46 +220,39 @@ def stream_probe_reps(fp: torch.Tensor, qfp_tiles: torch.Tensor, w: int,
 
 
 class PassSet:
-    """The buffers of one plane pass: the host tiles u16 ``[C, S]`` and
-    the slot occupancy u8 ``[num_sigs]`` that the scatter fills, the host
-    answers int32 ``[C/4, S]`` that the read-back fills, and the device's
-    tiles and answers (None where the lookup's ``_probe`` places its own).
+    """The buffers of one plane pass on the lookup's device (plain tensors
+    on the CPU): the tiles u16 ``[C, S]`` and occupancy u8 ``[S]`` that the
+    scatter kernel fills, the probe's answers int32 ``[C/4, S]``, and the
+    resolve's counts int64 ``[3]`` (overflow, fallback, hits). Each chunk's
+    values and results are device tensors of their own, held with the
+    chunk; ``pinned``: they go up and come back through page-locked
+    staging. The reset is issued on the lookup's ``stream``, in order with
+    the passes.
 
-    ``pinned``: the host tiles and answers are page-locked, one block of
-    torch's pinned host allocator (which rounds it up to a power of two),
-    so both copies run at the link's speed without holding up the host.
-    Tiles and occupancy are all zero whenever a set is free."""
+    Tiles and occupancy are all zero whenever a set is free; ``dirty``
+    marks a set scattered into since its last reset."""
 
-    def __init__(self, channels: int, slots: int, num_sigs: int,
-                 device: torch.device, pinned: bool, on_device: bool,
-                 pooled: bool):
-        rows = channels // 4
-        if pinned:
-            tile_bytes = channels * slots * 2
-            host = torch.empty(tile_bytes + rows * slots * 4,
-                               dtype=torch.uint8, pin_memory=True).numpy()
-            host.fill(0)
-            self.tiles = host[:tile_bytes].view(np.uint16).reshape(
-                channels, slots)
-            self.answers = host[tile_bytes:].view(np.int32).reshape(
-                rows, slots)
-        else:
-            self.tiles = np.zeros((channels, slots), dtype=np.uint16)
-            self.answers = np.zeros((rows, slots), dtype=np.int32)
-        self.occ = np.zeros(num_sigs, dtype=np.uint8)
-        self.pinned = pinned
+    def __init__(self, channels: int, slots: int, device: torch.device,
+                 stream, pooled: bool):
+        self.pinned = device.type == "cuda"
         self.pooled = pooled
-        self.dev_tiles = self.dev_answers = None
-        if on_device:
-            self.dev_tiles = torch.empty((channels, slots),
-                                         dtype=torch.uint16, device=device)
-            self.dev_answers = torch.empty((rows, slots), dtype=torch.int32,
-                                           device=device)
+        self.stream = stream
+        self.dirty = False
+        with on_stream(stream), _device_fault("upload", "stream probe"):
+            self.tiles = torch.zeros((channels, slots), dtype=torch.uint16,
+                                     device=device)
+            self.occ = torch.zeros(slots, dtype=torch.uint8, device=device)
+            self.answers = torch.empty((channels // 4, slots),
+                                       dtype=torch.int32, device=device)
+            self.counts = torch.zeros(3, dtype=torch.int64, device=device)
 
     def zero(self) -> None:
-        with span("stream.reset"):
-            self.tiles.fill(0)
-            self.occ.fill(0)
+        with span("stream.reset"), on_stream(self.stream), \
+                _device_fault("reset", "stream probe"):
+            self.tiles.view(torch.int16).zero_()
+            self.occ.zero_()
+            self.counts.zero_()
+        self.dirty = False
 
 
 class PassSetPool:
@@ -300,12 +304,14 @@ class StreamLookup:
 
     All device work is issued on one CUDA stream the lookup owns; a torch
     RuntimeError from upload, launch or read-back becomes a KernelError.
-    A pass runs on a set of ``_sets``, the lookup's pool of two; on CUDA
-    their host buffers are page-locked.
+    A pass runs on a set of ``_sets``, the lookup's pool of two, and keeps
+    its per-query stages on the lookup's device: a chunk's values go up
+    (``_scatter_into``), the scatter and resolve kernels run beside the
+    plane pass (``_pass``), and the host builds the hit columns from the
+    compacted hits that come back (``_decode``). The sharded lookup
+    (``parallel/stream_shards.py``) overrides these three with its host
+    stages.
     """
-
-    # whether a pass set carries device tiles and answers for ``_probe``
-    _probe_on_device = True
 
     def __init__(self, table: KmerTable, probe_window: Optional[int] = None,
                  device: str = "cuda", channels: int = CHANNELS):
@@ -326,13 +332,13 @@ class StreamLookup:
                 "max_probe exceeds the packed-offset budget (64); rebuild "
                 "the table at a lower load factor or use the xla backend")
         with span("lookup.build.plane"):
-            # exact path: host verification column + full-window fallback
+            # exact path: verification column + full-window fallback
             self._exact = HostWindow(table, probe_window)
             self.slots = -(-s // SLOT_ALIGN) * SLOT_ALIGN
             fp = fingerprint_plane(table, self.slots + self.w)
             # Per-slot distance to the first empty slot at or after it,
             # capped at w: stop-at-empty depends only on the table, so it
-            # is computed here once and applied on the host. (The padded
+            # is computed here once and applied per query. (The padded
             # tail is all empty, so every slot has a next empty.)
             n = len(fp)
             e_idx = np.where(fp == FP_EMPTY, np.arange(n, dtype=np.int64),
@@ -342,131 +348,106 @@ class StreamLookup:
                                        self.w).astype(np.uint8)
         with span("lookup.build.upload"):
             self._place_plane(fp, device)
-        with on_stream(self._stream), _device_fault("upload", "stream probe"):
-            self._sets = PassSetPool(self._new_set)
+        self._sets = PassSetPool(self._new_set)
 
     def _place_plane(self, fp: np.ndarray, device: str) -> None:
-        """Upload the plane to ``device``, on a stream the lookup owns."""
+        """Upload the plane, the empty-distance plane and the k-mer column
+        to ``device``, on a stream the lookup owns."""
         self.device = torch_device(device)
         self._stream = owned_stream(self.device)
         with on_stream(self._stream), _device_fault("upload", "stream probe"):
             self.fp = torch.from_numpy(fp).to(self.device)
+            self.fe = torch.from_numpy(self.fe_plane).to(self.device)
+            self.hk = torch.from_numpy(self._exact.host_kmer).to(self.device)
 
     def _new_set(self, pooled: bool) -> PassSet:
-        """A zeroed pass set: the pool's own are page-locked on CUDA, a
-        fresh one is plain."""
-        return PassSet(self.channels, self.slots, self.num_sigs, self.device,
-                       pinned=pooled and self.device.type == "cuda",
-                       on_device=self._probe_on_device, pooled=pooled)
+        """A zeroed pass set on the lookup's device."""
+        return PassSet(self.channels, self.slots, self.device, self._stream,
+                       pooled)
 
-    def new_tiles(self) -> np.ndarray:
-        return np.zeros((self.channels, self.slots), dtype=np.uint16)
+    def _probe(self, s: PassSet):
+        """The plane pass over the set's tiles, into its answers, on the
+        current stream: the packed int32 ``[channels/4, S]``."""
+        return stream_probe(self.fp, s.tiles, self.w, self.channels,
+                            out=s.answers)
 
-    def _probe(self, s: PassSet) -> np.ndarray:
-        """Run one plane pass over the set's tiles: up into its device
-        tiles, one launch into its device answers, the packed answers back
-        into its host answers, int32 ``[channels/4, S]``, returned. Both
-        copies are issued without blocking on the lookup's stream, and the
-        read-back ends with that stream synchronized, so the caller may
-        reuse the tiles on return."""
-        with on_stream(self._stream), \
-                _device_fault("pass", "stream probe"):
+    def _staged(self, n: int, dtype) -> torch.Tensor:
+        """Host memory for a copy to or from the device: page-locked (torch's
+        caching host allocator, which holds a block until the copies that
+        use it are done) on CUDA."""
+        return torch.empty(n, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _scatter_into(self, s: PassSet, values: np.ndarray) -> tuple:
+        """Scatter one chunk's queries into set ``s``: the columns its pass
+        needs besides (values, cnt, pos): the values staged and sent up
+        without blocking (``stream.upload``) and one scatter launch; returns
+        (device values, device results, each query's channel until the pass
+        resolves it)."""
+        s.dirty = True
+        with span("stream.scatter"), on_stream(self._stream), \
+                _device_fault("scatter", "stream scatter"):
             with span("stream.upload"):
-                s.dev_tiles.copy_(torch.from_numpy(s.tiles),
-                                  non_blocking=True)
-            stream_probe(self.fp, s.dev_tiles, self.w, self.channels,
-                         out=s.dev_answers)
-            with span("stream.readback"):
-                torch.from_numpy(s.answers).copy_(s.dev_answers,
-                                                  non_blocking=True)
-                if self._stream is not None:
-                    self._stream.synchronize()
-        return s.answers
+                dv = torch.from_numpy(values)
+                if self.device.type == "cuda":
+                    dv = self._staged(len(values), torch.int64).copy_(dv).to(
+                        self.device, non_blocking=True)
+            res = torch.empty(len(values), dtype=torch.int32,
+                              device=self.device)
+            scatter_tiles(dv, s.tiles, s.occ, res, self.num_sigs)
+        return dv, res
 
-    def _pass(self, s: PassSet, queries: int) -> np.ndarray:
-        """``_probe`` of one plane pass over ``queries`` queries scattered
-        into set ``s``, counted."""
-        out = self._probe(s)
+    def _pass(self, s: PassSet, chunks, n: int):
+        """One plane pass over the ``n`` queries of ``chunks`` scattered into
+        set ``s``, counted, and the set reset: the probe, a resolve launch
+        a chunk, the hits compacted in query order, their query index and
+        table slot back into page-locked memory with the counts, the reset
+        issued, and the copies waited for (``stream.readback``); returns
+        int32 ``[2, hits]`` on the host."""
+        with on_stream(self._stream), _device_fault("pass", "stream probe"):
+            with span("stream.readback"):
+                answers = self._probe(s)
+                for c in chunks:
+                    resolve_tiles(c[3], c[4], answers, self.fe, self.hk,
+                                  self.num_sigs, self.w,
+                                  self._exact.full_window, s.counts)
+                res = torch.cat([c[4] for c in chunks])
+                at = torch.nonzero(res >= 0).squeeze(1)
+                hits = self._staged(2 * len(at), torch.int32).view(
+                    2, len(at))
+                hits.copy_(torch.stack([at.to(torch.int32), res[at]]),
+                           non_blocking=True)
+                tally = self._staged(3, torch.int64)
+                tally.copy_(s.counts, non_blocking=True)
+                done = None
+                if self._stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
+                s.zero()
+                if done is not None:
+                    done.synchronize()
+        over, fell, k = tally.tolist()
+        if k != hits.shape[1]:
+            raise KernelError(f"the resolve counted {k} hits, its slots "
+                              f"{hits.shape[1]}")
+        self._count_pass(s, n, 8 * n, hits.nbytes + tally.nbytes)
+        count("stream.overflow_queries", over)
+        count("stream.fallback_queries", fell)
+        return hits.numpy()
+
+    def _count_pass(self, s: PassSet, queries: int, up: int,
+                    down: int) -> None:
         count("stream.passes", 1)
         count("stream.pinned_passes", int(s.pinned))
         count("stream.queries", queries)
-        count("stream.bytes_up", s.tiles.nbytes)
-        count("stream.bytes_down", out.nbytes)
-        return out
-
-    def _scatter(self, values: np.ndarray, tiles: Optional[np.ndarray] = None,
-                 occ: Optional[np.ndarray] = None):
-        """Bucket queries into the ``[C, S]`` tile.
-
-        Returns (tiles, homes, flat, shift), the columns full query length:
-        ``flat`` is the element index into the flattened kernel output
-        ``[C/4, S]`` and ``shift`` the bit shift of the query's packed
-        byte, or -1 where the query found its home slot's C channels taken
-        (decode routes those to the exact fallback). With ``tiles``/``occ``
-        given (the streaming front end), scatters into the caller's tile
-        and advances the per-slot channel occupancy."""
-        from ..utils.native import load_scatter
-
-        lib = load_scatter()
-        with span("stream.scatter"):
-            if lib is not None:
-                return self._scatter_native(lib, values, tiles, occ)
-            return self._scatter_numpy(values, tiles, occ)
-
-    def _scatter_numpy(self, values, tiles=None, occ=None):
-        """numpy twin of ``scatter_chunk``: duplicate values share one tile
-        cell (equal values have equal homes and fingerprints), and a home's
-        distinct values take channels in value order."""
-        values = np.asarray(values, dtype=np.int64)
-        homes = values % np.int64(self.num_sigs)
-        uniq, inv = np.unique(values, return_inverse=True)
-        nu = len(uniq)
-        h_u = uniq % np.int64(self.num_sigs)
-        order = np.argsort(h_u, kind="stable")
-        h_s = h_u[order]
-        rank = np.arange(nu) - np.searchsorted(h_s, h_s)
-        if occ is not None:
-            rank = rank + occ[h_s]
-            uh, counts = np.unique(h_s, return_counts=True)
-            occ[uh] = np.minimum(occ[uh].astype(np.int64) + counts,
-                                 255).astype(occ.dtype)
-        ok = rank < self.channels
-        h_ok = h_s[ok]
-        rk = rank[ok]
-        tiles = self.new_tiles() if tiles is None else tiles
-        tiles[rk, h_ok] = (uniq[order[ok]] % FP_MOD).astype(np.uint16)
-        flat_u = np.zeros(nu, dtype=np.int64)
-        shift_u = np.full(nu, -1, dtype=np.int32)
-        flat_u[order[ok]] = (rk >> 2) * self.slots + h_ok
-        shift_u[order[ok]] = 8 * (rk & 3)
-        return tiles, homes, flat_u[inv], shift_u[inv]
-
-    def _scatter_native(self, lib, values, tiles=None, occ=None):
-        """C++ scatter (``native/scatter.cpp``) in the
-        ``rows=1, block=S`` layout: cell (c, h) at ``c*S + h``, output
-        element ``(c//4)*S + h``. Dedup is by (home, fingerprint) against
-        the tile itself, so it holds across streaming chunks; channel ranks
-        follow encounter order (another valid overflow split than the
-        numpy twin's, with identical hits)."""
-        values = np.ascontiguousarray(values, dtype=np.int64)
-        n = len(values)
-        tiles = self.new_tiles() if tiles is None else tiles
-        if occ is None:
-            occ = np.zeros(self.num_sigs, dtype=np.uint8)
-        homes = np.empty(n, dtype=np.int64)
-        flat = np.empty(n, dtype=np.int64)
-        shift = np.empty(n, dtype=np.int32)
-        lib.scatter_chunk(values, n, self.num_sigs, self.channels,
-                          self.slots, 1, FP_MOD, tiles.reshape(-1), occ,
-                          homes, flat, shift)
-        return tiles, homes, flat, shift
+        count("stream.bytes_up", up)
+        count("stream.bytes_down", down)
 
     def lookup(self, values: np.ndarray, cnt_id, pos: np.ndarray,
                progress=None, compute_kmers_found: bool = True
                ) -> LookupHits:
         """One-shot lookup of a buffered query batch: scatter into a set of
-        the pool, one plane pass, decode, and the set zeroed and given
-        back."""
+        the pool, one plane pass, decode, and the set given back zeroed."""
         values = np.ascontiguousarray(values, dtype=np.int64)
         n = len(values)
         if n == 0:
@@ -477,127 +458,64 @@ class StreamLookup:
         pos = np.ascontiguousarray(pos, dtype=np.int64)
         s = self._sets.take()
         try:
-            _, homes, flat, shift = self._scatter(values, s.tiles, s.occ)
+            chunks = [(values, cnt, pos, *self._scatter_into(s, values))]
             with span("stream.pass"):
-                out = self._pass(s, n)
-                return self._decode(out,
-                                    [(values, cnt, pos, homes, flat, shift)],
-                                    n, progress, compute_kmers_found)
+                out = self._pass(s, chunks, n)
+                return self._decode(out, chunks, n, progress,
+                                    compute_kmers_found)
         finally:
-            s.zero()
+            if s.dirty:
+                s.zero()
             self._sets.give_back(s)
 
     def _decode(self, out, chunks, n_total: int, progress,
                 compute_kmers_found: bool, want_values: bool = False):
-        """Resolve the kernel output into hits: stop-at-empty gating,
-        verification of fingerprint candidates against the full k-mer
-        values, the exact full-window pass for unresolved and overflowed
-        queries, and hit compaction. ``chunks`` is a list of full-length
-        query column tuples (v, cnt, pos, homes, flat, shift). With
-        ``want_values`` returns (hits, hit values): the multi-pass front
-        end merges kmers-found across passes from the values."""
+        """The hits of one pass, in query order, from what ``_pass``
+        returned. ``chunks`` is the pass's list of per-chunk columns
+        (values, cnt, pos, then ``_scatter_into``'s). With ``want_values``
+        returns (hits, hit values): the multi-pass front end merges
+        kmers-found across passes from the values. Without the native
+        library (no g++, or ``KMER_NO_NATIVE_SCATTER``) numpy gathers the
+        columns."""
         from ..utils.native import load_scatter
 
         lib = load_scatter()
         with span("stream.decode"):
-            if lib is not None:
-                return self._decode_native(lib, out, chunks, n_total,
-                                           progress, compute_kmers_found,
-                                           want_values)
-            return self._decode_numpy(out, chunks, n_total, progress,
-                                      compute_kmers_found, want_values)
-
-    def _decode_native(self, lib, out, chunks, n_total: int, progress,
-                       compute_kmers_found: bool, want_values: bool = False):
-        """Two native passes (``resolve_slots`` + ``emit_hits``, both
-        thread-parallel): the first returns the exact hit count, so the hit
-        columns are allocated at their final size."""
-        t_otu, t_avg, t_fi, t_wt = self._exact._table_cols()
-        hk = self._exact.host_kmer
-        out_flat = np.ascontiguousarray(out.reshape(-1))
-        slots = []
-        k_total = 0
-        for v, c, p, h, fl, sh in chunks:
-            s = np.empty(len(v), dtype=np.int64)
-            k_total += lib.resolve_slots(
-                v, h, fl, sh, len(v), out_flat, self.fe_plane, hk, len(hk),
-                self.w, self._exact.full_window, s)
-            slots.append(s)
-        o_cnt = np.empty(k_total, dtype=np.int64)
-        o_pos = np.empty(k_total, dtype=np.int64)
-        o_otu = np.empty(k_total, dtype=np.int32)
-        o_avg = np.empty(k_total, dtype=np.int32)
-        o_fi = np.empty(k_total, dtype=np.int32)
-        o_wt = np.empty(k_total, dtype=np.float32)
-        o_val = np.empty(k_total, dtype=np.int64)
-        k = 0
-        for (v, c, p, _, _, _), s in zip(chunks, slots):
-            k += lib.emit_hits(
-                v, c, p, s, len(v), t_otu, t_avg, t_fi, t_wt,
-                o_cnt[k:], o_pos[k:], o_otu[k:], o_avg[k:], o_fi[k:],
-                o_wt[k:], o_val[k:])
-        if progress is not None:
-            progress.update(n_total, k)
-        hits = LookupHits(
-            cnt_id=o_cnt, pos=o_pos, otu=o_otu, avg_from_end=o_avg,
-            fi=o_fi, wt=o_wt,
-            kmers_found=(int(np.unique(o_val).size)
-                         if compute_kmers_found else -1))
+            t_otu, t_avg, t_fi, t_wt = self._exact._table_cols()
+            at, slots = out
+            k = len(at)
+            o_cnt = np.empty(k, dtype=np.int64)
+            o_pos = np.empty(k, dtype=np.int64)
+            o_otu = np.empty(k, dtype=np.int32)
+            o_avg = np.empty(k, dtype=np.int32)
+            o_fi = np.empty(k, dtype=np.int32)
+            o_wt = np.empty(k, dtype=np.float32)
+            o_val = np.empty(k, dtype=np.int64)
+            # the hits are in query order: each chunk's are one range
+            base, j = 0, 0
+            for v, c, p, *_ in chunks:
+                e = int(np.searchsorted(at, base + len(v)))
+                if lib is not None:
+                    lib.emit_hits_at(
+                        v, c, p, at[j:e], slots[j:e], e - j, base, t_otu,
+                        t_avg, t_fi, t_wt, o_cnt[j:], o_pos[j:], o_otu[j:],
+                        o_avg[j:], o_fi[j:], o_wt[j:], o_val[j:])
+                else:
+                    i, sl = at[j:e] - base, slots[j:e]
+                    for o, col in ((o_cnt, c[i]), (o_pos, p[i]),
+                                   (o_otu, t_otu[sl]), (o_avg, t_avg[sl]),
+                                   (o_fi, t_fi[sl]), (o_wt, t_wt[sl]),
+                                   (o_val, v[i])):
+                        o[j:e] = col
+                base, j = base + len(v), e
+            if progress is not None:
+                progress.update(n_total, k)
+            hits = LookupHits(
+                cnt_id=o_cnt, pos=o_pos, otu=o_otu, avg_from_end=o_avg,
+                fi=o_fi, wt=o_wt,
+                kmers_found=(int(np.unique(o_val).size)
+                             if compute_kmers_found else -1))
         return (hits, o_val) if want_values else hits
-
-    def _decode_numpy(self, out, chunks, n_total: int, progress,
-                      compute_kmers_found: bool, want_values: bool = False):
-        def cat(k):
-            if not chunks:
-                return np.zeros(0, dtype=np.int64)
-            return np.concatenate([ch[k] for ch in chunks])
-
-        av, ac, ap, ah, aflat, ashift = (cat(k) for k in range(6))
-        sel = ashift >= 0
-        pv, pc, pp, ph = av[sel], ac[sel], ap[sel], ah[sel]
-        packed = out.reshape(-1)[aflat[sel]] >> ashift[sel]
-        off = (packed & 0xFF).astype(np.int64)  # first fp match, w if none
-        fe = self.fe_plane[ph].astype(np.int64)
-        # a candidate counts only strictly before the first empty slot;
-        # off == w (no match) can't pass, since fe <= w
-        has_cand = off < fe
-        empty_any = fe < self.w
-        host_kmer = self._exact.host_kmer
-        cand_slot = np.minimum(ph + off, len(host_kmer) - 1)
-        verified = has_cand & (host_kmer[cand_slot] == pv)
-        unresolved = (~verified & has_cand) | (~has_cand & ~empty_any)
-        over = ~sel
-        tv = np.concatenate([pv[unresolved], av[over]])
-        tc = np.concatenate([pc[unresolved], ac[over]])
-        tp = np.concatenate([pp[unresolved], ap[over]])
-        th = np.concatenate([ph[unresolved], ah[over]])
-        if len(tv):
-            # the fallback outcome depends only on the value: probe each
-            # distinct value once
-            uv, inv = np.unique(tv, return_inverse=True)
-            fu, ou = self._exact._host_full_window(
-                uv, (uv % np.int64(self.num_sigs)).astype(np.int32),
-                np.arange(len(uv), dtype=np.int64))
-            f2, o2 = fu[inv], ou[inv]
-        else:
-            f2 = np.zeros(0, dtype=bool)
-            o2 = np.zeros(0, dtype=np.int64)
-        slots = np.concatenate([
-            cand_slot[verified],
-            np.minimum(th[f2] + o2[f2], self.num_sigs - 1)])
-        hit_v = np.concatenate([pv[verified], tv[f2]])
-        t = self.table.slots
-        if progress is not None:
-            progress.update(n_total, len(slots))
-        hits = LookupHits(
-            cnt_id=np.concatenate([pc[verified], tc[f2]]).astype(np.int64),
-            pos=np.concatenate([pp[verified], tp[f2]]).astype(np.int64),
-            otu=t["otu"][slots].copy(),
-            avg_from_end=t["avg_from_end"][slots].copy(),
-            fi=t["fi"][slots].copy(), wt=t["wt"][slots].copy(),
-            kmers_found=(int(np.unique(hit_v).size)
-                         if compute_kmers_found else -1))
-        return (hits, hit_v) if want_values else hits
 
 
 class StreamingStreamLookup:
@@ -605,19 +523,22 @@ class StreamingStreamLookup:
 
     Duck-types the query store's ``add_batch`` so the prepare phase scatters
     each chunk of query k-mers straight into a pass set's tiles (a per-slot
-    channel-occupancy counter carries collision ranks across chunks), and
-    ``finish()`` runs the last plane pass. Bounded memory (the reference's
-    inputSizeLimit, ref KmerGutsJava.java:822-889): every ``flush_limit``
-    queries, one pass probes, decodes and keeps only the hits. Each pass is
-    exact on its own queries; extra passes re-stream the plane.
+    channel-occupancy counter carries collision ranks across chunks, and a
+    home's taken channels dedup its values), and ``finish()`` runs the last
+    plane pass. Bounded memory (the reference's inputSizeLimit, ref
+    KmerGutsJava.java:822-889): every ``flush_limit`` queries, one pass
+    probes, decodes and keeps only the hits. Each pass is exact on its own
+    queries; extra passes re-stream the plane.
 
-    Three threads. The caller parses and feeds. A worker runs the native
-    scatter (a ctypes call that releases the GIL) in feed order; at a flush
-    it hands the full set to the pass thread and scatters on into the
-    lookup's other set. The pass thread runs the passes in order (upload,
-    probe, read-back, decode), then zeroes each set for the next. All tile
-    and chunk state is the worker's until it is joined. ``finish()`` runs
-    the tail pass beside the pass thread and merges the passes' hits in
+    Three threads. The caller parses and feeds. A worker scatters each
+    chunk in feed order (``_scatter_into``: on the lookup's device, its
+    values up and one kernel launch, issued on the lookup's stream without
+    waiting; the sharded lookup's native host scatter, a ctypes call that
+    releases the GIL); at a flush it hands the full set to the pass thread
+    and scatters on into the lookup's other set. The pass thread runs the passes in order
+    (probe, resolve, read-back and the set's reset, then the decode). All
+    tile and chunk state is the worker's until it is joined. ``finish()``
+    runs the tail pass beside the pass thread and merges the passes' hits in
     pass order; the last set is zeroed on the pass thread after that, and
     ``close()`` waits for it.
 
@@ -638,7 +559,7 @@ class StreamingStreamLookup:
         self.flush_limit = flush_limit
         self._set: Optional[PassSet] = lk._sets.take()  # being scattered
         self._owned = [self._set]  # every set this front end took
-        self._chunks: list = []   # per chunk: (v, cnt, pos, homes, flat, shift)
+        self._chunks: list = []   # per chunk: (v, cnt, pos, *_scatter_into)
         self._pending = 0         # queries scattered into _set
         self._results: list = []  # per pass handed off: its Future
         self.passes = 0           # plane passes run
@@ -692,9 +613,8 @@ class StreamingStreamLookup:
             self._held += beside
         if not beside:
             self._slots.release()
-        _, homes, flat, shift = self.lk._scatter(
-            values, tiles=self._set.tiles, occ=self._set.occ)
-        self._chunks.append((values, cnt, pos, homes, flat, shift))
+        self._chunks.append(
+            (values, cnt, pos, *self.lk._scatter_into(self._set, values)))
         self._pending += len(values)
         count("stream.overlap_queries", len(values) if beside else 0)
 
@@ -731,7 +651,7 @@ class StreamingStreamLookup:
         """One plane pass over the ``n`` queries of ``chunks`` in set
         ``s``: (hits, the hits' distinct values or None)."""
         with span("stream.pass"):
-            out = self.lk._pass(s, n)
+            out = self.lk._pass(s, chunks, n)
             if not self.compute_kmers_found:
                 return self.lk._decode(out, chunks, n, None, False), None
             hits, vals = self.lk._decode(out, chunks, n, None, False,
@@ -739,8 +659,9 @@ class StreamingStreamLookup:
             return hits, np.unique(vals)
 
     def _pass_loop(self) -> None:
-        """The pass thread: each pass handed off, in order, then its set
-        zeroed for the worker; last the retirement of every set."""
+        """The pass thread: each pass handed off, in order (the pass resets
+        its set), then the set back to the worker; last the retirement of
+        every set."""
         while True:
             job = self._pass_q.get()
             if job is None:
@@ -755,8 +676,10 @@ class StreamingStreamLookup:
                 done.set_exception(ex)
             finally:
                 self._pass_ended()
-                s.zero()
+                if s.dirty:
+                    s.zero()
                 self._spare.put(s)
+                job = chunks = None  # the chunks' device buffers
 
     def _pass_ended(self) -> None:
         """A pass is decoded: once none is in flight, the chunks scattered
@@ -770,8 +693,8 @@ class StreamingStreamLookup:
 
     def _retire(self) -> None:
         """Once the worker is joined: the pass thread zeroes the last set
-        after the passes queued before it, gives every set back to the
-        lookup, and ends."""
+        (where no pass did) after the passes queued before it, gives every
+        set back to the lookup, and ends."""
         if self._retired:
             return
         self._retired = True
@@ -781,7 +704,7 @@ class StreamingStreamLookup:
         self._pass_q.put(None)
 
     def _give_back(self, last: Optional[PassSet]) -> None:
-        if last is not None:
+        if last is not None and last.dirty:
             last.zero()
         for s in self._owned:
             self.lk._sets.give_back(s)
@@ -841,7 +764,8 @@ class StreamingStreamLookup:
                 if not self.total_fed:
                     return self.partial_hits()
                 with span("stream.pass"):
-                    out = self.lk._pass(self._set, self._pending)
+                    out = self.lk._pass(self._set, self._chunks,
+                                        self._pending)
                     self.passes += 1
                     return self.lk._decode(out, self._chunks, self._pending,
                                            progress, self.compute_kmers_found)

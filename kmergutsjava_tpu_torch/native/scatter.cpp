@@ -322,6 +322,40 @@ extern "C" int64_t emit_hits(
     return base[T];
 }
 
+// The stream lookup's emit after its resolve on the card, which compacts
+// the hits in query order: hit j is query idx[j] - base of these columns,
+// at table slot slots[j]. Writes k hits into the caller's exactly-sized
+// columns; slice-parallel, each slice its own contiguous range.
+extern "C" void emit_hits_at(
+    const int64_t* v, const int64_t* cnt, const int64_t* pos,
+    const int32_t* idx, const int32_t* slots, int64_t k, int64_t base,
+    const int32_t* t_otu, const int32_t* t_avg, const int32_t* t_fi,
+    const float* t_wt,
+    int64_t* o_cnt, int64_t* o_pos, int32_t* o_otu, int32_t* o_avg,
+    int32_t* o_fi, float* o_wt, int64_t* o_val)
+{
+    const int T0 = num_threads();
+    const int T = k < (int64_t)1 << 16 ? 1
+        : (int)(k / 32768 < T0 ? k / 32768 : T0);
+    const int64_t step = T <= 1 ? k : (k + T - 1) / T;
+    auto slice = [&](int t) {
+        const int64_t a = t * step;
+        const int64_t b = a + step < k ? a + step : k;
+        for (int64_t j = a; j < b; j++) {
+            const int64_t i = idx[j] - base;
+            const int64_t slot = slots[j];
+            o_cnt[j] = cnt[i];
+            o_pos[j] = pos[i];
+            o_otu[j] = t_otu[slot];
+            o_avg[j] = t_avg[slot];
+            o_fi[j] = t_fi[slot];
+            o_wt[j] = t_wt[slot];
+            o_val[j] = v[i];
+        }
+    };
+    if (T <= 1) slice(0); else parallel_for_threads(T, slice);
+}
+
 // Table-builder helpers (formats/kmer_table.py build_table). The numpy
 // build spent nearly all its time in 6 full-size random gathers by the
 // sort permutation (columns + homes) plus a slow maximum.accumulate;

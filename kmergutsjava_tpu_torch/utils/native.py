@@ -180,6 +180,16 @@ def _bind_scatter(lib) -> None:
         _I64P, _I64P, _I32P, _I32P, _I32P, _F32P,     # hit columns out
         _I64P,                                        # hit values out
     ]
+    fn = lib.emit_hits_at
+    fn.restype = None
+    fn.argtypes = [
+        _I64P, _I64P, _I64P,                          # v, cnt, pos
+        _I32P, _I32P,                                 # hit query, slot
+        ctypes.c_int64, ctypes.c_int64,               # k, base
+        _I32P, _I32P, _I32P, _F32P,                   # table columns
+        _I64P, _I64P, _I32P, _I32P, _I32P, _F32P,     # hit columns out
+        _I64P,                                        # hit values out
+    ]
     fn = lib.gather_resolve_slots
     fn.restype = ctypes.c_int64
     fn.argtypes = [
@@ -213,7 +223,8 @@ def _bind_scatter(lib) -> None:
 def load_scatter() -> Optional[ctypes.CDLL]:
     """Native table builder (table_place/table_fill), the sparse lookup's
     verify/compact pass (gather_resolve_slots/emit_hits) and the stream
-    lookup's tile scatter and decode (scatter_chunk/resolve_slots)."""
+    lookup's tile scatter and decode (scatter_chunk/resolve_slots on the
+    host, emit_hits_at after the resolve on the card)."""
     return _load("scatter", "KMER_NO_NATIVE_SCATTER", _bind_scatter)
 
 

@@ -147,6 +147,42 @@ def test_dna_cli_matches_golden(dna, spy, tmp_path, backend, prepare):
     assert (spy["stream_pass"] > 0) == (backend != "xla")
 
 
+@pytest.mark.parametrize("aa", [True, False])
+def test_stream_device_stages_in_three_passes_match_jax(corpus, dna, spy,
+                                                        monkeypatch, aa):
+    """The stream backend on the CPU runs its device path through the
+    twins of the scatter and resolve kernels (a set's tiles, occupancy and
+    answers are tensors; only slots reach the host decode). With the feed
+    cut into small chunks and a small input_size_limit, it runs three plane
+    passes and more, and its report equals the golden and the JAX
+    Engine's, byte for byte."""
+    from functools import partial
+
+    from kmergutsjava_tpu_torch.lookup import stream_tiles
+    from kmergutsjava_tpu_torch.models import prepare
+    from kmergutsjava_tpu_torch.utils import timing
+
+    monkeypatch.setattr(prepare, "try_prepare_bulk",
+                        partial(prepare.try_prepare_bulk, flush_chars=30_000))
+    if aa:
+        d, fasta, _, golden = corpus
+        want, kw = golden, {}
+    else:
+        d, fasta, _, golden, want = dna
+        kw = {"prepare_impl": "numpy"}
+    before = (stream_tiles.scatter_launches, stream_tiles.resolve_launches)
+    got = _port(d, fasta, aa=aa, backend="stream", input_size_limit=60_000,
+                **kw)
+    counters = timing.recent_runs()[-1]["counters"]
+    assert counters["stream.passes"] == spy["stream_pass"] >= 3
+    assert counters["stream.bytes_up"] == 8 * counters["stream.queries"]
+    assert counters["stream.fallback_queries"] > 0
+    assert (stream_tiles.scatter_launches,
+            stream_tiles.resolve_launches) == before  # the twins ran
+    assert got == golden
+    assert got == want
+
+
 def test_dna_stream_multipass_matches_golden(dna, spy):
     """A small input_size_limit (-l) makes the stream path run a plane pass
     per 50,000 queries (at the numpy prepare's per-frame batches): the

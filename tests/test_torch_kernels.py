@@ -329,6 +329,142 @@ def test_cuda_streaming_lookup_matches_cpu(cuda_device):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
 
 
+TILE_CASES = ("duplicates", "crowded", "collisions", "last_window")
+
+
+def _tile_case(case, seed):
+    """A table at load 0.8 and one pass's queries in three chunks, for the
+    stream lookup's device scatter and resolve: ``duplicates`` (values
+    repeated four times across the chunks, as read coverage does),
+    ``crowded`` (homes with more distinct values than channels),
+    ``collisions`` (distinct values of equal home and fingerprint) and
+    ``last_window`` (homes in the table's last window); each with random
+    values besides."""
+    from kmergutsjava_tpu_torch.constants import MAX_ENCODED
+    from kmergutsjava_tpu_torch.formats.kmer_table import build_table
+
+    rng = np.random.default_rng(seed)
+    kmers = rng.choice(MAX_ENCODED, 20_000, replace=False).astype(np.int64)
+    n = len(kmers)
+    table = build_table(kmers, rng.integers(0, 20, n).astype(np.int32),
+                        rng.integers(0, 500, n).astype(np.int32),
+                        rng.integers(0, 97, n).astype(np.int32),
+                        rng.random(n).astype(np.float32), load_factor=0.8)
+    ns = np.int64(table.num_sigs)
+    rand = rng.integers(0, MAX_ENCODED, 5000)
+    if case == "duplicates":
+        values = np.repeat(np.concatenate([rng.choice(kmers, 6000), rand]),
+                           4)
+    elif case == "crowded":
+        base = rng.choice(kmers, 300)
+        values = np.repeat(np.concatenate(
+            [(base[:, None] + ns * np.arange(9)).reshape(-1), rand]), 2)
+    elif case == "collisions":
+        base = rng.choice(kmers, 3000)
+        values = np.concatenate([base, base + ns * 65535,
+                                 base + 2 * ns * 65535, rand])
+    else:
+        tail = kmers[kmers % ns >= ns - 64]
+        near = ns - 1 - rng.integers(0, 64, 3000)
+        values = np.concatenate([np.repeat(tail, 3),
+                                 near + ns * rng.integers(0, 1000, 3000),
+                                 rand])
+    rng.shuffle(values)
+    return table, np.array_split(values.astype(np.int64), 3)
+
+
+def _check_tile_split(values, tiles, occ, res, num_sigs):
+    """A device scatter's outputs are a valid split: a placed query's cell
+    holds its fingerprint below its home's count; an overflowed query's
+    home has all C channels, none holding its fingerprint; a home's taken
+    channels hold distinct fingerprints; cells past the count stay 0."""
+    tiles, occ, res = (np.asarray(t) for t in (tiles, occ, res))
+    channels = tiles.shape[0]
+    homes = values % num_sigs
+    fps = (values % 65535).astype(np.uint16)
+    ok = res >= 0
+    assert occ.max() <= channels and (res < channels).all()
+    assert (res[ok] < occ[homes[ok]]).all()
+    np.testing.assert_array_equal(tiles[res[ok], homes[ok]], fps[ok])
+    assert (occ[homes[~ok]] == channels).all()
+    assert not (tiles[:, homes[~ok]] == fps[~ok]).any()
+    taken = np.arange(channels)[:, None] < occ[None, :]
+    assert not tiles[~taken].any()
+    held = np.sort(np.where(taken, tiles.astype(np.int64),
+                            -1 - np.arange(channels)[:, None]), axis=0)
+    assert not ((held[1:] == held[:-1]) & (held[1:] >= 0)).any()
+
+
+def _tile_pass(lk, chunks):
+    """One pass of ``chunks`` through the lookup's device stages, on its
+    device: (the channels the scatter gave, the set's tiles and occupancy
+    after it, the probe's answers, the resolved slots, the counts), all on
+    the host."""
+    from kmergutsjava_tpu_torch.lookup.sparse import on_stream
+    from kmergutsjava_tpu_torch.lookup.stream_tiles import (resolve_tiles,
+                                                            scatter_tiles)
+
+    s = lk._sets.take()
+    dev = lk.device
+    parts = []
+    with on_stream(lk._stream):
+        for c in chunks:
+            v = torch.from_numpy(c).to(dev)
+            r = torch.empty(len(c), dtype=torch.int32, device=dev)
+            scatter_tiles(v, s.tiles, s.occ, r, lk.num_sigs)
+            parts.append((v, r))
+        chans = torch.cat([r for _, r in parts]).cpu()
+        answers = lk._probe(s)
+        for v, r in parts:
+            resolve_tiles(v, r, answers, lk.fe, lk.hk, lk.num_sigs, lk.w,
+                          lk._exact.full_window, s.counts)
+        got = (chans, *(t.to("cpu", copy=True) for t in (
+            s.tiles, s.occ, answers, torch.cat([r for _, r in parts]),
+            s.counts)))
+        s.zero()
+    lk._sets.give_back(s)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_cuda_stream_tiles_match_twin(cuda_device, case):
+    """The device scatter and resolve kernels on the card: the scatter's
+    split is valid and the resolved slots are the twins' (any valid split
+    resolves every query to the same slot); the resolve kernel on the
+    kernel's own channels and answers gives the twin's slots and counts
+    bit for bit; one launch of each a chunk."""
+    from kmergutsjava_tpu_torch.lookup import stream_tiles
+    from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
+
+    table, chunks = _tile_case(case, seed=TILE_CASES.index(case) + 90)
+    values = np.concatenate(chunks)
+    before = (stream_tiles.scatter_launches, stream_tiles.resolve_launches)
+    gpu = _tile_pass(StreamLookup(table, device=str(cuda_device)), chunks)
+    assert (stream_tiles.scatter_launches - before[0],
+            stream_tiles.resolve_launches - before[1]) == (3, 3)
+    cpu_lk = StreamLookup(table, device="cpu")
+    twin = _tile_pass(cpu_lk, chunks)
+    chans, tiles, occ, answers, slots, counts = gpu
+    _check_tile_split(values, tiles, occ, chans, table.num_sigs)
+    np.testing.assert_array_equal(slots.numpy(), twin[4].numpy())
+    assert counts[2] == twin[5][2] == int((slots >= 0).sum()) > 0
+    np.testing.assert_array_equal(
+        answers.numpy(), stream.stream_probe_reference(
+            cpu_lk.fp, tiles, cpu_lk.w, cpu_lk.channels).numpy())
+    res = chans.clone()
+    again = torch.zeros(3, dtype=torch.int64)
+    stream_tiles.resolve_tiles(torch.from_numpy(values), res, answers,
+                               cpu_lk.fe, cpu_lk.hk, table.num_sigs,
+                               cpu_lk.w, cpu_lk._exact.full_window, again)
+    np.testing.assert_array_equal(res.numpy(), slots.numpy())
+    np.testing.assert_array_equal(again.numpy(), counts.numpy())
+    if case == "crowded":
+        assert counts[0] > 0
+    if case == "collisions":
+        assert counts[1] > counts[0]
+
+
 def _stream_inputs(n_slots, w, channels, seed):
     """A plane of ``n_slots`` (+ w FP_EMPTY slots) at load ~0.65 and tiles
     ``[channels, n_slots]``: half the cells hold the fingerprint found a
@@ -513,29 +649,46 @@ def test_cuda_streaming_stream_lookup_matches_cpu(cuda_device):
     values = np.concatenate([rng.choice(kmers, 300_000),
                              rng.integers(0, MAX_ENCODED, 100_000)])
     pos = np.arange(len(values), dtype=np.int64)
-    hits, passes = {}, {}
+    from kmergutsjava_tpu_torch.lookup import stream_tiles
+    from kmergutsjava_tpu_torch.utils import timing
+
+    hits, passes, counters = {}, {}, {}
+    launches = (stream_tiles.scatter_launches, stream_tiles.resolve_launches)
     for dev in ("cpu", str(cuda_device)):
-        st = StreamingStreamLookup(StreamLookup(table, device=dev),
-                                   compute_kmers_found=True,
-                                   flush_limit=150_000)
-        for s in range(0, len(values), 50_000):
-            st.add_batch(values[s:s + 50_000], s // 50_000, pos[s:s + 50_000])
-        hits[dev] = st.finish()
+        with timing.record("t.root"):
+            st = StreamingStreamLookup(StreamLookup(table, device=dev),
+                                       compute_kmers_found=True,
+                                       flush_limit=150_000)
+            for s in range(0, len(values), 50_000):
+                st.add_batch(values[s:s + 50_000], s // 50_000,
+                             pos[s:s + 50_000])
+            hits[dev] = st.finish()
+            st.close()
         passes[dev] = st.passes
+        counters[dev] = timing.recent_runs()[-1]["counters"]
     a, b = hits["cpu"], hits[str(cuda_device)]
     assert passes["cpu"] == passes[str(cuda_device)] == 3
     assert len(a) > 0 and a.kmers_found == b.kmers_found
     for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
+    c = counters[str(cuda_device)]
+    assert c["stream.bytes_up"] == 8 * c["stream.queries"] == 8 * len(values)
+    assert c["stream.pinned_passes"] == c["stream.passes"] == 3
+    assert {"stream.overflow_queries", "stream.fallback_queries"} <= set(c)
+    # a scatter launch a chunk, a resolve launch a chunk
+    assert (stream_tiles.scatter_launches - launches[0],
+            stream_tiles.resolve_launches - launches[1]) == (8, 8)
 
 
 @pytest.mark.cuda
 def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
-    """On the card the stream lookup's two pass sets are page-locked; a
-    pass through a set (both copies non-blocking on the lookup's stream)
-    gives the twin's answers on the same tiles; and a two-pass front end
+    """On the card the stream lookup's two pass sets live in device memory
+    (their staging page-locked), beside the resident empty-distance plane
+    and k-mer column; the device scatter of a batch is a valid split and a
+    pass over its tiles gives the twin's answers; and a two-pass front end
     (the tail pass at finish) gives the one-shot lookup's hits, every pass
-    counted as page-locked, with both sets back and zero after it."""
+    counted as page-locked, 8 B a query up, with both sets back and zero
+    after it."""
     from kmergutsjava_tpu_torch.constants import MAX_ENCODED
     from kmergutsjava_tpu_torch.formats.kmer_table import build_table
     from kmergutsjava_tpu_torch.lookup.stream import (StreamingStreamLookup,
@@ -555,16 +708,20 @@ def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
     pos = np.arange(len(values), dtype=np.int64)
     lk = StreamLookup(table, device=str(cuda_device))
     for s in lk._sets.sets:
-        assert s.pinned and torch.from_numpy(s.tiles).is_pinned()
-        assert torch.from_numpy(s.answers).is_pinned()
-        assert s.dev_tiles.device.type == "cuda"
+        assert s.pinned
+        for t in (s.tiles, s.occ, s.answers, s.counts):
+            assert t.device.type == "cuda"
+    assert lk.fe.device.type == lk.hk.device.type == "cuda"
     s = lk._sets.take()
-    lk._scatter(values, s.tiles, s.occ)
-    got = lk._probe(s).copy()
-    want = stream.stream_probe_reference(lk.fp.cpu(),
-                                         torch.from_numpy(s.tiles.copy()),
-                                         lk.w, lk.channels)
-    np.testing.assert_array_equal(got, want.numpy())
+    dv, res = lk._scatter_into(s, values)
+    lk._stream.synchronize()
+    tiles = s.tiles.cpu()
+    with torch.cuda.stream(lk._stream):
+        got = lk._probe(s).cpu()
+    want = stream.stream_probe_reference(lk.fp.cpu(), tiles, lk.w,
+                                         lk.channels)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    _check_tile_split(values, tiles, s.occ.cpu(), res.cpu(), lk.num_sigs)
     s.zero()
     lk._sets.give_back(s)
     one = lk.lookup(values, cnt, pos)
@@ -578,14 +735,20 @@ def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
         st.close()
     counters = timing.recent_runs()[-1]["counters"]
     assert st.passes == counters["stream.pinned_passes"] == 2
+    assert counters["stream.passes"] == 2
     assert counters["stream.fresh_sets"] == 0
+    # only the values cross the link up: no tile
+    assert counters["stream.bytes_up"] == 8 * len(values)
+    assert {"stream.overflow_queries", "stream.fallback_queries"} <= set(
+        counters)
     assert len(one) > 0 and one.kmers_found == two.kmers_found
     order = [np.lexsort((h.pos, h.cnt_id)) for h in (one, two)]
     for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
         np.testing.assert_array_equal(getattr(one, col)[order[0]],
                                       getattr(two, col)[order[1]])
+    torch.cuda.synchronize()
     for s in lk._sets.sets:
-        assert not s.tiles.any() and not s.occ.any()
+        assert not s.tiles.view(torch.int16).any() and not s.occ.any()
 
 
 @pytest.mark.parametrize("reps", [1, 3])

@@ -27,10 +27,13 @@ from kmergutsjava_tpu.lookup.parity import lookup_stream
 from kmergutsjava_tpu_torch.lookup import stream
 from kmergutsjava_tpu_torch.lookup.stream import (StreamingStreamLookup,
                                                   StreamLookup)
+from kmergutsjava_tpu_torch.parallel.stream_shards import (
+    StreamShardedLookup, make_stream_mesh, scatter_host, scatter_native)
 from kmergutsjava_tpu_torch.utils import native, timing
 from kmergutsjava_tpu_torch.utils.timing import record
 
-from test_torch_kernels import _stream_inputs
+from test_torch_kernels import (TILE_CASES, _check_tile_split,
+                                _stream_inputs, _tile_case, _tile_pass)
 from test_torch_lookup import _queries, _tables
 
 
@@ -113,8 +116,15 @@ def test_stream_channel_overflow(channels):
     cnt = np.arange(len(values), dtype=np.int64) % 9
     pos = np.arange(len(values), dtype=np.int64)
     lk = StreamLookup(port_t, device="cpu", channels=channels)
-    _, _, _, shift = lk._scatter(values)
+    _, _, shift = scatter_host(  # the sharded lookup's host scatter
+        values, np.zeros((channels, lk.slots), np.uint16),
+        np.zeros(port_t.num_sigs, np.uint8), port_t.num_sigs)
     assert (shift < 0).any() and (shift == 24).any()
+    s = lk._sets.take()
+    _, ch = lk._scatter_into(s, values)  # the device path's channels
+    assert (ch < 0).any() and (ch == channels - 1).any()
+    s.zero()
+    lk._sets.give_back(s)
     got = lk.lookup(values, cnt, pos)
     _same(got, lookup_stream(jax_t, values, cnt, pos))
     _same(got, PallasStreamLookup(jax_t, channels=channels,
@@ -245,7 +255,7 @@ def _pool_back_and_zero(lk):
     assert len(pool.sets) == 2 and not pool._zeroing
     assert {id(s) for s in pool._free} == {id(s) for s in pool.sets}
     for s in pool.sets:
-        assert not s.tiles.any() and not s.occ.any()
+        assert not s.tiles.view(torch.int16).any() and not s.occ.any()
 
 
 def _pass_bounds(n, n_chunks, flush_limit):
@@ -308,12 +318,12 @@ def test_front_ends_in_a_row_reuse_the_two_sets(monkeypatch):
     values, cnt, pos = _queries(kmers, 3000, seed=46)
     lk = StreamLookup(port_t, device="cpu")
     want = lk.lookup(values, cnt, pos)
-    pool_tiles = {s.tiles.ctypes.data for s in lk._sets.sets}
+    pool_tiles = {s.tiles.data_ptr() for s in lk._sets.sets}
     orig, used = lk._pass, []
 
-    def spy(s, queries):
-        used.append(s.tiles.ctypes.data)
-        return orig(s, queries)
+    def spy(s, chunks, queries):
+        used.append(s.tiles.data_ptr())
+        return orig(s, chunks, queries)
 
     monkeypatch.setattr(lk, "_pass", spy)
     for _ in range(2):
@@ -355,7 +365,7 @@ def test_streaming_error_gives_the_sets_back(monkeypatch, where):
     surfaces by finish(), and the lookup gets both sets back, zeroed."""
     _, port_t, kmers = _tables(800, seed=49, load_factor=0.6)
     lk = StreamLookup(port_t, device="cpu")
-    name = "_scatter" if where == "worker" else "_decode"
+    name = "_scatter_into" if where == "worker" else "_decode"
     orig, calls = getattr(lk, name), []
 
     def broken(*a, **k):
@@ -426,6 +436,17 @@ def test_native_scatter_and_decode_match_numpy(monkeypatch, seed, load):
     _same(a, lk.lookup(values, cnt, pos))
     _same(b, a)
     _same(a, lookup_stream(jax_t, values, cnt, pos))
+    # the device path's numpy emit over passes of two chunks: the hits of
+    # emit_hits_at in the same order
+    s = StreamingStreamLookup(lk, compute_kmers_found=True, flush_limit=3000)
+    for part in np.array_split(np.arange(len(values)), 5):
+        s.add_batch(values[part], cnt[part], pos[part])
+    c = s.finish()
+    s.close()
+    assert c.kmers_found == b.kmers_found
+    for col in ("cnt_id", "pos", "otu", "avg_from_end", "fi", "wt"):
+        np.testing.assert_array_equal(getattr(c, col), getattr(b, col))
+
 
 
 def test_native_scatter_layout_invariants():
@@ -439,7 +460,10 @@ def test_native_scatter_layout_invariants():
     lk = StreamLookup(port_t, device="cpu")
     values, _, _ = _queries(kmers, 5000, seed=18)
     values[::3] = values[2]
-    tiles, homes, flat, shift = lk._scatter_native(lib, values)
+    tiles = np.zeros((lk.channels, lk.slots), np.uint16)
+    homes, flat, shift = scatter_native(
+        lib, values, tiles, np.zeros(port_t.num_sigs, np.uint8),
+        port_t.num_sigs)
     assert tiles.shape == (lk.channels, lk.slots)
     assert lk.slots % stream.SLOT_ALIGN == 0 and lk.slots >= port_t.num_sigs
     np.testing.assert_array_equal(homes, values % port_t.num_sigs)
@@ -465,17 +489,62 @@ def test_native_decode_matches_numpy_on_random_output(monkeypatch):
     if lib is None:
         pytest.skip("native toolchain unavailable")
     _, port_t, kmers = _tables(20000, seed=29, load_factor=0.9)
-    lk = StreamLookup(port_t, device="cpu")
+    lk = StreamShardedLookup(port_t, make_stream_mesh(1, [torch.device(
+        "cpu")]))
     n = 20000
     values, cnt, pos = _queries(kmers, n, seed=30)
-    _, homes, flat, shift = lk._scatter_native(lib, values)
+    s = lk._sets.take()
+    homes, flat, shift = scatter_native(lib, values, s.tiles, s.occ,
+                                        port_t.num_sigs)
     shift[::11] = -1
     rng = np.random.default_rng(31)
     out = rng.integers(0, 2**31, (lk.channels // 4, lk.slots),
                        dtype=np.int64).astype(np.int32)
     chunk = [(values, cnt, pos, homes, flat, shift)]
     a, av = lk._decode(out, chunk, n, None, True, want_values=True)
-    b, bv = lk._decode_numpy(out, chunk, n, None, True, want_values=True)
+    b, bv = lk._decode_numpy(out, chunk)
     assert len(a) > 0
+    b.kmers_found = int(np.unique(bv).size)
     _same(a, b)
     np.testing.assert_array_equal(np.sort(av), np.sort(bv))
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_device_stage_twins_match_native_scatter_and_resolve(case):
+    """The device path's scatter and resolve twins against the host path's
+    native ``scatter_chunk`` and ``resolve_slots`` on the same chunks of one
+    pass: the twin's split is valid (another one than the native scatter's)
+    and every query resolves to the native decode's slot; the counts are
+    the overflow and fallback queries and the hits."""
+    lib = native.load_scatter()
+    if lib is None:
+        pytest.skip("native toolchain unavailable")
+    table, chunks = _tile_case(case, seed=TILE_CASES.index(case) + 70)
+    values = np.concatenate(chunks)
+    lk = StreamLookup(table, device="cpu")
+    chans, tiles, occ, _, slots, counts = _tile_pass(lk, chunks)
+    _check_tile_split(values, tiles.numpy(), occ.numpy(), chans.numpy(),
+                      table.num_sigs)
+    host_tiles = np.zeros((lk.channels, lk.slots), dtype=np.uint16)
+    host_occ = np.zeros(table.num_sigs, dtype=np.uint8)
+    parts = [scatter_host(c, host_tiles, host_occ, table.num_sigs)
+             for c in chunks]
+    out = stream.stream_probe(lk.fp, torch.from_numpy(host_tiles), lk.w,
+                              lk.channels).numpy().reshape(-1)
+    want = []
+    for c, (h, fl, sh) in zip(chunks, parts):
+        got = np.empty(len(c), dtype=np.int64)
+        lib.resolve_slots(c, h, fl, sh, len(c), out, lk.fe_plane,
+                          lk._exact.host_kmer, len(lk._exact.host_kmer),
+                          lk.w, lk._exact.full_window, got)
+        want.append(got)
+    want = np.concatenate(want)
+    np.testing.assert_array_equal(slots.numpy(), want)
+    over = int((chans < 0).sum())
+    assert counts.tolist()[0] == over
+    assert counts.tolist()[2] == int((want >= 0).sum()) > 0
+    assert over <= counts.tolist()[1] <= len(values)
+    if case == "crowded":
+        assert over > 0
+    if case == "collisions":
+        assert counts[1] > 0

@@ -12,9 +12,9 @@ import pytest
 import torch
 
 from kmergutsjava_tpu_torch.lookup.parity import lookup_stream
-from kmergutsjava_tpu_torch.lookup.stream import StreamLookup
+from kmergutsjava_tpu_torch.lookup.stream import StreamLookup, stream_probe
 from kmergutsjava_tpu_torch.parallel.stream_shards import (
-    StreamShardedLookup, make_stream_mesh)
+    StreamShardedLookup, make_stream_mesh, scatter_host)
 
 from test_lookup import canon, make_queries
 from test_torch_mesh import corpus, both  # noqa: F401  (a fixture)
@@ -40,9 +40,11 @@ def test_stream_sharded_matches_parity(n_shards, n_sigs, seed):
     assert canon(a) == canon(b)
     assert a.kmers_found == b.kmers_found
     one = StreamLookup(pt, device="cpu")
-    s = one._sets.take()
-    one._scatter(values, s.tiles, s.occ)
-    np.testing.assert_array_equal(lk._probe(s), one._probe(s))
+    s = lk._sets.take()  # host tiles: the sharded lookup's own scatter
+    scatter_host(values, s.tiles, s.occ, lk.num_sigs)
+    np.testing.assert_array_equal(
+        lk._probe(s), stream_probe(one.fp, torch.from_numpy(s.tiles),
+                                   one.w, one.channels).numpy())
 
 
 def test_stream_sharded_dense_sweep():

@@ -196,8 +196,8 @@ def test_package_data_holds_every_kernel_source_and_header():
         "kmergutsjava_tpu_torch"]
     pkg = os.path.join(REPO, "kmergutsjava_tpu_torch")
     sources = glob.glob(os.path.join(pkg, "csrc", "*.cu"))
-    assert len(sources) == 9  # kmer_windows, shard_probe, route_bins,
-    # scan_machine, fused_probe too
+    assert len(sources) == 10  # kmer_windows, shard_probe, route_bins,
+    # scan_machine, fused_probe, stream_tiles too
     natives = glob.glob(os.path.join(pkg, "native", "*.cpp"))
     assert len(natives) == 4  # feeder, scatter, grouping, fasta
     owned = (*natives, os.path.join(pkg, "native", "threading.h"),
