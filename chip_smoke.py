@@ -114,18 +114,14 @@ failure and then prints no result):
    runs in turns (the engine's caches emptied before each): the proteome
    through spmd and xla, the read set through spmd, auto and xla. Last,
    at the real launch shapes (a proteome bucket batch, a read batch and
-   the genome's window batch): the window kernel against its twin, every
-   output equal, and B1 on its windows against B1's twin, with the window
-   kernel's device time (torch.profiler, the L2 flushed), the twin's and
-   the bound; then the fused kernel against its twin and against the
-   window kernel followed by B1, every off and state equal, with its
-   device time a launch in turns with theirs, its twin's time and its
-   bound (``bound_fused_step``); and the ragged entry on every call of
-   the two ``--prepare jax`` runs, each equal to its twin, with the device
-   time of a whole prepare (its calls' two kernels each, summed), the
-   twin's and the bound (``bound_ragged``), beside the device time of the
-   padded values entry on the launches the JAX prepare's batching makes
-   of the same input (the parent commit's device prepare);
+   the genome's window batch): B1 on the window twin's homes and
+   fingerprints against B1's twin; the fused kernel against its twin,
+   every off and state equal, with its device time a launch
+   (torch.profiler, the L2 flushed), its twin's time and its bound
+   (``bound_fused_step``); and the ragged entry on every call of the two
+   ``--prepare jax`` runs, each equal to its twin, with the device time
+   of a whole prepare (its calls' two kernels each, summed), the twin's
+   and the bound (``bound_ragged``);
 13. the multi-device modes on phase 4's table (parallel/: the mesh, the
    shard probe B12 csrc/shard_probe.cu, the routing bins B13
    csrc/route_bins.cu). Through the CLI at ``--mesh 1x1``: the proteome
@@ -159,8 +155,8 @@ failure and then prints no result):
    fails); and, each call taken by a spy on its wrapper,
    the fused kernel's shard form in the (2, 2) spmd step on phase 12's
    proteome bucket batch and read batch (a data slice's rows against a
-   table shard), equal to its twin and to the window kernel followed by
-   B12, with its device time a launch in turns with theirs and its bound;
+   table shard), equal to its twin, with its device time a launch and its
+   bound;
    B1 at the routed owners (the received bins) and B1 on the xla lookup's
    four table shards (local homes), every call equal to its twin.
 
@@ -226,9 +222,9 @@ disagreement with the twin, both times at the real shapes (phase 4's
 device time of a full dispatch, with the wrapper's ``call_ms`` beside it;
 phase 7's passes, each of its scatter and resolve launches summed;
 phases 8, 9 and 10; phase 12's proteome prepare's calls
-for the window kernel's ragged entry (the read set's and the padded
-entry's beside it), its proteome bucket batch for the fused kernel, with
-the window kernel plus B1 beside it and its (2, 2) position's time;
+for the window kernel's ragged entry (the read set's beside it), its
+proteome bucket batch for the fused kernel, with its (2, 2) position's
+time;
 phase 13's shapes; phase 14's proteome batch),
 how they were timed (``timed_by``: ``trace``, the kernel records of a
 torch.profiler trace; ``events``, CUDA events around launches back to
@@ -324,18 +320,21 @@ def kernel_modules():
                 stream_tiles=stream_tiles)
 
 
+# the kernel modules whose counts have their own names (read_counts)
+NAMED_COUNTS = ("stream_tiles", "kmer_windows")
+
+
 def reset_counts():
     """Every kernel's launch count to 0 (the repetition launch's, the
-    window kernel's padded values and ragged entries' and the routing
-    bins' un-binning entry's too)."""
+    window kernel's ragged entry's, the stream tiles' two kernels' and the
+    routing bins' un-binning entry's too)."""
     mods = kernel_modules()
     for name, m in mods.items():
-        if name != "stream_tiles":
+        if name not in NAMED_COUNTS:
             m.launches = 0
     mods["stream"].reps_launches = 0
     mods["stream_tiles"].scatter_launches = 0
     mods["stream_tiles"].resolve_launches = 0
-    mods["kmer_windows"].values_launches = 0
     mods["kmer_windows"].ragged_launches = 0
     mods["route_bins"].unbin_launches = 0
 
@@ -343,9 +342,8 @@ def reset_counts():
 def read_counts():
     mods = kernel_modules()
     got = {name: m.launches for name, m in mods.items()
-           if name != "stream_tiles"}
+           if name not in NAMED_COUNTS}
     got["stream_reps"] = mods["stream"].reps_launches
-    got["kmer_values"] = mods["kmer_windows"].values_launches
     got["kmer_ragged"] = mods["kmer_windows"].ragged_launches
     got["route_unbin"] = mods["route_bins"].unbin_launches
     got["stream_scatter"] = mods["stream_tiles"].scatter_launches
@@ -1769,13 +1767,6 @@ def service_phase(work, big, faa, prots, w1, tj_launches):
         raise RuntimeError(f"phase 11: sidecar after the resume {state}")
 
 
-def bound_kmer_windows(in_bytes, windows, out_per_window=6):
-    """The window kernel: its rows (and a count a row) in once, each
-    window's home and fingerprint (6 B) or value (8 B) out once; 16 integer
-    operations a window (8 to pack its 8-mer, 8 for the two residues)."""
-    return bound(in_bytes + out_per_window * windows, 16 * windows)
-
-
 def bound_fused_step(in_bytes, windows, out_per_window, first, reads,
                      plane_slots):
     """The fused kernel: its rows and counts (and a long contig's row_map,
@@ -1814,7 +1805,7 @@ def first_event_reads(plane, homes, fps, w, chunk=1 << 20):
 
 
 def window_batches(prots, genome_fna, reads_fna):
-    """The window kernel's real launch shapes, as host arrays: one proteome
+    """The fused step's real launch shapes, as host arrays: one proteome
     bucket batch (512 proteins of at most 256 residues, the fused step's
     first bucket and batch), one read batch (512 reads in the 256-base
     bucket) and the genome's window batch (plan_windows at WIN_NT).
@@ -1854,175 +1845,74 @@ def window_batches(prots, genome_fna, reads_fna):
     return out
 
 
-def window_kernel_vs_twin(dev, batches, plane, pw):
-    """The window kernel against its twin on the card at the real launch
-    shapes (homes and fingerprints at the sparse table's num_sigs, and
-    the values entry for whole rows), every output equal; B1's answer to
-    those homes and fingerprints at the fused step's full window ``pw``
-    on the sparse table's ``plane`` (off and state, invalid windows
-    included) equal to its twin's; the window kernel's device time a
-    launch (kernel_device_ms, the L2 flushed before each) of both entries,
-    the twins' (CUDA events) and the bounds. Then the fused kernel's
-    first-event entry (one launch a batch of the fused step on one card)
-    against its twin and against the two launches it replaces (the window
-    kernel, then B1), every off and state equal, and its device time a
-    launch in turns with those two launches' (fused, two, fused, two),
-    its twin's time and its bound. Returns ({label: the window kernel's
-    (max_abs_err, homes_ms, homes_twin_ms, homes_bound, values_ms,
-    values_twin_ms, values_bound), the values None for a long contig's
-    windows}, {label: the fused kernel's (max_abs_err, ms, twin_ms, bound,
-    two_launch_ms)}, B1's max_abs_err over all batches)."""
+def fused_kernel_vs_twin(dev, batches, plane, pw):
+    """At the real launch shapes: B1 on the window twin's homes and
+    fingerprints (``windows_reference`` on the card's tensors, at the
+    sparse table's num_sigs) at the fused step's full window ``pw`` on the
+    sparse table's ``plane`` (off and state, invalid windows included),
+    against B1's twin; then the fused kernel's first-event entry (one
+    launch a batch of the fused step on one card) against its twin, every
+    off and state equal, with its device time a launch (kernel_device_ms,
+    the L2 flushed before each), its twin's time and its bound. Returns
+    ({label: the fused kernel's (max_abs_err, ms, twin_ms, bound)}, B1's
+    max_abs_err over all batches)."""
     import torch
 
     from kmergutsjava_tpu_torch.lookup import tilejoin
-    from kmergutsjava_tpu_torch.lookup.tilejoin import _widen
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
     from kmergutsjava_tpu_torch.parallel import fused_probe as fp
 
     num_sigs = plane.numel() - pw
-    res, fused, b1_err = {}, {}, 0
+    fused, b1_err = {}, 0
     for label, (aa, mat, counts, extra) in batches.items():
         a = torch.from_numpy(mat).to(dev)
         c = torch.from_numpy(counts).to(dev)
         ex = [torch.from_numpy(x).to(dev) for x in extra or ()]
-        if aa:
-            def run():
-                return kw.aa_homes_fps(a, c, num_sigs)
-        else:
-            def run():
-                return kw.dna_homes_fps(a, c, num_sigs, *ex)
-        h, f = run()
         th, tf = kw.windows_reference(a, c, aa, num_sigs, *ex)
-        torch.cuda.synchronize(dev)
-        err = max(int((h.long() - th.long()).abs().max()),
-                  int((_widen(f) - _widen(tf)).abs().max()))
-        if extra is None:
-            v = kw.window_values(a, c, aa)
-            err = max(err, int((v - kw.windows_reference(a, c, aa))
-                               .abs().max()))
-        valid = int((h >= 0).sum())
-        # B1 on these windows as the old fused step called it, against its
-        # twin
-        n = h.numel()
+        valid = int((th >= 0).sum())
+        # B1 on these windows against its twin
+        n = th.numel()
         off_k, st_k = tilejoin.answer_views(tilejoin.probe_answer(
-            plane, f.view(-1), h.view(-1), pw), n)
-        off_t, st_t = tilejoin.first_event_reference(plane, f.view(-1),
-                                                     h.view(-1), pw)
+            plane, tf.view(-1), th.view(-1), pw), n)
+        off_t, st_t = tilejoin.first_event_reference(plane, tf.view(-1),
+                                                     th.view(-1), pw)
         torch.cuda.synchronize(dev)
         e1 = max(int((off_k.int() - off_t.int()).abs().max()),
                  int((st_k.int() - st_t.int()).abs().max()))
         b1_err = max(b1_err, e1)
         states = torch.bincount(st_k.long(), minlength=3).tolist()
-        print(f"phase 12: B1 on the window kernel's {label} windows={n} "
+        print(f"phase 12: B1 on the window twin's {label} windows={n} "
               f"pw={pw} states(0/1/2)={states} max_abs_err={e1}", flush=True)
         del off_k, st_k, off_t, st_t
-        ms, kept = kernel_device_ms(run, dev, "windows_kernel",
-                                    key=f"windows {label}")
-        t_ms = timed(lambda: kw.windows_reference(a, c, aa, num_sigs, *ex),
-                     dev)
         in_b = mat.nbytes + counts.nbytes + sum(x.nbytes for x in extra or ())
-        bnd = bound_kmer_windows(in_b, n)
-        values, vals = "", (None, None, None)
-        if extra is None:  # the values entry (--prepare jax) at this shape
-            v_ms, _ = kernel_device_ms(lambda: kw.window_values(a, c, aa),
-                                       dev, "windows_kernel",
-                                       key=f"windows {label}")
-            v_t_ms = timed(lambda: kw.windows_reference(a, c, aa), dev)
-            v_bnd = bound_kmer_windows(in_b, n, 8)
-            vals = (v_ms[0], v_t_ms, v_bnd)
-            values = (f" values_entry_device_ms={v_ms[0]:.5f} values_twin_ms="
-                      f"{v_t_ms:.4f} values_"
-                      f"{bound_fields(v_ms[0], v_bnd).replace(' ', ' values_')}")
-        print(f"phase 12: window kernel {label} windows={n} "
-              f"valid={valid} max_abs_err={err} device_ms={ms[0]:.5f} "
-              f"runs_kept={kept}/5 twin_ms={t_ms:.4f} "
-              f"{bound_fields(ms[0], bnd)}{values}", flush=True)
-        res[label] = (err, ms[0], t_ms, bnd, *vals)
 
-        # the fused kernel (first-event form) against its twin and the two
-        # launches it replaces, on the same rows
+        # the fused kernel (first-event form) against its twin on the same
+        # rows
         def fused_run():
             return fp.first_event(plane, a, c, aa, num_sigs, pw, *ex)
 
-        def two_launches():
-            hh, ff = run()
-            return tilejoin.probe_answer(plane, ff.view(-1), hh.view(-1), pw)
-
         views = [tilejoin.answer_views(x, n) for x in (
             fused_run(), fp.first_event_reference(plane, a, c, aa, num_sigs,
-                                                  pw, *ex), two_launches())]
+                                                  pw, *ex))]
         torch.cuda.synchronize(dev)
-        f_err = max(int((views[0][k].int() - other[k].int()).abs().max())
-                    for other in views[1:] for k in range(2))
+        f_err = max(int((views[0][k].int() - views[1][k].int()).abs().max())
+                    for k in range(2))
         f_states = torch.bincount(views[0][1].long(), minlength=3).tolist()
         del views
-        turns = [t for t, _ in same_timing(*[
-            lambda ev: kernel_device_ms(fused_run, dev, "fused_probe_kernel",
-                                        key=f"fused {label}", events=ev),
-            lambda ev: kernel_device_ms(two_launches, dev, (
-                "windows_kernel", "first_event_kernel"),
-                key=f"fused {label}", events=ev)] * 2)]
-        f_ms = (turns[0][0] + turns[2][0]) / 2
-        two_ms = (sum(turns[1]) + sum(turns[3])) / 2
+        f_ms, kept = kernel_device_ms(fused_run, dev, "fused_probe_kernel",
+                                      key=f"fused {label}")
         f_t_ms = timed(lambda: fp.first_event_reference(
             plane, a, c, aa, num_sigs, pw, *ex), dev)
         first, reads = first_event_reads(plane, th, tf, pw)
         f_bnd = bound_fused_step(in_b, n, 2, first, reads, plane.numel())
         print(f"phase 12: fused kernel first-event {label} windows={n} "
               f"valid={valid} pw={pw} states(0/1/2)={f_states} "
-              f"max_abs_err={f_err} (twin and window kernel + B1) "
-              f"device_ms={f_ms:.5f} by_turn={[round(t[0], 5) for t in turns[::2]]} "
-              f"two_launch_device_ms={two_ms:.5f} by_turn="
-              f"{[[round(x, 5) for x in t] for t in turns[1::2]]} "
-              f"twin_ms={f_t_ms:.4f} {bound_fields(f_ms, f_bnd)} "
-              f"two_launch_share={f_bnd[0] / two_ms:.3f}", flush=True)
-        fused[label] = (f_err, f_ms, f_t_ms, f_bnd, two_ms)
-        del a, c, ex, h, f, th, tf, first, reads
-    return res, fused, b1_err
-
-
-def padded_prepare_batches(path, aa):
-    """The padded values launches that the JAX prepare's batching makes of
-    ``path`` (the parent commit's device prepare): 512 proteins a
-    power-of-two length bucket of 256 and up (rows and num_starts), or
-    contigs in turn at Lpad = 3 * next_pow2(max(len // 3 + 1, 16)) up to
-    MAX_CELLS cells (rows and lengths). Returns [(rows u8, counts
-    int32)]."""
-    import numpy as np
-
-    from kmergutsjava_tpu_torch.constants import K
-    from kmergutsjava_tpu_torch.formats.fasta import read_fasta
-    from kmergutsjava_tpu_torch.models.prepare import (MAX_CELLS,
-                                                       BucketQueue,
-                                                       _next_pow2)
-
-    out = []
-    if aa:
-        queue = BucketQueue(512, 256)
-        for i, rec in enumerate(read_fasta(path)):
-            b = queue.add(i, np.frombuffer(rec.seq.encode("latin-1"),
-                                           np.uint8))
-            if b is not None:
-                out.append(b)
-        out += list(queue.drain())
-        return [(mat, (lens - K).astype(np.int32)) for _, mat, lens in out]
-    rows, width = [], 0
-    for rec in read_fasta(path):
-        a = np.frombuffer(rec.seq.encode("latin-1"), np.uint8)
-        lpad = 3 * _next_pow2(max(len(a) // 3 + 1, 16))
-        if rows and (len(rows) + 1) * max(width, lpad) > MAX_CELLS:
-            out.append((rows, width))
-            rows, width = [], 0
-        rows.append(a)
-        width = max(width, lpad)
-    out.append((rows, width))
-    batches = []
-    for rows, width in out:
-        mat = np.zeros((len(rows), width), np.uint8)
-        for i, a in enumerate(rows):
-            mat[i, :len(a)] = a
-        batches.append((mat, np.array([len(a) for a in rows], np.int32)))
-    return batches
+              f"max_abs_err={f_err} (twin) device_ms={f_ms[0]:.5f} "
+              f"runs_kept={kept}/5 twin_ms={f_t_ms:.4f} "
+              f"{bound_fields(f_ms[0], f_bnd)}", flush=True)
+        fused[label] = (f_err, f_ms[0], f_t_ms, f_bnd)
+        del a, c, ex, th, tf, first, reads
+    return fused, b1_err
 
 
 def bound_ragged(n_bytes, rows, containers, valid, positions):
@@ -2034,19 +1924,14 @@ def bound_ragged(n_bytes, rows, containers, valid, positions):
                  16 * positions)
 
 
-def ragged_vs_twin(dev, prepares, paths):
+def ragged_vs_twin(dev, prepares):
     """Phase 12: the window kernel's ragged entry at the ``--prepare jax``
     runs' own calls (taken by a spy on its wrapper: {cell: (aa, calls)}),
     each call's values, positions and counts equal to the twin's on the
     same inputs; the device time of a whole prepare's calls (the two
     kernels of each, summed; kernel_device_ms, the L2 flushed before the
-    prepare), the twin's, the bound; and beside them the padded values
-    entry on the launches the JAX prepare's batching makes of the same
-    input (padded_prepare_batches, ``paths``), its device time summed.
-    Returns {cell: (max_abs_err, ms, twin_ms, bound, calls, kernel ms by
-    name (zero, pass), padded launches, padded ms)}."""
-    import torch
-
+    prepare), the twin's, the bound. Returns {cell: (max_abs_err, ms,
+    twin_ms, bound, calls, kernel ms by name (zero, pass))}."""
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
 
     res = {}
@@ -2065,13 +1950,7 @@ def ragged_vs_twin(dev, prepares, paths):
         def run():
             return [kw.ragged_values(*a) for a in args]
 
-        padded = [tuple(torch.from_numpy(x).to(dev) for x in b)
-                  for b in padded_prepare_batches(paths[cell], aa)]
-        (ms, kept), (p_ms, _) = same_timing(
-            lambda ev: kernel_device_ms(run, dev, "ragged_", events=ev),
-            lambda ev: kernel_device_ms(
-                lambda: [kw.window_values(m, c, aa) for m, c in padded], dev,
-                "windows_kernel", key="padded values", events=ev))
+        ms, kept = kernel_device_ms(run, dev, "ragged_")
         each = len(ms) // len(args)  # kernels a call (0: timed by events)
         by_kernel = [sum(ms[i::each]) for i in range(each)] or ms
         t_ms = timed(lambda: [kw.ragged_values_reference(*a) for a in args],
@@ -2087,25 +1966,22 @@ def ragged_vs_twin(dev, prepares, paths):
               f"valid_windows={valid} max_abs_err={err} device_ms="
               f"{sum(ms):.5f} by_kernel={[round(x, 5) for x in by_kernel]} "
               f"(zero, pass) runs_kept={kept}/5 twin_ms={t_ms:.3f} "
-              f"{bound_fields(sum(ms), bnd)} padded_launches={len(padded)} "
-              f"padded_device_ms={sum(p_ms):.5f}", flush=True)
-        res[cell] = (err, sum(ms), t_ms, bnd, len(args), by_kernel,
-                     len(padded), sum(p_ms))
-        del padded
+              f"{bound_fields(sum(ms), bnd)}", flush=True)
+        res[cell] = (err, sum(ms), t_ms, bnd, len(args), by_kernel)
     return res
 
 
 def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
     """Phase 12: the fused path (``--backend spmd``: one launch of the
     fused kernel a batch) and the device prepare (``--prepare jax``: the
-    window kernel's values entry) on the card: the goldens, phase 4's and
+    window kernel's ragged entry) on the card: the goldens, phase 4's and
     phase 7's reports, launches, cold wall times in turns against xla and
-    auto, and the window kernel, B1 on its windows and the fused kernel
-    against their twins at the real launch shapes; then the ragged entry
-    at the ``--prepare jax`` runs' own calls (ragged_vs_twin). Returns
-    ((the fused kernel's launches on the sparse proteome's spmd run,
-    {cell: the ragged entry's calls on its ``--prepare jax`` run}),
-    window_kernel_vs_twin's result, ragged_vs_twin's result)."""
+    auto, and B1 on the window twin's windows and the fused kernel against
+    their twins at the real launch shapes; then the ragged entry at the
+    ``--prepare jax`` runs' own calls (ragged_vs_twin). Returns ((the
+    fused kernel's launches on the sparse proteome's spmd run, {cell: the
+    ragged entry's calls on its ``--prepare jax`` run}),
+    fused_kernel_vs_twin's result, ragged_vs_twin's result)."""
     def read(path):
         with open(path, "rb") as fh:
             return fh.read()
@@ -2141,8 +2017,8 @@ def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
                     spmd_kernels)
     fused_launches = counts["fused_probe"]
     print(f"phase 12: sparse proteome spmd fused_probe_launches="
-          f"{fused_launches} (one a batch; window kernel "
-          f"{counts['kmer_windows']}, B1 {counts['tilejoin']})", flush=True)
+          f"{fused_launches} (one a batch; B1 {counts['tilejoin']})",
+          flush=True)
     from kmergutsjava_tpu_torch.ops import kmer_windows
 
     prepares, ragged_launches = {}, {}
@@ -2174,9 +2050,8 @@ def spmd_phase(dev, work, corpus, faa, fna, big, reads, prots, plane, pw):
         print(f"phase 12: cold wall_s {cell} backend={backend} {secs}",
               flush=True)
     batches = window_batches(prots, fna, reads)
-    return (launches, window_kernel_vs_twin(dev, batches, plane, pw),
-            ragged_vs_twin(dev, prepares, {"sparse proteome": faa,
-                                           "dense read set": reads}))
+    return (launches, fused_kernel_vs_twin(dev, batches, plane, pw),
+            ragged_vs_twin(dev, prepares))
 
 
 def run_engine(data_dir, query, out_path, aa=True, **cfg):
@@ -2664,16 +2539,15 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
     wrapper: the fused kernel's shard entry in the (2, 2) ``spmd`` step on
     phase 12's proteome bucket batch and read batch (a data slice's rows
     against a table shard, a position a launch), each answer equal to its
-    twin's and to the two launches it replaces (the window kernel, then
-    B12), with its device time a launch in turns with theirs (fused, two,
-    fused, two) and its bound; B1 at the four routed owners (their
+    twin's, with its device time a launch and its bound; B1 at the four
+    routed owners (their
     received bins: FP_EMPTY fill cells, homes local to the owner's slice,
     negative below it) on the whole proteome; B1 on each of the ``xla``
     lookup's four table shards (homes local to the shard) for the
     proteome's first dispatch. Every call's answer equal to its twin's
     (int32 slots; B1 off and state). Returns (the fused kernel's
     max_abs_err, B1's, {label: the fused kernel's (ms a launch, twin_ms,
-    bound, two_launch_ms)})."""
+    bound)})."""
     import numpy as np
     import torch
 
@@ -2687,7 +2561,6 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
     from kmergutsjava_tpu_torch.models.spmd import SpmdProgram
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
     from kmergutsjava_tpu_torch.parallel import (fused_probe, routed_lookup,
-                                                 shard_probe,
                                                  tilejoin_shards)
     from kmergutsjava_tpu_torch.parallel.mesh import make_mesh
 
@@ -2697,13 +2570,6 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
     def sync():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
-
-    def two_launches(plane, a, counts, aa, num_sigs, lo, s_loc, w, *extra):
-        """The window kernel, then B12: the old step at a position."""
-        h, f = (kw.aa_homes_fps(a, counts, num_sigs) if aa else
-                kw.dna_homes_fps(a, counts, num_sigs, *extra))
-        return shard_probe.shard_probe(plane, f.view(-1), h.view(-1), lo,
-                                       s_loc, w)
 
     fused_err, shard_res = 0, {}
     for label, (aa, mat, counts, extra) in batches.items():
@@ -2720,10 +2586,8 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
         for args, _, got in calls:
             plane, a, c, _, num_sigs, lo, s_loc, w = args[:8]
             twin = fused_probe.shard_first_match_reference(*args)
-            old = two_launches(*args)
             sync()
-            errs += [int((got.long() - twin.long()).abs().max()),
-                     int((got.long() - old.long()).abs().max())]
+            errs.append(int((got.long() - twin.long()).abs().max()))
             homes, fps = kw.windows_reference(a, c, aa, num_sigs)
             homes = homes.reshape(-1)
             local = homes.long() - lo
@@ -2739,20 +2603,13 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
                 reads, s_loc + w))
         fused_err = max([fused_err] + errs)
         # the device time of one position's launch, in the step's order
-        # (each position's on its own card), in turns with the two launches
+        # (each position's on its own card)
         mine_calls = [c for c in calls if c[0][0].device == devs[0]]
-        turns = [t for t, _ in same_timing(*[
-            lambda ev: kernel_device_ms(
-                lambda: [fused_probe.shard_first_match(*a)
-                         for a, _, _ in mine_calls],
-                devs[0], "fused_probe_kernel", key=f"fused shard {label}",
-                events=ev),
-            lambda ev: kernel_device_ms(
-                lambda: [two_launches(*a) for a, _, _ in mine_calls],
-                devs[0], ("windows_kernel", "shard_probe_kernel"),
-                key=f"fused shard {label}", events=ev)] * 2)]
-        k_ms = (sum(turns[0]) + sum(turns[2])) / (2 * len(mine_calls))
-        two_ms = (sum(turns[1]) + sum(turns[3])) / (2 * len(mine_calls))
+        by_launch, _ = kernel_device_ms(
+            lambda: [fused_probe.shard_first_match(*a)
+                     for a, _, _ in mine_calls],
+            devs[0], "fused_probe_kernel", key=f"fused shard {label}")
+        k_ms = sum(by_launch) / len(mine_calls)
         t_ms = timed(lambda: [fused_probe.shard_first_match_reference(*a)
                               for a, _, _ in mine_calls],
                      devs[0]) / len(mine_calls)
@@ -2760,14 +2617,11 @@ def mesh_inputs_vs_twins(big, faa, batches, four):
         print(f"phase 13: fused kernel shard form in the (2, 2) spmd step on "
               f"{label}: launches={len(calls)} windows={n} owned={owned} "
               f"invalid={invalid} candidates={cands} pw={prog.pw} "
-              f"max_abs_err={max(errs)} (twin and window kernel + B12) "
+              f"max_abs_err={max(errs)} (twin) "
               f"device_ms_per_launch={k_ms:.5f} by_launch="
-              f"{[round(x, 5) for x in turns[0]]} "
-              f"two_launch_device_ms_per_position={two_ms:.5f} by_kernel="
-              f"{[round(x, 5) for x in turns[1]]} twin_ms_per_launch="
-              f"{t_ms:.4f} {bound_fields(k_ms, bnd)} two_launch_share="
-              f"{bnd[0] / two_ms:.3f}", flush=True)
-        shard_res[label] = (k_ms, t_ms, bnd, two_ms)
+              f"{[round(x, 5) for x in by_launch]} twin_ms_per_launch="
+              f"{t_ms:.4f} {bound_fields(k_ms, bnd)}", flush=True)
+        shard_res[label] = (k_ms, t_ms, bnd)
         del prog, calls, mine_calls
 
     values = query_values(faa)
@@ -3456,34 +3310,25 @@ def main() -> int:
         if g_err != 0:
             return fail("lane-gather kernel and twin disagree")
         service_phase(work, big, faa, prots, w1, tj_launches)
-        ((fused_launches, kr_launches), (kw_cmp, fused_cmp, kw_b1_err),
+        ((fused_launches, kr_launches), (fused_cmp, kw_b1_err),
          kr_cmp) = spmd_phase(dev, work, corpus, faa,
                        os.path.join(work, "genome.fna"), big,
                        os.path.join(work, "reads.fna"), prots, spmd_plane,
                        spmd_pw)
         del spmd_plane
-        for label, (e, *_) in kw_cmp.items():
-            if e != 0:
-                return fail(f"window kernel and twin disagree on {label}")
         if kw_b1_err != 0:
-            return fail("B1 and its twin disagree on the window kernel's "
+            return fail("B1 and its twin disagree on the window twin's "
                         "windows")
         for label, (e, *_) in fused_cmp.items():
             if e != 0:
-                return fail(f"the fused kernel disagrees with its twin or "
-                            f"the window kernel and B1 on {label}")
+                return fail(f"the fused kernel disagrees with its twin on "
+                            f"{label}")
         for cell, (e, *_) in kr_cmp.items():
             if e != 0:
                 return fail(f"the window kernel's ragged entry and its twin "
                             f"disagree on the {cell}'s prepare")
-        if kr_launches["sparse proteome"] >= kr_cmp["sparse proteome"][6]:
-            return fail(f"the sparse proteome's --prepare jax took "
-                        f"{kr_launches['sparse proteome']} calls of the "
-                        f"ragged entry, not fewer than the "
-                        f"{kr_cmp['sparse proteome'][6]} padded launches")
         # the window kernel's line: its ragged entry (--prepare jax, the
         # path that launches it) over the sparse proteome's prepare
-        kw_row = next(iter(kw_cmp.values()))
         kr_row, kr_reads = kr_cmp["sparse proteome"], kr_cmp["dense read set"]
         f_row = next(iter(fused_cmp.values()))
         t13 = time.time()
@@ -3501,8 +3346,7 @@ def main() -> int:
                 return fail(f"{name} and its twin disagree")
         if mesh_fused_err != 0:
             return fail("the fused kernel's shard form disagrees with its "
-                        "twin or the window kernel and B12 in the spmd mesh "
-                        "step")
+                        "twin in the spmd mesh step")
         if mesh_b1_err != 0:
             return fail("B1 and its twin disagree on the routed owners' bins "
                         "or the xla lookup's table shards")
@@ -3595,22 +3439,14 @@ def main() -> int:
         "replaces": "kmergutsjava_tpu/models/prepare.py:100 (:121), "
                     ":285 (:302); kmergutsjava_tpu/ops/kmerize.py:29",
         "launches": kr_launches["sparse proteome"],
-        "max_abs_err": max([r[0] for r in kw_cmp.values()]
-                           + [r[0] for r in kr_cmp.values()]),
+        "max_abs_err": max(r[0] for r in kr_cmp.values()),
         "ms": kr_row[1],
         "plain_ms": kr_row[2],
         "by_kernel_ms": kr_row[5],
-        "padded_launches": kr_row[6],
-        "padded_ms": kr_row[7],
         "read_set_launches": kr_launches["dense read set"],
         "read_set_ms": kr_reads[1],
-        "read_set_padded_launches": kr_reads[6],
-        "read_set_padded_ms": kr_reads[7],
         "read_set_bound_ms": kr_reads[3][0],
-        "bucket_batch_padded_ms": kw_row[4],
-        "homes_entry_ms": kw_row[1],
-        **kernel_bound(kr_row[1], kr_row[3], timed_by(
-            "ragged_", "padded values", f"windows {next(iter(kw_cmp))}")),
+        **kernel_bound(kr_row[1], kr_row[3], timed_by("ragged_")),
     }, {
         "name": "fused_probe",
         "route": "cuda",
@@ -3624,9 +3460,7 @@ def main() -> int:
                            + [r[0] for r in fused_cmp.values()]),
         "ms": f_row[1],
         "plain_ms": f_row[2],
-        "two_launch_ms": f_row[4],
         "shard_ms": next(iter(shard_cmp.values()))[0],
-        "shard_two_launch_ms": next(iter(shard_cmp.values()))[3],
         **kernel_bound(f_row[1], f_row[3], timed_by(
             f"fused {next(iter(fused_cmp))}",
             f"fused shard {next(iter(shard_cmp))}")),

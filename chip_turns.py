@@ -2,7 +2,7 @@
 """Sources of the sparse first-event probe (B1, csrc/tilejoin.cu) timed
 against each other in turns on one NVIDIA GPU, at the engine's cases: the
 source of PERF.md's in-turns tables for B1, the fused step's kernel, the
-grouping kernel (B11), the routing bins (B13), the device prepare's values
+grouping kernel (B11), the routing bins (B13), the device prepare's ragged
 entry (B8) and the shard probe (B12).
 
     python3 chip_turns.py --variant parent=build/parent/tilejoin.cu \\
@@ -33,12 +33,10 @@ the library yardstick), and each source's un-binning alone (device time)
 and with its read-backs (host time): the packed entry's one copy of its
 [3, ld] buffer, or the parent's form (two back buffers in, off and state
 out) with its three copies (off, state, the cells for the flags); ``--values`` sources of the window kernel
-(csrc/kmer_windows.cu, ``new``): one with the ragged entry is timed over
-the calls a whole ``--prepare jax`` prepare of the proteome and of the
+(csrc/kmer_windows.cu, ``new``), each timed over the calls of its ragged
+entry that a whole ``--prepare jax`` prepare of the proteome and of the
 read set makes (at each launch budget of ``--budgets``, in bytes: the
-tree's VALUES_LAUNCH_BYTES by default), one without it (the parent
-commit's) over the padded launches of the JAX prepare's batching of the
-same input (chip_smoke.padded_prepare_batches); ``--shard`` sources of
+tree's VALUES_LAUNCH_BYTES by default); ``--shard`` sources of
 the shard probe (csrc/shard_probe.cu, ``new``, through the wrapper);
 ``--no-b1`` builds, checks and times no B1 source; ``--walls`` also runs
 the CLI with ``--grouping scan`` on the proteome and the read set with
@@ -65,8 +63,8 @@ first source shard of the routed run over 4 (1,009,459 queries, cap
 504,729), each source checked against the twin cell for cell, its
 un-binning (of seeded answers) too. B8
 cases: the proteome's and the read set's prepares (the calls taken by a
-spy on the wrapper, each call's windows held against the twin; the
-padded launches' values against the twin's). B12 case: chip_smoke phase
+spy on the wrapper, each call's windows held against the twin). B12 case:
+chip_smoke phase
 13's data row of the sharded (2, 2) run against table
 shards 0 and 1, each answer held against the twin. Each time is a kernel's
 device time from chip_smoke.kernel_device_ms (a torch.profiler trace, the
@@ -456,15 +454,12 @@ class _Discard:
 
 def values_cases(faa, reads, budgets, dev):
     """{(cell, budget): (aa, the ragged entry's calls of a whole prepare
-    at that launch budget)} and {cell: (aa, the JAX batching's padded
-    launches)}, on the card."""
-    import torch
-
+    at that launch budget)}, on the card."""
     from kmergutsjava_tpu_torch.formats.fasta import read_fasta
     from kmergutsjava_tpu_torch.models import prepare
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
 
-    ragged, padded = {}, {}
+    ragged = {}
     default = prepare.VALUES_LAUNCH_BYTES
     for cell, path, aa in (("proteome", faa, True),
                            ("read set", reads, False)):
@@ -480,41 +475,27 @@ def values_cases(faa, reads, budgets, dev):
             print(f"setup: B8 {cell} budget={budget} calls={len(calls)} "
                   f"bytes={sum(a[0].numel() for a, _, _ in calls)}",
                   flush=True)
-        padded[cell] = (aa, [tuple(torch.from_numpy(x).to(dev) for x in b)
-                             for b in smoke.padded_prepare_batches(path,
-                                                                   aa)])
-    return ragged, padded
+    return ragged
 
 
-def values_runs(lib, ragged, padded):
-    """{case: run()} of one window kernel library: its ragged entry over
-    each prepare's calls, or (no ragged entry) its padded values entry
-    over each cell's padded launches."""
+def values_runs(ragged):
+    """{case: (run(), calls)}: a window kernel library's ragged entry over
+    each prepare's calls."""
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
 
-    if lib.ragged:
-        return {f"{cell} budget={b}": ((lambda calls=calls: [
-            kw.ragged_values(*a) for a in calls]), len(calls))
-            for (cell, b), (aa, calls) in ragged.items()}
-    return {f"{cell} padded": ((lambda aa=aa, batches=batches: [
-        kw.window_values(m, c, aa) for m, c in batches]), len(batches))
-        for cell, (aa, batches) in padded.items()}
+    return {f"{cell} budget={b}": ((lambda calls=calls: [
+        kw.ragged_values(*a) for a in calls]), len(calls))
+        for (cell, b), (aa, calls) in ragged.items()}
 
 
-def values_check(lib, ragged, padded):
-    """Whether ``lib``'s values agree with the twins on every case."""
-    import torch
-
+def values_check(lib, ragged):
+    """Whether ``lib``'s values agree with the twin on every case."""
     from kmergutsjava_tpu_torch.ops import kmer_windows as kw
 
     with swapped(kw, lib):
-        if lib.ragged:
-            return all(equal(kw.ragged_values(*a),
-                             kw.ragged_values_reference(*a))
-                       for _, calls in ragged.values() for a in calls)
-        return all(torch.equal(kw.window_values(m, c, aa),
-                               kw.windows_reference(m, c, aa))
-                   for aa, batches in padded.values() for m, c in batches)
+        return all(equal(kw.ragged_values(*a),
+                         kw.ragged_values_reference(*a))
+                   for _, calls in ragged.values() for a in calls)
 
 
 WALL_RUNNER = (
@@ -729,7 +710,7 @@ def main() -> int:
         faa = os.path.join(work, "proteome.faa")
         smoke.write_proteome(prots, faa)
         values = smoke.query_values(faa)
-        batches, s_batches, v_ragged, v_padded, v_walls = {}, {}, {}, {}, []
+        batches, s_batches, v_ragged, v_walls = {}, {}, {}, []
         if fused or scan or b8:
             fna = os.path.join(work, "genome.fna")
             reads = os.path.join(work, "reads.fna")
@@ -741,7 +722,7 @@ def main() -> int:
         wall_rows = (scan_walls(work, big, faa, reads, scan, scan_runs,
                                 args.rounds) if scan and args.walls else [])
         if b8:
-            v_ragged, v_padded = values_cases(faa, reads, budgets, dev)
+            v_ragged = values_cases(faa, reads, budgets, dev)
         if b8 and args.walls:
             trees = {label: os.path.dirname(os.path.dirname(
                 os.path.dirname(src))) for label, src in b8}
@@ -814,7 +795,7 @@ def main() -> int:
             :, :r_cell.numel()]
         route.append(("argsort", None))
     for label, _ in b8:
-        same = values_check(values_libs[label], v_ragged, v_padded)
+        same = values_check(values_libs[label], v_ragged)
         print(f"check B8 {label}: {'equal to' if same else 'DIFFERS from'} "
               f"the twin", flush=True)
         if label == "new" and not same:
@@ -913,13 +894,10 @@ def main() -> int:
             print("turn " + json.dumps(rows[-1]), flush=True)
 
     for turn, (label, _) in enumerate(in_turns(b8, args.rounds)):
-        lib = values_libs[label]
-        with swapped(kmer_windows, lib):
-            for name, (run, calls) in values_runs(lib, v_ragged,
-                                                  v_padded).items():
-                ms, kept = smoke.kernel_device_ms(
-                    run, dev, "ragged_" if lib.ragged else "windows_kernel",
-                    reps=args.reps)
+        with swapped(kmer_windows, values_libs[label]):
+            for name, (run, calls) in values_runs(v_ragged).items():
+                ms, kept = smoke.kernel_device_ms(run, dev, "ragged_",
+                                                  reps=args.reps)
                 each = len(ms) // calls  # kernels a call
                 rows.append(dict(kernel="B8", turn=turn, variant=label,
                                  case=name, ms=sum(ms), runs_kept=kept,

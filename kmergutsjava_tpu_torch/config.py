@@ -15,8 +15,8 @@ from typing import Optional, Sequence, Tuple
 
 # lookup backends: "auto" (stream vs xla by query density — both are exact,
 # so the choice only costs speed), "xla" (the sparse tile-join probe),
-# "stream" (the dense stream probe), "spmd" (the fused device path: the
-# k-mer window kernel feeding the sparse probe), "pallas" (the merge-join
+# "stream" (the dense stream probe), "spmd" (the fused device path: k-mer
+# windows and their sparse probe in one kernel), "pallas" (the merge-join
 # block probe; "xla", "spmd" and "pallas" keep the JAX package's names, so
 # its command lines run unchanged), "parity" (the exact streaming scan) and
 # the multi-device lookups over a mesh (parallel/): "replicated" (the plane

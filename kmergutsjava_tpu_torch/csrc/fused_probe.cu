@@ -16,7 +16,7 @@
 // Contract (the plain twin is kmergutsjava_tpu_torch/parallel/
 // fused_probe.py: ops/kmer_windows.py windows_reference, then
 // lookup/tilejoin.py first_event_reference or parallel/shard_probe.py
-// shard_probe_reference). The windows are the window kernel's, in its flat
+// shard_probe_reference). The windows are windows_reference's, in its flat
 // order: aa rows [B, Lpad - 7] (valid for j < num_starts[b] and 8 amino
 // acids), DNA rows [B, 6, Lpad/3 - 7] (valid for j < len/3 - 7, or, with
 // row_map, own_start and own_end, container g reads frame row_map[b, g]
@@ -52,7 +52,7 @@
 // it: at most 2,048 bytes), each codon made once from its three bases
 // through the tables; then each thread packs its window from shared memory
 // and probes the plane with B1's or B12's own code (probe_answers.cuh).
-// The residue is the window kernel's exact reciprocal (kmer_common.cuh);
+// The residue is by an exact reciprocal (kmer_common.cuh says why);
 // block indices are 32-bit, divided by exact reciprocals (Div).
 // Measured by chip_smoke.py on an H100 80GB HBM3 (700 W; PERF.md,
 // Findings), device time a launch in turns with the two launches it

@@ -1,8 +1,19 @@
 // The reference's k-mer window arithmetic on the card, shared by the window
 // kernel (csrc/kmer_windows.cu) and the fused step's kernel
 // (csrc/fused_probe.cu): the encoding tables, an 8-mer's packed value and
-// its home residue by an exact reciprocal (kmer_windows.cu says why it is
-// exact).
+// its home residue by an exact reciprocal.
+//
+// The residue. A 64-bit % by a divisor known only at run time is a long
+// software sequence on the card. A value is < 20^8 < 2^35, and for a
+// divisor 5 <= d < 2^31 the reciprocal M = ceil(2^66 / d) fits 64 bits and
+// gives the exact quotient floor(v * M / 2^66) for every v < 2^35: with
+// e = M*d - 2^66 < d, v * M / 2^66 = v/d + v*e / (d * 2^66), and
+// v*e < 2^35 * 2^31 = 2^66 keeps the excess below 1/d, so it never carries
+// the remainder past d (the wrapper, ops/kmer_windows.py reciprocal,
+// computes M, and a CPU test checks the identity). That is one 64-bit
+// multiply-high and a multiply a window. The fingerprint's divisor is the
+// constant 65535, which the compiler divides by a multiply itself.
+// Divisors below 5 (tables of under 5 slots) take the plain %.
 
 #pragma once
 

@@ -225,8 +225,7 @@ class PassSet:
     scatter kernel fills, the probe's answers int32 ``[C/4, S]``, and the
     resolve's counts int64 ``[3]`` (overflow, fallback, hits). Each chunk's
     values and results are device tensors of their own, held with the
-    chunk; ``pinned``: they go up and come back through page-locked
-    staging. The reset is issued on the lookup's ``stream``, in order with
+    chunk. The reset is issued on the lookup's ``stream``, in order with
     the passes.
 
     Tiles and occupancy are all zero whenever a set is free; ``dirty``
@@ -234,7 +233,6 @@ class PassSet:
 
     def __init__(self, channels: int, slots: int, device: torch.device,
                  stream, pooled: bool):
-        self.pinned = device.type == "cuda"
         self.pooled = pooled
         self.stream = stream
         self.dirty = False
@@ -258,43 +256,29 @@ class PassSet:
 class PassSetPool:
     """A lookup's two pass sets, made and zeroed once when it is built.
 
-    ``take`` hands out a free set; where none is free but one is being
-    zeroed it waits for that one (``stream.set_wait``); where none is
-    either (two live front ends, or a one-shot lookup during a stream) it
-    makes a fresh plain set (``stream.fresh_sets``), which is dropped when
-    given back. A taker that zeroes its set elsewhere marks it ``retire``
-    first and ``give_back`` once it is zero."""
+    ``take`` hands out a free set, or, where none is free (two live front
+    ends, or a one-shot lookup during a stream), a fresh plain set
+    (``stream.fresh_sets``), which is dropped when given back. A taker
+    gives its set back zeroed."""
 
     def __init__(self, make, size: int = 2):
         self._make = make
-        self._cond = threading.Condition()
+        self._lock = threading.Lock()
         self.sets = [make(pooled=True) for _ in range(size)]
         self._free = list(self.sets)
-        self._zeroing: list = []
 
     def take(self) -> PassSet:
-        with self._cond:
-            if not self._free and self._zeroing:
-                with span("stream.set_wait"):
-                    self._cond.wait_for(
-                        lambda: self._free or not self._zeroing)
+        with self._lock:
             if self._free:
                 count("stream.fresh_sets", 0)
                 return self._free.pop()
         count("stream.fresh_sets", 1)
         return self._make(pooled=False)
 
-    def retire(self, s: PassSet) -> None:
-        if s.pooled:
-            with self._cond:
-                self._zeroing.append(s)
-
     def give_back(self, s: PassSet) -> None:
         if s.pooled:
-            with self._cond:
-                self._zeroing = [z for z in self._zeroing if z is not s]
+            with self._lock:
                 self._free.append(s)
-                self._cond.notify_all()
 
 
 class StreamLookup:
@@ -430,15 +414,13 @@ class StreamLookup:
         if k != hits.shape[1]:
             raise KernelError(f"the resolve counted {k} hits, its slots "
                               f"{hits.shape[1]}")
-        self._count_pass(s, n, 8 * n, hits.nbytes + tally.nbytes)
+        self._count_pass(n, 8 * n, hits.nbytes + tally.nbytes)
         count("stream.overflow_queries", over)
         count("stream.fallback_queries", fell)
         return hits.numpy()
 
-    def _count_pass(self, s: PassSet, queries: int, up: int,
-                    down: int) -> None:
+    def _count_pass(self, queries: int, up: int, down: int) -> None:
         count("stream.passes", 1)
-        count("stream.pinned_passes", int(s.pinned))
         count("stream.queries", queries)
         count("stream.bytes_up", up)
         count("stream.bytes_down", down)
@@ -535,12 +517,12 @@ class StreamingStreamLookup:
     values up and one kernel launch, issued on the lookup's stream without
     waiting; the sharded lookup's native host scatter, a ctypes call that
     releases the GIL); at a flush it hands the full set to the pass thread
-    and scatters on into the lookup's other set. The pass thread runs the passes in order
-    (probe, resolve, read-back and the set's reset, then the decode). All
-    tile and chunk state is the worker's until it is joined. ``finish()``
-    runs the tail pass beside the pass thread and merges the passes' hits in
-    pass order; the last set is zeroed on the pass thread after that, and
-    ``close()`` waits for it.
+    and scatters on into the lookup's other set. The pass thread runs the
+    passes in order (probe, resolve, read-back and the set's reset, then the
+    decode). All tile and chunk state is the worker's until it is joined.
+    ``finish()`` runs the tail pass beside the pass thread, merges the
+    passes' hits in pass order, stops the pass thread and gives the sets
+    back; ``close()`` does the same for a front end that did not finish.
 
     Memory stays within what one pass in flight and the feed's
     ``FEED_CHUNKS`` queued chunks hold: a chunk scattered while a pass is
@@ -567,7 +549,6 @@ class StreamingStreamLookup:
         self.total_fed = 0
         self._worker_error: Optional[BaseException] = None
         self._abort = False
-        self._retired = False
         # a chunk takes a feed slot when fed and frees it when the worker
         # takes it up, or, scattered beside a pass in flight, once no pass
         # is in flight
@@ -660,16 +641,12 @@ class StreamingStreamLookup:
 
     def _pass_loop(self) -> None:
         """The pass thread: each pass handed off, in order (the pass resets
-        its set), then the set back to the worker; last the retirement of
-        every set."""
+        its set), then the set back to the worker."""
         while True:
             job = self._pass_q.get()
             if job is None:
                 return
             s, chunks, n, done = job
-            if done is None:
-                self._give_back(s)
-                continue
             try:
                 done.set_result(self._run_pass(s, chunks, n))
             except BaseException as ex:  # surfaced at finish()
@@ -691,23 +668,18 @@ class StreamingStreamLookup:
         if free:
             self._slots.release(free)
 
-    def _retire(self) -> None:
-        """Once the worker is joined: the pass thread zeroes the last set
-        (where no pass did) after the passes queued before it, gives every
-        set back to the lookup, and ends."""
-        if self._retired:
-            return
-        self._retired = True
+    def _release(self) -> None:
+        """Once the worker is joined: stop the pass thread after the passes
+        queued before it, and give every set back to the lookup, zeroing
+        one that a failed pass left dirty."""
+        if self._passer.is_alive():
+            self._pass_q.put(None)
+            self._passer.join()
         for s in self._owned:
-            self.lk._sets.retire(s)
-        self._pass_q.put((self._set, None, 0, None))
-        self._pass_q.put(None)
-
-    def _give_back(self, last: Optional[PassSet]) -> None:
-        if last is not None and last.dirty:
-            last.zero()
-        for s in self._owned:
+            if s.dirty:
+                s.zero()
             self.lk._sets.give_back(s)
+        self._owned = []
 
     def _put_checked(self, item) -> None:
         """Take a feed slot, then queue the chunk; a dead worker frees no
@@ -779,7 +751,7 @@ class StreamingStreamLookup:
             with span("engine.worker_wait"):
                 done = [d.result() for d in self._results] + tail
         finally:
-            self._retire()
+            self._release()
         passes = [hits for hits, _ in done]
         kf = (int(np.unique(np.concatenate([v for _, v in done])).size)
               if self.compute_kmers_found else -1)
@@ -796,12 +768,9 @@ class StreamingStreamLookup:
         return merged
 
     def close(self) -> None:
-        """Stop the threads (finish() need not have run: a failed prepare
-        drops what is queued) and wait until every set is zeroed and back
-        with the lookup (``stream.set_wait``)."""
+        """Stop the threads and give the sets back, where finish() has not
+        (a failed prepare drops what is queued)."""
         if self._worker is not None:
             self._abort = True
             self._join_worker(raise_error=False)
-        self._retire()
-        with span("stream.set_wait"):
-            self._passer.join()
+        self._release()

@@ -11,8 +11,8 @@ KmerGutsJava.java:742-820:
    or with ``grouping_impl="scan"`` the grouping kernel on the device)
 
 The ``spmd`` backend fuses the first two on the device (models/spmd.py):
-raw sequence bytes go up, the k-mer window kernel and the sparse probe run
-there, and only candidates come back for host verification.
+raw sequence bytes go up, one kernel makes their k-mer windows and probes
+for them there, and only candidates come back for host verification.
 
 With a mesh (``mesh_shape``, over ``mesh_devices``: ``parallel/mesh.py``)
 the lookup spreads over several devices, in one process: the
@@ -51,7 +51,7 @@ from ..lookup.store import QueryKmerStore
 from ..lookup.stream import StreamingStreamLookup, StreamLookup
 from ..lookup.tilejoin import KernelError
 from ..ops import kmer_windows
-from ..parallel import route_bins, shard_probe
+from ..parallel import fused_probe, route_bins, shard_probe
 from ..parallel.mesh import default_mesh_shape, mesh_devices
 from ..utils.timing import maybe_profile, record, span
 from .prepare import Prepared
@@ -344,9 +344,9 @@ class Engine:
             self.config = orig_config
 
     def _close_front_end(self) -> None:
-        """Stop the streaming front end's threads, inside the run's record:
-        the stream front end zeroes its last set while grouping runs, and
-        its time lands in this run."""
+        """Close the streaming front end, inside the run's record: one that
+        finished has already stopped its threads and given its sets back;
+        one whose prepare failed stops them and gives them back here."""
         front, self._front = self._front, None
         close = getattr(front, "close", None)
         if close is not None:
@@ -466,8 +466,8 @@ class Engine:
             streaming = feed = deferred
         elif cfg.backend == "spmd" and not table.truncated:
             # fused device path: raw sequence bytes go to the device; the
-            # k-mer window kernel and the sparse probe run there per batch
-            # (models/spmd.py), with no host query-k-mer stream at all
+            # k-mer windows and their sparse probe run there, one launch a
+            # batch (models/spmd.py), with no host query-k-mer stream at all
             from .spmd import SpmdAnnotator
 
             try:
@@ -593,8 +593,7 @@ class Engine:
         may launch."""
         if cfg.grouping_impl == "scan":
             scan_machine.load_kernel()
-        if (cfg.prepare_impl == "jax"
-                or (cfg.backend == "spmd" and not table.truncated)):
+        if cfg.prepare_impl == "jax":
             kmer_windows.load_kernel()
         if not table.truncated:
             # a build failure raises here, before any work, and never
@@ -606,6 +605,8 @@ class Engine:
             if deferred is not None or cfg.backend in (
                     "xla", "pallas", "spmd", "replicated", "routed"):
                 tilejoin.load_kernel()
+            if cfg.backend == "spmd":
+                fused_probe.load_kernel()
             if deferred is not None or cfg.backend == "stream":
                 stream_kernel.load_kernel()
             if cfg.backend == "pallas":

@@ -1,37 +1,26 @@
 """K-mer windows from ASCII rows: the hand-written CUDA kernel
-``csrc/kmer_windows.cu``, its plain PyTorch twin and the wrappers that pick
-between them by the tensors' device. The fused step runs the same windows
-and their probe in one launch (``parallel/fused_probe.py``, whose twin
-starts from this one); this kernel's ragged entry is the device prepare's,
-and its homes entries give the windows alone.
+``csrc/kmer_windows.cu`` (the device prepare's, ``--prepare jax``), its
+plain PyTorch twins and the wrapper that picks between them by the
+tensors' device. The fused step runs the same windows and their probe in
+one launch (``parallel/fused_probe.py``, whose twin starts from
+``windows_reference`` here and whose checks from ``_check``).
 
 Replaces the device programs that the JAX package writes in XLA for the
-TPU up to the probe: ``parallel/annotate_step.py`` ``_encode_and_probe``
-and ``_dna_encode_and_probe`` (encode, six-frame translation, 8-mer packing,
-home and fingerprint residues) and ``parallel/seq_windows.py``
-``_window_probe`` (a long contig's windows, each container masked to the
-interval its window owns). The twin is the composition of
-``ops/encode.py``, ``ops/translate.py`` and ``ops/kmerize.py``.
+TPU to prepare queries: the values of ``ops/kmerize.py`` ``kmer_windows``
+and ``kmer_window_mods`` over the JAX prepare's padded power-of-two
+buckets (encode, six-frame translation, 8-mer packing), and the
+compaction of their valid windows on the host. ``windows_reference`` is
+the composition of ``ops/encode.py``, ``ops/translate.py`` and
+``ops/kmerize.py`` over padded rows: each window's value, or its home and
+fingerprint (-1 and 0 for a window that is not valid, which the sparse
+probe answers as off the plane without reading it); the twin of the fused
+step's windows too.
 
-Four entries:
-
-- ``aa_homes_fps``: protein rows ``uint8[B, Lpad]`` and ``num_starts[B]``
-  -> homes ``int32[B, W]`` and fingerprints ``uint16[B, W]``, W = Lpad - 7;
-- ``dna_homes_fps``: contig rows ``uint8[B, Lpad]`` and ``lengths[B]`` (and
-  optionally a long contig's ``row_map``, ``own_start``, ``own_end``
-  ``[B, 6]``) -> ``[B, 6, W]``, W = Lpad//3 - 7, containers in the
-  reference's order +0 +1 +2 -0 -1 -2;
-- ``window_values``: either kind of padded rows -> int64 values of every
-  window (-1 where not valid), the JAX prepare's power-of-two batches;
-- ``ragged_values``: the device prepare's entry (``--prepare jax``): rows
-  unpadded in one byte stream with their bounds -> only the valid
-  windows, compacted on the card in the order ``np.nonzero`` gives the
-  padded values (container, then position): values int64, positions
-  int32, and a count a container (a protein, or a contig's frame).
-
-A window that is not valid has home -1 (fingerprint 0), which the sparse
-probe (``lookup/tilejoin.py``) answers as off the plane, state 0, without
-reading the plane, so no mask travels beside the windows; its value is -1.
+``ragged_values``: rows unpadded in one byte stream with their bounds ->
+only the valid windows, compacted on the card in the order
+``np.nonzero`` gives the padded values (container, then position): values
+int64, positions int32, and a count a container (a protein, or a contig's
+frame).
 
 The kernel is compiled with nvcc for sm_90a into a plain-C shared library on
 first use and loaded with ctypes; nothing is built or imported for CUDA when
@@ -57,13 +46,10 @@ from .translate import translate_6frames
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "kmer_windows.cu")
 
-# kernel launches since import (or since a caller reset them to 0): of the
-# homes-and-fingerprints entries, of the padded values entry and of the
-# ragged entry (the device prepare's); counted only where a wrapper
-# launches the CUDA kernel, never for the twin
-launches = 0
-values_launches = 0
-ragged_launches = 0  # the ragged entry's calls (two kernels each)
+# the ragged entry's calls (two kernels each) since import (or since a
+# caller reset it to 0); counted only where the wrapper launches the CUDA
+# kernel, never for the twin
+ragged_launches = 0
 
 # the kernel's tables (struct Luts of the source), passed by value a launch
 _LUTS = np.ascontiguousarray(np.concatenate(
@@ -87,27 +73,18 @@ def load_kernel() -> ctypes.CDLL:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Type the C entries of a build of the kernel (the ragged ones where
-    the build has them: ``lib.ragged``)."""
+    """Type the C entries of a build of the kernel."""
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.kmer_windows_aa.restype = ctypes.c_int
-    lib.kmer_windows_aa.argtypes = [p, p, i64, i64, p, i64, ctypes.c_uint64,
-                                    p, p, p, p]
-    lib.kmer_windows_dna.restype = ctypes.c_int
-    lib.kmer_windows_dna.argtypes = [p, p, i64, i64, p, p, p, p, i64,
-                                     ctypes.c_uint64, p, p, p, p]
-    lib.ragged = hasattr(lib, "kmer_values_ragged")
-    if lib.ragged:
-        lib.kmer_values_ragged.restype = ctypes.c_int
-        lib.kmer_values_ragged.argtypes = [p, ctypes.c_int, p, i64, p, i64,
-                                           p, p, p, p, p]
-        lib.kmer_values_tile.restype = ctypes.c_int
-        lib.kmer_values_tile.argtypes = []
+    lib.kmer_values_ragged.restype = ctypes.c_int
+    lib.kmer_values_ragged.argtypes = [p, ctypes.c_int, p, i64, p, i64, p, p,
+                                       p, p, p]
+    lib.kmer_values_tile.restype = ctypes.c_int
+    lib.kmer_values_tile.argtypes = []
     return lib
 
 
 def reciprocal(d: int) -> int:
-    """The kernel's exact reciprocal of a divisor: ceil(2^66 / d), with
+    """The fused kernel's exact reciprocal of a divisor: ceil(2^66 / d), with
     which floor(v * M / 2^66) == v // d for every v < 2^35 (all k-mer
     values) and 5 <= d < 2^31; 0 (the kernel's plain %) below 5."""
     return 0 if d < 5 else -(-(1 << 66) // d)
@@ -116,10 +93,11 @@ def reciprocal(d: int) -> int:
 def windows_reference(ascii_u8: torch.Tensor, counts: torch.Tensor, aa: bool,
                       num_sigs: Optional[int] = None, row_map=None,
                       own_start=None, own_end=None):
-    """Plain PyTorch twin of the kernel (the JAX package's ops, composed).
-    ``counts``: num_starts (aa rows) or lengths (DNA rows). Returns
-    (homes, fps) when ``num_sigs`` is given, else the values; a window that
-    is not valid has home -1, fingerprint 0, value -1."""
+    """Windows of padded rows by the JAX package's ops, composed: the twin
+    of the fused kernel's windows and of the ragged entry. ``counts``:
+    num_starts (aa rows) or lengths (DNA rows). Returns (homes, fps) when
+    ``num_sigs`` is given, else the values; a window that is not valid has
+    home -1, fingerprint 0, value -1."""
     if aa:
         values, ok = kmer_windows(aa_offsets(ascii_u8), counts)
     else:
@@ -144,6 +122,8 @@ def windows_reference(ascii_u8: torch.Tensor, counts: torch.Tensor, aa: bool,
 
 
 def _check(ascii_u8, counts, num_sigs, extra=()) -> None:
+    """The fused entries' checks of their rows, counts and long-contig
+    columns (``extra``: (name, tensor) pairs) and of ``num_sigs``."""
     dev = ascii_u8.device
     if (ascii_u8.dtype != torch.uint8 or ascii_u8.dim() != 2
             or not ascii_u8.is_contiguous()):
@@ -163,83 +143,6 @@ def _check(ascii_u8, counts, num_sigs, extra=()) -> None:
         raise KernelError(f"num_sigs {num_sigs} outside [1, 2^31)")
     if dev.type not in ("cpu", "cuda"):
         raise KernelError(f"no k-mer window kernel for device {dev}")
-
-
-def _launch(aa: bool, ascii_u8, counts, num_sigs, row_map=None,
-            own_start=None, own_end=None):
-    """Allocate the outputs and launch the kernel on the current stream
-    (or, for CPU tensors, run the twin)."""
-    global launches, values_launches
-    extra = (() if row_map is None else
-             (("row_map", row_map), ("own_start", own_start),
-              ("own_end", own_end)))
-    if row_map is not None and (own_start is None or own_end is None):
-        raise KernelError("row_map needs own_start and own_end")
-    _check(ascii_u8, counts, num_sigs, extra)
-    dev = ascii_u8.device
-    if dev.type == "cpu":
-        return windows_reference(ascii_u8, counts, aa, num_sigs, row_map,
-                                 own_start, own_end)
-    b, lpad = ascii_u8.shape
-    w = max((lpad if aa else lpad // 3) - K + 1, 0)
-    shape = (b, w) if aa else (b, 6, w)
-    if num_sigs is None:
-        values = torch.empty(shape, dtype=torch.int64, device=dev)
-        outs = (None, None, values.data_ptr())
-        ns = 1
-    else:
-        homes = torch.empty(shape, dtype=torch.int32, device=dev)
-        fps = torch.empty(shape, dtype=torch.uint16, device=dev)
-        outs = (homes.data_ptr(), fps.data_ptr(), None)
-        ns = num_sigs
-    if b and w:
-        lib = load_kernel()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        luts = _LUTS.ctypes.data
-        if aa:
-            rc = lib.kmer_windows_aa(luts, ascii_u8.data_ptr(), b, lpad,
-                                     counts.data_ptr(), ns, reciprocal(ns),
-                                     *outs, stream)
-        else:
-            rc = lib.kmer_windows_dna(
-                luts, ascii_u8.data_ptr(), b, lpad, counts.data_ptr(),
-                *(None if t is None else t.data_ptr()
-                  for t in (row_map, own_start, own_end)),
-                ns, reciprocal(ns), *outs, stream)
-        if rc != 0:
-            raise KernelError(f"k-mer window kernel launch failed: CUDA "
-                              f"error {rc}")
-        with _lock:
-            if num_sigs is None:
-                values_launches += 1
-            else:
-                launches += 1
-    return values if num_sigs is None else (homes, fps)
-
-
-def aa_homes_fps(ascii_u8: torch.Tensor, num_starts: torch.Tensor,
-                 num_sigs: int):
-    """(homes int32 [B, W], fps uint16 [B, W]) of protein rows, W = Lpad
-    - 7; window j of row b is valid for j < num_starts[b] (int32 [B])."""
-    return _launch(True, ascii_u8, num_starts, num_sigs)
-
-
-def dna_homes_fps(ascii_u8: torch.Tensor, lengths: torch.Tensor,
-                  num_sigs: int, row_map=None, own_start=None, own_end=None):
-    """(homes int32 [B, 6, W], fps uint16 [B, 6, W]) of contig rows, W =
-    Lpad//3 - 7, lengths int32 [B]; with ``row_map``/``own_start``/
-    ``own_end`` (int32 [B, 6]) container g of row b reads local frame
-    row_map[b, g] and is valid in [own_start, own_end)."""
-    return _launch(False, ascii_u8, lengths, num_sigs, row_map, own_start,
-                   own_end)
-
-
-def window_values(ascii_u8: torch.Tensor, counts: torch.Tensor, aa: bool
-                  ) -> torch.Tensor:
-    """int64 values of every window (-1 where not valid): [B, W] of
-    protein rows with num_starts, or [B, 6, W] of contig rows with
-    lengths."""
-    return _launch(aa, ascii_u8, counts, None)
 
 
 # the ragged entry's bounds: bytes (DNA positions are two a byte, int32)

@@ -8,7 +8,7 @@ TPU: ``parallel/annotate_step.py`` ``_encode_and_probe`` and
 ``_dna_encode_and_probe`` with the probe they end in
 (``parallel/sharded_lookup.py`` ``_local_probe``), and
 ``parallel/seq_windows.py`` ``_window_probe`` (a long contig's windows). The
-windows are the window kernel's (``ops/kmer_windows.py``); each window's
+windows are ``ops/kmer_windows.py`` ``windows_reference``'s; each window's
 home and fingerprint stay on the card's registers and go straight into
 the probe, so they never reach device memory. Two entries:
 
@@ -96,8 +96,8 @@ def _windows(ascii_u8, counts, aa, num_sigs, extra):
 def first_event_reference(plane, ascii_u8, counts, aa: bool, num_sigs: int,
                           w: int, row_map=None, own_start=None,
                           own_end=None) -> torch.Tensor:
-    """Plain PyTorch twin of the first-event entry: the window kernel's
-    twin, then B1's, into one answer buffer."""
+    """Plain PyTorch twin of the first-event entry: ``windows_reference``,
+    then B1's twin, into one answer buffer."""
     homes, fps = _windows(ascii_u8, counts, aa, num_sigs,
                           (row_map, own_start, own_end))
     n = homes.numel()
@@ -111,8 +111,8 @@ def shard_first_match_reference(plane, ascii_u8, counts, aa: bool,
                                 num_sigs: int, lo: int, s_loc: int, w: int,
                                 row_map=None, own_start=None, own_end=None
                                 ) -> torch.Tensor:
-    """Plain PyTorch twin of the shard entry: the window kernel's twin,
-    then B12's."""
+    """Plain PyTorch twin of the shard entry: ``windows_reference``, then
+    B12's twin."""
     homes, fps = _windows(ascii_u8, counts, aa, num_sigs,
                           (row_map, own_start, own_end))
     return shard_probe.shard_probe_reference(plane, fps, homes, lo, s_loc, w)

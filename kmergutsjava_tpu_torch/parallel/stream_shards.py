@@ -45,13 +45,12 @@ def make_stream_mesh(n_shards: int, devices: List[torch.device],
 class HostPassSet:
     """The sharded lookup's pass set: numpy tiles u16 ``[C, S]`` and
     occupancy u8 ``[num_sigs]`` for the host scatter, the tiles page-locked
-    (``pinned``) in a pooled set on CUDA, so each shard's columns go up at
-    the link's speed. Tiles and occupancy are all zero whenever a set is
+    where ``pinned`` (a pooled set on CUDA), so each shard's columns go up
+    at the link's speed. Tiles and occupancy are all zero whenever a set is
     free; ``dirty`` marks a set scattered into since its last reset."""
 
     def __init__(self, channels: int, slots: int, num_sigs: int,
                  pinned: bool, pooled: bool):
-        self.pinned = pinned
         self.pooled = pooled
         self.dirty = False
         if pinned:
@@ -217,7 +216,7 @@ class StreamShardedLookup(StreamLookup):
         set reset: the packed answers int32 ``[channels/4, S]``."""
         out = self._probe(s)
         s.zero()
-        self._count_pass(s, n, s.tiles.nbytes, out.nbytes)
+        self._count_pass(n, s.tiles.nbytes, out.nbytes)
         return out
 
     def _decode(self, out, chunks, n_total: int, progress,

@@ -16,9 +16,9 @@ seeded numpy.
   shard's range and in its halo (not owned); and the mesh step equals the
   JAX sharded steps (``_local_probe``) bit for bit on the five meshes of
   the sharded tests, for aa rows, DNA rows and a long contig's windows.
-- ``--backend spmd`` goes through the fused entries only: with the window
-  kernel's, B1's and B12's wrappers made to raise, reports still equal the
-  JAX engine's, on one device and on a (2, 2) mesh.
+- ``--backend spmd`` goes through the fused entries only: with B1's and
+  B12's wrappers made to raise, reports still equal the JAX engine's, on
+  one device and on a (2, 2) mesh.
 - The wrappers count no launch for CPU tensors and refuse what the kernel
   does not take (KernelError); that they run the twins there is
   test_torch_kernels.py's."""
@@ -42,7 +42,6 @@ from kmergutsjava_tpu.formats.kmer_table import read_table as jax_read_table
 from kmergutsjava_tpu_torch.formats.kmer_table import TABLE_FILE, read_table
 from kmergutsjava_tpu_torch.lookup import tilejoin
 from kmergutsjava_tpu_torch.lookup.tilejoin import KernelError
-from kmergutsjava_tpu_torch.ops import kmer_windows
 from kmergutsjava_tpu_torch.parallel import (annotate_step, fused_probe,
                                              seq_windows, shard_probe)
 from kmergutsjava_tpu_torch.parallel import mesh as port_mesh
@@ -305,16 +304,14 @@ def _windowed_rows(contig, win_nt):
 def test_spmd_runs_through_the_fused_entries_only(corpus, short_long,
                                                   monkeypatch, mode,
                                                   mesh_shape):
-    """``--backend spmd`` with the window kernel's homes entries, B1's and
-    B12's wrappers made to raise: the report (long records through
-    windows) still equals the JAX engine's, and the fused entry of the
-    step's form was called, once a batch (a position a batch on a mesh)."""
+    """``--backend spmd`` with B1's and B12's wrappers made to raise: the
+    report (long records through windows) still equals the JAX engine's,
+    and the fused entry of the step's form was called, once a batch (a
+    position a batch on a mesh)."""
     def refused(*a, **kw):
         raise AssertionError("the spmd path called a standalone kernel")
 
-    for mod, name in ((kmer_windows, "aa_homes_fps"),
-                      (kmer_windows, "dna_homes_fps"),
-                      (tilejoin, "probe_answer"),
+    for mod, name in ((tilejoin, "probe_answer"),
                       (shard_probe, "shard_probe")):
         monkeypatch.setattr(mod, name, refused)
     entry = "first_event" if mesh_shape is None else "shard_first_match"

@@ -673,7 +673,7 @@ def test_cuda_streaming_stream_lookup_matches_cpu(cuda_device):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
     c = counters[str(cuda_device)]
     assert c["stream.bytes_up"] == 8 * c["stream.queries"] == 8 * len(values)
-    assert c["stream.pinned_passes"] == c["stream.passes"] == 3
+    assert c["stream.passes"] == 3
     assert {"stream.overflow_queries", "stream.fallback_queries"} <= set(c)
     # a scatter launch a chunk, a resolve launch a chunk
     assert (stream_tiles.scatter_launches - launches[0],
@@ -686,9 +686,8 @@ def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
     (their staging page-locked), beside the resident empty-distance plane
     and k-mer column; the device scatter of a batch is a valid split and a
     pass over its tiles gives the twin's answers; and a two-pass front end
-    (the tail pass at finish) gives the one-shot lookup's hits, every pass
-    counted as page-locked, 8 B a query up, with both sets back and zero
-    after it."""
+    (the tail pass at finish) gives the one-shot lookup's hits, 8 B a query
+    up, with both sets back and zero after it."""
     from kmergutsjava_tpu_torch.constants import MAX_ENCODED
     from kmergutsjava_tpu_torch.formats.kmer_table import build_table
     from kmergutsjava_tpu_torch.lookup.stream import (StreamingStreamLookup,
@@ -708,7 +707,6 @@ def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
     pos = np.arange(len(values), dtype=np.int64)
     lk = StreamLookup(table, device=str(cuda_device))
     for s in lk._sets.sets:
-        assert s.pinned
         for t in (s.tiles, s.occ, s.answers, s.counts):
             assert t.device.type == "cuda"
     assert lk.fe.device.type == lk.hk.device.type == "cuda"
@@ -734,8 +732,7 @@ def test_cuda_stream_pass_sets_pinned_and_exact(cuda_device):
         two = st.finish()
         st.close()
     counters = timing.recent_runs()[-1]["counters"]
-    assert st.passes == counters["stream.pinned_passes"] == 2
-    assert counters["stream.passes"] == 2
+    assert st.passes == counters["stream.passes"] == 2
     assert counters["stream.fresh_sets"] == 0
     # only the values cross the link up: no tile
     assert counters["stream.bytes_up"] == 8 * len(values)
@@ -1026,6 +1023,7 @@ def test_cuda_tjgather_empty_launch(cuda_device):
 # --- the k-mer window kernel (csrc/kmer_windows.cu, ops/kmer_windows.py) ---
 
 from kmergutsjava_tpu_torch.ops import kmer_windows  # noqa: E402
+from kmergutsjava_tpu_torch.parallel import fused_probe  # noqa: E402
 
 AA_BYTES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY" * 4 + b"acdwyXBZJUO*-.",
                          np.uint8)
@@ -1066,40 +1064,33 @@ def _kw_windowed(length, win_nt, seed):
 
 KW_CASES = [("aa", 1, 8), ("aa", 5, 9), ("aa", 33, 256), ("aa", 7, 1100),
             ("dna", 1, 24), ("dna", 6, 256), ("dna", 9, 301),
-            ("dna", 3, 3000), ("windowed", 1200, 150),
-            ("windowed", 40_000, 12288)]
+            ("dna", 3, 3000), ("windowed", 1200, 150)]
 
 
-def _kw_call(case, num_sigs, device, values=False):
-    """One entry of the wrapper on ``device`` for a KW_CASES case."""
+def _kw_call(case, num_sigs):
+    """The window twin (``windows_reference``) on a KW_CASES case."""
     kind, x, y = case
     if kind == "windowed":
-        a, lens, rm, os_, oe = (torch.from_numpy(t).to(device)
-                                for t in _kw_windowed(x, y, seed=x))
-        return kmer_windows.dna_homes_fps(a, lens, num_sigs, rm, os_, oe)
+        a, lens, *extra = map(torch.from_numpy, _kw_windowed(x, y, seed=x))
+        return kmer_windows.windows_reference(a, lens, False, num_sigs,
+                                              *extra)
     mat, counts = _kw_rows(kind == "aa", x, y, seed=x * 1000 + y)
-    a, c = torch.from_numpy(mat).to(device), torch.from_numpy(counts).to(
-        device)
-    if values:
-        return kmer_windows.window_values(a, c, kind == "aa")
-    if kind == "aa":
-        return kmer_windows.aa_homes_fps(a, c, num_sigs)
-    return kmer_windows.dna_homes_fps(a, c, num_sigs)
+    return kmer_windows.windows_reference(
+        torch.from_numpy(mat), torch.from_numpy(counts), kind == "aa",
+        num_sigs)
 
 
-@pytest.mark.parametrize("case", KW_CASES[:9])
+@pytest.mark.parametrize("case", KW_CASES)
 def test_kmer_windows_cpu_runs_twin_and_counts_no_launch(case):
-    """On the CPU each entry is the twin and launches nothing; a window
-    that is not valid has home -1, fingerprint 0, value -1, and valid
-    windows carry the residues of their values."""
-    before = kmer_windows.launches
-    homes, fps = _kw_call(case, 1_000_003, "cpu")
-    assert kmer_windows.launches == before
+    """The window twin (the fused kernel's windows, the ragged entry's
+    values): a window that is not valid has home -1, fingerprint 0, value
+    -1, and valid windows carry the residues of their values."""
+    homes, fps = _kw_call(case, 1_000_003)
     assert homes.dtype == torch.int32 and fps.dtype == torch.uint16
     bad = homes < 0
     assert (homes[bad] == -1).all() and (fps.view(torch.int16)[bad] == 0).all()
     if case[0] != "windowed":
-        values = _kw_call(case, None, "cpu", values=True)
+        values = _kw_call(case, None)
         assert torch.equal(values < 0, bad)
         ok = ~bad
         assert torch.equal(homes[ok].long(), values[ok] % 1_000_003)
@@ -1111,6 +1102,8 @@ def test_kmer_windows_cpu_runs_twin_and_counts_no_launch(case):
                                  "counts_i64", "counts_short", "ns0",
                                  "ns_big", "rowmap_alone", "rowmap_shape"])
 def test_kmer_windows_wrapper_rejects_bad_inputs(bad):
+    """The window checks (``kmer_windows._check``) as the fused entry makes
+    them."""
     a = torch.zeros((4, 30), dtype=torch.uint8)
     c = torch.zeros(4, dtype=torch.int32)
     six = torch.zeros((4, 6), dtype=torch.int32)
@@ -1136,7 +1129,8 @@ def test_kmer_windows_wrapper_rejects_bad_inputs(bad):
         extra = {"row_map": six[:, :5].contiguous(), "own_start": six,
                  "own_end": six}
     with pytest.raises(tilejoin.KernelError):
-        kmer_windows.dna_homes_fps(a, c, ns, **extra)
+        fused_probe.first_event(torch.zeros(200, dtype=torch.uint16), a, c,
+                                False, ns, 8, **extra)
 
 
 def test_kmer_windows_reciprocal_is_exact():
@@ -1156,46 +1150,6 @@ def test_kmer_windows_reciprocal_is_exact():
         for v in vs:
             assert (v * m >> 64) >> 2 == v // d, (v, d)
     assert kmer_windows.reciprocal(4) == 0  # the kernel's plain % below 5
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", KW_CASES)
-def test_cuda_kmer_windows_match_twin(cuda_device, case):
-    """Each entry's kernel against the twin, every output equal, at a
-    small table (num_sigs 11 and 4, the plain % path) and a large one."""
-    for ns in (4, 11, 40_009_777):
-        before = kmer_windows.launches
-        got = _kw_call(case, ns, cuda_device)
-        torch.cuda.synchronize()
-        assert kmer_windows.launches == before + 1
-        want = _kw_call(case, ns, "cpu")
-        assert torch.equal(got[0].cpu(), want[0])
-        assert torch.equal(got[1].cpu().view(torch.int16),
-                           want[1].view(torch.int16))
-    if case[0] != "windowed":
-        got = _kw_call(case, None, cuda_device, values=True)
-        assert torch.equal(got.cpu(), _kw_call(case, None, "cpu",
-                                               values=True))
-
-
-@pytest.mark.cuda
-def test_cuda_kmer_windows_empty_and_device_checks(cuda_device):
-    """No window (Lpad < 8, or no rows) launches nothing; inputs on two
-    devices raise KernelError."""
-    before = kmer_windows.launches
-    for shape in ((3, 7), (0, 64)):
-        a = torch.zeros(shape, dtype=torch.uint8, device=cuda_device)
-        c = torch.zeros(shape[0], dtype=torch.int32, device=cuda_device)
-        h, f = kmer_windows.aa_homes_fps(a, c, 101)
-        assert h.numel() == 0
-    h, f = kmer_windows.dna_homes_fps(
-        torch.zeros((2, 23), dtype=torch.uint8, device=cuda_device),
-        torch.zeros(2, dtype=torch.int32, device=cuda_device), 101)
-    assert h.shape == (2, 6, 0) and kmer_windows.launches == before
-    with pytest.raises(tilejoin.KernelError):
-        kmer_windows.aa_homes_fps(
-            torch.zeros((2, 30), dtype=torch.uint8, device=cuda_device),
-            torch.zeros(2, dtype=torch.int32), 101)
 
 
 # the ragged entry (--prepare jax): unpadded rows, compacted windows
@@ -1236,9 +1190,9 @@ def _ragged_rows(kind, case):
 @pytest.mark.parametrize("kind,case", RAGGED_CASES)
 def test_ragged_values_twin_is_padded_entry_compacted(kind, case):
     """On the CPU the ragged entry is its twin and launches nothing; its
-    windows are the padded values entry's valid ones (every row padded to
-    one width), in np.nonzero's order, and its counts theirs a container
-    (a row, or a row's frame)."""
+    windows are the valid ones of the window twin's values (every row
+    padded to one width), in np.nonzero's order, and its counts theirs a
+    container (a row, or a row's frame)."""
     data, bounds = _ragged_rows(kind, case)
     aa = kind == "aa"
     before = kmer_windows.ragged_launches
@@ -1252,7 +1206,7 @@ def test_ragged_values_twin_is_padded_entry_compacted(kind, case):
     mat = np.zeros((len(lens), width), np.uint8)
     for r, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
         mat[r, :b - a] = data[a:b]
-    padded = kmer_windows.window_values(
+    padded = kmer_windows.windows_reference(
         torch.from_numpy(mat), torch.from_numpy(
             (lens - 8 if aa else lens).astype(np.int32)), aa).numpy()
     nz = np.nonzero(padded >= 0)
@@ -1349,8 +1303,6 @@ def test_cuda_ragged_values_many_tiles_match_twin(cuda_device, kind):
 
 
 # --- the fused step's kernel (csrc/fused_probe.cu, parallel/fused_probe.py) --
-
-from kmergutsjava_tpu_torch.parallel import fused_probe  # noqa: E402
 
 
 def _fused_rows(kind, b, lpad, seed):
@@ -1651,12 +1603,10 @@ def test_cuda_fused_step_decodes_to_twin_hits(cuda_device, aa):
     hits = {}
     for dev in (cuda_device, torch.device("cpu")):
         step, planes = make(table, pw, dev)
-        before = (fused_probe.launches, kmer_windows.launches,
-                  tilejoin.launches)
+        before = (fused_probe.launches, tilejoin.launches)
         answer, shape = step(planes["fp"], mat, lens)
-        assert (fused_probe.launches, kmer_windows.launches,
-                tilejoin.launches) == (
-            (before[0] + 1, *before[1:]) if dev.type == "cuda" else before)
+        assert (fused_probe.launches, tilejoin.launches) == (
+            (before[0] + 1, before[1]) if dev.type == "cuda" else before)
         # off and state views (the bytes between them are not written)
         hits[dev.type] = [v.clone() for v in tilejoin.answer_views(
             answer.cpu(), int(np.prod(shape)))]
@@ -2018,13 +1968,11 @@ def test_cuda_spmd_mesh_step_matches_cpu(cuda_device, aa, placement):
                 else _placement(cuda_device, placement))
         m = mesh.make_mesh(2, 2, devs)
         step, planes = make(m, table, pw)
-        before = (fused_probe.launches, kmer_windows.launches,
-                  shard_probe.launches)
+        before = (fused_probe.launches, shard_probe.launches)
         got[dev] = step(planes["fp"], mat, lens).read()
         assert (fused_probe.launches - before[0],
-                kmer_windows.launches - before[1],
-                shard_probe.launches - before[2]) == (
-            (0, 0, 0) if dev == "cpu" else (4, 0, 0))
+                shard_probe.launches - before[1]) == (
+            (0, 0) if dev == "cpu" else (4, 0))
     assert int((got["cpu"] > 0).sum()) > 1000
     np.testing.assert_array_equal(got["cuda"], got["cpu"])
 

@@ -112,16 +112,17 @@ def _marked(homes, fps, ok):
 
 @pytest.mark.parametrize("lpad", [8, 9, 256, 700])
 def test_twin_aa_rows_equal_jax_step(lpad):
-    """The aa entry's twin: the JAX step's encode and residues (num_starts
-    = lengths - 8), windows that are not valid marked home -1."""
+    """The window twin on aa rows (the fused kernel's windows): the JAX
+    step's encode and residues (num_starts = lengths - 8), windows that are
+    not valid marked home -1."""
     rng = np.random.default_rng(lpad)
     lens = np.array([0, 3, 8, 9, lpad, *rng.integers(0, lpad + 1, 5)])
     mat = rng.choice(AA, (len(lens), lpad)).astype(np.uint8)
     mat[0] = rng.integers(0, 256, lpad)
     mat[np.arange(lpad)[None, :] >= lens[:, None]] = 0
     ns = 1_000_003
-    h, f = kmer_windows.aa_homes_fps(_t(mat), _t((lens - 8).astype(np.int32)),
-                                     ns)
+    h, f = kmer_windows.windows_reference(
+        _t(mat), _t((lens - 8).astype(np.int32)), True, ns)
     offs = jax_encode.aa_offsets(jnp.asarray(mat))
     jh, jf, jok = _window_homes_qfp(offs, jnp.asarray(lens - 8), ns)
     wh, wf = _marked(np.asarray(jh), np.asarray(jf), np.asarray(jok))
@@ -131,13 +132,14 @@ def test_twin_aa_rows_equal_jax_step(lpad):
 
 @pytest.mark.parametrize("lpad", [24, 256, 301])
 def test_twin_dna_rows_equal_jax_step(lpad):
-    """The DNA entry's twin: the JAX step's translation (vmapped) and
-    residues with num_starts = max(len//3 - 7, 0)."""
+    """The window twin on DNA rows: the JAX step's translation (vmapped)
+    and residues with num_starts = max(len//3 - 7, 0)."""
     rng = np.random.default_rng(lpad + 1)
     lens = np.array([0, 5, 23, 24, 25, lpad, *rng.integers(0, lpad + 1, 4)])
     mat = _nt_rows(rng, lpad, lens)
     ns = 40_009_777
-    h, f = kmer_windows.dna_homes_fps(_t(mat), _t(lens.astype(np.int32)), ns)
+    h, f = kmer_windows.windows_reference(_t(mat), _t(lens.astype(np.int32)),
+                                          False, ns)
     frames = jax.vmap(jax_translate)(jnp.asarray(mat), jnp.asarray(lens))
     b, _, m = frames.shape
     starts = jnp.repeat(jnp.maximum(jnp.asarray(lens) // 3 - 7, 0), 6)
@@ -151,8 +153,8 @@ def test_twin_dna_rows_equal_jax_step(lpad):
 @pytest.mark.parametrize("length,win_nt", [(40, 48), (700, 150),
                                            (2000, 99), (5003, 300)])
 def test_twin_windowed_rows_equal_jax_window_probe(length, win_nt):
-    """The windowed DNA entry's twin: the JAX ``_window_probe``'s frame
-    selection by row_map and ownership mask."""
+    """The window twin on a long contig's windows: the JAX
+    ``_window_probe``'s frame selection by row_map and ownership mask."""
     rng = np.random.default_rng(length)
     seq = rng.choice(NT, length).astype(np.uint8)
     plan = seq_windows.plan_windows(length, win_nt)
@@ -163,8 +165,8 @@ def test_twin_windowed_rows_equal_jax_window_probe(length, win_nt):
     ns = 1_000_003
     i32 = [plan[k].astype(np.int32) for k in ("len_w", "row_map",
                                                "own_start", "own_end")]
-    h, f = kmer_windows.dna_homes_fps(_t(a), *map(_t, i32[:1]), ns,
-                                      *map(_t, i32[1:]))
+    h, f = kmer_windows.windows_reference(_t(a), _t(i32[0]), False, ns,
+                                          *map(_t, i32[1:]))
     frames = jax.vmap(jax_translate)(jnp.asarray(a), jnp.asarray(i32[0]))
     sel = np.take_along_axis(np.asarray(frames), i32[1][:, :, None], axis=1)
     m = sel.shape[2]
@@ -182,22 +184,22 @@ def test_twin_windowed_rows_equal_jax_window_probe(length, win_nt):
 
 @pytest.mark.parametrize("aa", [True, False])
 def test_twin_values_entry_equals_jax_prepare_math(aa):
-    """The values entry's twin: the JAX prepare's ``kmer_windows`` values
-    where valid, -1 elsewhere."""
+    """The window twin's values (the ragged entry's, before compaction):
+    the JAX prepare's ``kmer_windows`` values where valid, -1 elsewhere."""
     rng = np.random.default_rng(7)
     lpad = 192
     lens = np.array([0, 7, 30, 100, lpad, 191])
     if aa:
         mat = rng.choice(AA, (len(lens), lpad)).astype(np.uint8)
         mat[np.arange(lpad)[None, :] >= lens[:, None]] = 0
-        got = kmer_windows.window_values(_t(mat),
-                                         _t((lens - 8).astype(np.int32)), True)
+        got = kmer_windows.windows_reference(
+            _t(mat), _t((lens - 8).astype(np.int32)), True)
         v, ok = jax_kmer_windows(jax_encode.aa_offsets(jnp.asarray(mat)),
                                  jnp.asarray(lens - 8))
     else:
         mat = _nt_rows(rng, lpad, lens)
-        got = kmer_windows.window_values(_t(mat), _t(lens.astype(np.int32)),
-                                         False)
+        got = kmer_windows.windows_reference(
+            _t(mat), _t(lens.astype(np.int32)), False)
         frames = jax.vmap(jax_translate)(jnp.asarray(mat), jnp.asarray(lens))
         starts = jnp.maximum(jnp.asarray(lens) // 3 - 7, 0)
         v, ok = jax_kmer_windows(frames, starts[:, None] * jnp.ones(

@@ -37,20 +37,18 @@ COMMON = {"cli.main", "cli.imports", "table.read", "lookup.build",
 # DNA through the numpy prepare feeds a batch a frame, so a small -l makes
 # the stream front end run several plane passes
 SEVERAL_PASSES = ("--prepare", "numpy", "-l", "10000")
-# counters that may read 0 on the CPU: its pass sets are not page-locked,
-# the pool is never short, a pass may end before the next chunk, and a
-# small table may send no query past its home's channels or to the
-# full-window scan
-MAY_BE_ZERO = {"stream.pinned_passes", "stream.overlap_queries",
-               "stream.fresh_sets", "stream.overflow_queries",
-               "stream.fallback_queries"}
+# counters that may read 0 on the CPU: the pool is never short, a pass may
+# end before the next chunk, and a small table may send no query past its
+# home's channels or to the full-window scan
+MAY_BE_ZERO = {"stream.overlap_queries", "stream.fresh_sets",
+               "stream.overflow_queries", "stream.fallback_queries"}
 FRONT_ENDS = {
     "stream": ({"stream.scatter", "stream.pass", "stream.upload",
                 "stream.readback", "stream.decode", "stream.reset",
                 "stream.set_wait", "engine.worker_wait"},
                {"stream.passes", "stream.queries", "stream.bytes_up",
-                "stream.bytes_down", "stream.pinned_passes",
-                "stream.overlap_queries", "stream.fresh_sets",
+                "stream.bytes_down", "stream.overlap_queries",
+                "stream.fresh_sets",
                 "stream.overflow_queries", "stream.fallback_queries"}),
     "xla": ({"sparse.dispatch", "sparse.resolve", "sparse.verify"},
             {"sparse.bytes_up", "sparse.bytes_down"}),
@@ -228,7 +226,6 @@ def test_engine_run_leaves_its_spans_and_counters(corpus, tmp_path,
         assert passes >= 2 and rec["spans"]["stream.pass"]["calls"] == passes
         # every pass's set is zeroed in the run's record, the last one's too
         assert rec["spans"]["stream.reset"]["calls"] == passes
-        assert rec["counters"]["stream.pinned_passes"] == 0
         assert rec["counters"]["stream.fresh_sets"] == 0
         assert 0 <= rec["counters"]["stream.overlap_queries"] <= \
             rec["counters"]["stream.queries"]
