@@ -281,6 +281,44 @@ class PassSetPool:
                 self._free.append(s)
 
 
+class ColumnPool:
+    """Host columns a stream front end lends the prepare to write a chunk's
+    queries into: value, container and position, int64 each, page-locked
+    values on CUDA (the upload then needs no staging copy). A buffer comes
+    back once the pass that holds its chunk is decoded, and is lent again,
+    so in the steady state no chunk allocates host memory. Capacities are
+    powers of two; ``take`` lends the smallest free buffer that holds the
+    chunk, else a fresh one (counted in ``stream.fresh_columns``); at most
+    ``KEEP`` free buffers are kept, the largest."""
+
+    KEEP = 8
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self._lock = threading.Lock()
+        self._free: list = []
+
+    def take(self, n: int) -> tuple:
+        with self._lock:
+            fits = [i for i, b in enumerate(self._free) if len(b[0]) >= n]
+            if fits:
+                count("stream.fresh_columns", 0)
+                return self._free.pop(
+                    min(fits, key=lambda i: len(self._free[i][0])))
+        count("stream.fresh_columns", 1)
+        cap = 1 << max(n - 1, 1).bit_length()
+        values = torch.empty(cap, dtype=torch.int64,
+                             pin_memory=self.pinned).numpy()
+        return (values, np.empty(cap, dtype=np.int64),
+                np.empty(cap, dtype=np.int64))
+
+    def give_back(self, bufs) -> None:
+        with self._lock:
+            self._free.extend(b for b in bufs if b is not None)
+            self._free.sort(key=lambda b: -len(b[0]))
+            del self._free[self.KEEP:]
+
+
 class StreamLookup:
     """Dense-regime lookup: slot-major query tiles against one pass over the
     device-resident fingerprint plane. Same exact-result contract as the
@@ -294,8 +332,10 @@ class StreamLookup:
     plane pass (``_pass``), and the host builds the hit columns from the
     compacted hits that come back (``_decode``). The sharded lookup
     (``parallel/stream_shards.py``) overrides these three with its host
-    stages.
+    stages, and has no ``columns`` to lend.
     """
+
+    columns: Optional[ColumnPool] = None
 
     def __init__(self, table: KmerTable, probe_window: Optional[int] = None,
                  device: str = "cuda", channels: int = CHANNELS):
@@ -343,6 +383,7 @@ class StreamLookup:
             self.fp = torch.from_numpy(fp).to(self.device)
             self.fe = torch.from_numpy(self.fe_plane).to(self.device)
             self.hk = torch.from_numpy(self._exact.host_kmer).to(self.device)
+        self.columns = ColumnPool(pinned=self.device.type == "cuda")
 
     def _new_set(self, pooled: bool) -> PassSet:
         """A zeroed pass set on the lookup's device."""
@@ -364,18 +405,22 @@ class StreamLookup:
 
     def _scatter_into(self, s: PassSet, values: np.ndarray) -> tuple:
         """Scatter one chunk's queries into set ``s``: the columns its pass
-        needs besides (values, cnt, pos): the values staged and sent up
-        without blocking (``stream.upload``) and one scatter launch; returns
-        (device values, device results, each query's channel until the pass
-        resolves it)."""
+        needs besides (values, cnt, pos): the values sent up without
+        blocking (``stream.upload``; first staged in page-locked memory
+        unless they are there already, ``stream.staged_queries``) and one
+        scatter launch; returns (device values, device results, each
+        query's channel until the pass resolves it)."""
         s.dirty = True
         with span("stream.scatter"), on_stream(self._stream), \
                 _device_fault("scatter", "stream scatter"):
             with span("stream.upload"):
                 dv = torch.from_numpy(values)
                 if self.device.type == "cuda":
-                    dv = self._staged(len(values), torch.int64).copy_(dv).to(
-                        self.device, non_blocking=True)
+                    staged = not dv.is_pinned()
+                    count("stream.staged_queries", len(values) * staged)
+                    if staged:
+                        dv = self._staged(len(values), torch.int64).copy_(dv)
+                    dv = dv.to(self.device, non_blocking=True)
             res = torch.empty(len(values), dtype=torch.int32,
                               device=self.device)
             scatter_tiles(dv, s.tiles, s.occ, res, self.num_sigs)
@@ -527,6 +572,11 @@ class StreamingStreamLookup:
     Memory stays within what one pass in flight and the feed's
     ``FEED_CHUNKS`` queued chunks hold: a chunk scattered while a pass is
     in flight keeps its place among those until no pass is in flight.
+
+    Over a lookup with ``columns`` (the single-card one) the front end
+    lends the prepare each chunk's host columns (``query_columns``) and
+    gives them back to the lookup's pool once the chunk's pass is decoded;
+    over the sharded lookup it lends none.
     """
 
     _FLUSH = object()  # queue marker: run one bounded-memory pass
@@ -542,6 +592,10 @@ class StreamingStreamLookup:
         self._set: Optional[PassSet] = lk._sets.take()  # being scattered
         self._owned = [self._set]  # every set this front end took
         self._chunks: list = []   # per chunk: (v, cnt, pos, *_scatter_into)
+        self._bufs: list = []     # per chunk: its lent columns, or None
+        self._lent: dict = {}     # values' address -> columns not yet fed
+        if lk.columns is None:  # the sharded lookup: the prepare's own
+            self.query_columns = None
         self._pending = 0         # queries scattered into _set
         self._results: list = []  # per pass handed off: its Future
         self.passes = 0           # plane passes run
@@ -586,7 +640,7 @@ class StreamingStreamLookup:
         self._worker = threading.Thread(target=drain, daemon=True)
         self._worker.start()
 
-    def _scatter_chunk(self, values, cnt, pos) -> None:
+    def _scatter_chunk(self, values, cnt, pos, buf) -> None:
         if self._set is None:
             self._set = self._next_set()
         with self._lock:
@@ -596,6 +650,7 @@ class StreamingStreamLookup:
             self._slots.release()
         self._chunks.append(
             (values, cnt, pos, *self.lk._scatter_into(self._set, values)))
+        self._bufs.append(buf)
         self._pending += len(values)
         count("stream.overlap_queries", len(values) if beside else 0)
 
@@ -624,9 +679,10 @@ class StreamingStreamLookup:
         with self._lock:
             self._in_flight += 1
         self._results.append(done)
-        self._pass_q.put((self._set, self._chunks, self._pending, done))
+        self._pass_q.put((self._set, self._chunks, self._bufs, self._pending,
+                          done))
         self.passes += 1
-        self._set, self._chunks, self._pending = None, [], 0
+        self._set, self._chunks, self._bufs, self._pending = None, [], [], 0
 
     def _run_pass(self, s: PassSet, chunks, n: int):
         """One plane pass over the ``n`` queries of ``chunks`` in set
@@ -641,14 +697,17 @@ class StreamingStreamLookup:
 
     def _pass_loop(self) -> None:
         """The pass thread: each pass handed off, in order (the pass resets
-        its set), then the set back to the worker."""
+        its set), then the set back to the worker and, once decoded, its
+        chunks' columns back to the pool."""
         while True:
             job = self._pass_q.get()
             if job is None:
                 return
-            s, chunks, n, done = job
+            s, chunks, bufs, n, done = job
             try:
-                done.set_result(self._run_pass(s, chunks, n))
+                got = self._run_pass(s, chunks, n)
+                self._give_back(bufs)
+                done.set_result(got)
             except BaseException as ex:  # surfaced at finish()
                 done.set_exception(ex)
             finally:
@@ -656,7 +715,16 @@ class StreamingStreamLookup:
                 if s.dirty:
                     s.zero()
                 self._spare.put(s)
-                job = chunks = None  # the chunks' device buffers
+                job = chunks = bufs = None  # the chunks' buffers
+
+    def _give_back(self, bufs=None) -> None:
+        """A decoded pass's lent columns (the tail pass's without
+        ``bufs``), back to the lookup's pool: its values went up before its
+        pass ended, and its hits are copies."""
+        if bufs is None:
+            bufs, self._bufs = self._bufs, []
+        if self.lk.columns is not None:
+            self.lk.columns.give_back(bufs)
 
     def _pass_ended(self) -> None:
         """A pass is decoded: once none is in flight, the chunks scattered
@@ -693,6 +761,16 @@ class StreamingStreamLookup:
                     break
         self._queue.put(item)
 
+    def query_columns(self, n: int) -> tuple:
+        """Three int64 columns of ``n`` rows (value, container, position)
+        for the prepare to write a chunk into and then feed through
+        ``add_batch``, which takes them with no copy: buffers of the
+        lookup's pool (``ColumnPool``), the values page-locked on CUDA."""
+        buf = self.lk.columns.take(n)
+        cols = tuple(c[:n] for c in buf)
+        self._lent[cols[0].ctypes.data] = buf
+        return cols
+
     def add_batch(self, values: np.ndarray, cnt_id, pos: np.ndarray) -> None:
         values = np.ascontiguousarray(values, dtype=np.int64)
         n = len(values)
@@ -703,7 +781,8 @@ class StreamingStreamLookup:
         pos = np.ascontiguousarray(pos, dtype=np.int64)
         self.total_fed += n
         self._since_flush += n
-        self._put_checked((values, cnt, pos))
+        self._put_checked((values, cnt, pos,
+                           self._lent.pop(values.ctypes.data, None)))
         if self.flush_limit and self._since_flush >= self.flush_limit:
             # the pass queues behind the pending chunks: the pass thread
             # probes and decodes while the worker scatters on and this
@@ -739,8 +818,10 @@ class StreamingStreamLookup:
                     out = self.lk._pass(self._set, self._chunks,
                                         self._pending)
                     self.passes += 1
-                    return self.lk._decode(out, self._chunks, self._pending,
+                    hits = self.lk._decode(out, self._chunks, self._pending,
                                            progress, self.compute_kmers_found)
+                self._give_back()
+                return hits
             # several passes: the tail beside the pass thread, then every
             # pass's hits in pass order
             tail = []
@@ -748,6 +829,7 @@ class StreamingStreamLookup:
                 self.passes += 1
                 tail.append(self._run_pass(self._set, self._chunks,
                                            self._pending))
+                self._give_back()
             with span("engine.worker_wait"):
                 done = [d.result() for d in self._results] + tail
         finally:

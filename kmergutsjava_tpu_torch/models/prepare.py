@@ -22,6 +22,7 @@ from ..constants import (AA_OFF_LUT, CODON_AA_OFF, COMPL_DNA_CODE_LUT,
                          DNA_CODE_LUT, INVALID_AA, K)
 from ..formats.fasta import FastaRecord
 from ..lookup.store import QueryKmerStore
+from ..utils.timing import count, span
 
 ContainerKey = Tuple[str, str, int]  # (query_id, strand, frame)
 
@@ -31,7 +32,7 @@ class Prepared:
 
     Two construction styles: the record-iterator prepare paths append one
     key per container via new_container; the bulk path registers whole
-    records (add_record) and synthesizes the key list LAZILY — container
+    records (add_records) and synthesizes the key list LAZILY — container
     ids are dense per record in the fixed reference order (+0 +1 +2 -0 -1
     -2 for DNA, ref :1064-1072; one +0 per protein, ref :1059), so the
     fully-native report path never needs the 6-tuples-per-read list at
@@ -73,6 +74,16 @@ class Prepared:
         self._rec_ids.append(query_id)
         self.id_len[query_id] = length
         return base
+
+    def add_records(self, ids: List[str], lengths: List[int]) -> None:
+        """Bulk path: register records in file order, as add_record one at
+        a time would (a repeated id keeps its first place in id_len and
+        takes its last length)."""
+        if self._containers is not None:
+            raise RuntimeError("add_records after containers were "
+                               "materialized; register all records first")
+        self._rec_ids.extend(ids)
+        self.id_len.update(zip(ids, lengths))
 
 
 def _seq_to_ascii(seq: str) -> np.ndarray:
@@ -401,6 +412,35 @@ def prepare_dna_numpy(records: Iterable[FastaRecord],
     return prep
 
 
+def feed_chunk(lib, aa: bool, blob: np.ndarray, starts: np.ndarray,
+               lens: np.ndarray, first_cid: int, store) -> None:
+    """One chunk through the native feeder (``native/feeder.cpp``): the
+    records ``blob[starts[r]:starts[r] + lens[r]]``, record r's containers
+    from ``first_cid + frames * r``. The count pass sizes the chunk's three
+    int64 columns (value, container, position); they come from the
+    store's ``query_columns(n)`` where it has one (memory the front end
+    owns and reuses), else fresh; the write pass fills them, and the store
+    takes them as they are."""
+    nrec = len(lens)
+    with span("prepare.encode"):
+        counts = np.empty(nrec, dtype=np.int64)
+        n = int(lib.feeder_count(aa, blob, starts, lens, nrec, counts))
+        if n == 0:
+            return
+        lend = getattr(store, "query_columns", None)
+        cols = (lend(n) if lend is not None else
+                tuple(np.empty(n, dtype=np.int64) for _ in range(3)))
+        if [len(c) for c in cols] != [n] * 3:
+            raise ValueError(f"columns of {[len(c) for c in cols]} rows "
+                             f"for {n} queries")
+        if lib.feeder_write(aa, blob, starts, lens, nrec, counts, first_cid,
+                            *cols) != n:
+            raise RuntimeError("the feeder's write pass wrote other than "
+                               "its count pass counted")
+    count("prepare.direct_queries", n if lend is not None else 0)
+    store.add_batch(*cols)
+
+
 def _prepare_native(records: Iterable[FastaRecord], store: QueryKmerStore,
                     aa: bool, flush_chars: int = 8_000_000):
     """C++ feeder path (native/feeder.cpp via ctypes).
@@ -413,45 +453,26 @@ def _prepare_native(records: Iterable[FastaRecord], store: QueryKmerStore,
         return None
     prep = Prepared()
     seqs: List[np.ndarray] = []
-    cid0: List[int] = []
+    first_cid = 0
     pending = 0
 
     def flush():
-        nonlocal seqs, cid0, pending
+        nonlocal seqs, pending
         if not seqs:
             return
-        nrec = len(seqs)
-        lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=nrec)
+        lens = np.fromiter((len(s) for s in seqs), dtype=np.int64,
+                           count=len(seqs))
         starts = np.concatenate([[0], np.cumsum(lens)])[:-1]
-        blob = np.concatenate(seqs) if nrec > 1 else seqs[0]
-        blob = np.ascontiguousarray(blob)
-        total = int(lens.sum())
-        max_len = int(lens.max())
-        if aa:
-            cnt_ids = np.asarray(cid0, dtype=np.int64)
-            cap = total
-            scratch = np.empty(max(max_len, 1), dtype=np.uint8)
-            fn = lib.feeder_aa
-        else:
-            cnt_ids = (np.asarray(cid0, dtype=np.int64)[:, None]
-                       + np.arange(6, dtype=np.int64)).reshape(-1)
-            cap = 2 * total + 6 * nrec
-            scratch = np.empty(max(2 * max_len, 2), dtype=np.uint8)
-            fn = lib.feeder_dna
-        out_v = np.empty(max(cap, 1), dtype=np.int64)
-        out_c = np.empty(max(cap, 1), dtype=np.int32)
-        out_p = np.empty(max(cap, 1), dtype=np.int32)
-        n = int(fn(blob, np.ascontiguousarray(starts),
-                   np.ascontiguousarray(lens), nrec, cnt_ids, scratch, out_v,
-                   out_c, out_p))
-        store.add_batch(out_v[:n], out_c[:n].astype(np.int64), out_p[:n])
-        seqs, cid0, pending = [], [], 0
+        blob = np.ascontiguousarray(np.concatenate(seqs))
+        feed_chunk(lib, aa, blob, starts, lens, first_cid, store)
+        seqs, pending = [], 0
 
     keys = ([("+", 0)] if aa else
             [(s, f) for s in ("+", "-") for f in range(3)])
     for rec in records:
         cids = [prep.new_container((rec.id, s, f)) for s, f in keys]
-        cid0.append(cids[0])
+        if not seqs:
+            first_cid = cids[0]
         prep.id_len[rec.id] = len(rec.seq)
         seqs.append(_seq_to_ascii(rec.seq))
         pending += len(rec.seq)
@@ -473,23 +494,27 @@ def try_prepare_bulk(query, query_stream, store, aa: bool,
                      flush_chars: int = 8_000_000):
     """Fully-native prepare: the bulk FASTA parse result feeds the native
     feeder DIRECTLY — sequence bytes stay in the parser's single output
-    buffer (the feeder takes absolute offsets into it), so no per-record
-    Python runs at all. Ids are materialized once from the buffer (the
-    report needs them); container keys synthesize lazily
-    (Prepared.add_record). Returns None — with ``query_stream`` left
-    unconsumed — when any native piece is missing or the input isn't
-    bulk-capable, so the caller falls back to the record-iterator paths.
+    buffer (the feeder takes absolute offsets into it), and no Python runs
+    per record: the ids are split from the buffer at once and registered
+    in one call (``prepare.register``), container keys synthesize lazily
+    (Prepared.add_records), and each chunk is counted, then written once
+    into its columns (``feed_chunk``, ``prepare.encode``). Returns None —
+    with ``query_stream`` left unconsumed — when any native piece is
+    missing or the input isn't bulk-capable, so the caller falls back to
+    the record-iterator paths.
 
     Byte-equivalent to prepare_{aa,dna}_native over read_fasta: same
     feeder, same container order, same chunk boundaries measured in
     sequence chars."""
-    from ..formats.fasta import read_fasta_bulk_arrays
+    from ..formats.fasta import bulk_ids, read_fasta_bulk_arrays
     from ..utils.native import load_feeder
 
     lib = load_feeder()
     if lib is None:
         return None
-    bulk = read_fasta_bulk_arrays(query if query is not None else query_stream)
+    with span("prepare.parse"):
+        bulk = read_fasta_bulk_arrays(query if query is not None
+                                      else query_stream)
     if bulk is None:
         return None
     frames = 1 if aa else 6
@@ -497,41 +522,18 @@ def try_prepare_bulk(query, query_stream, store, aa: bool,
     nrec = bulk.nrec
     if nrec == 0:
         return prep
-    text = bulk.buf.tobytes().decode("latin-1")
-    id_off = bulk.rec[:, 0]
-    id_len = bulk.rec[:, 1]
     s_off = np.ascontiguousarray(bulk.rec[:, 4])
     s_len = np.ascontiguousarray(bulk.rec[:, 5])
-    for i in range(nrec):
-        o = int(id_off[i])
-        prep.add_record(text[o:o + int(id_len[i])], int(s_len[i]))
+    with span("prepare.register"):
+        prep.add_records(bulk_ids(bulk), s_len.tolist())
     blob = np.ascontiguousarray(bulk.buf)
     # chunk by cumulative sequence chars (same budget as _prepare_native)
     cum = np.cumsum(s_len)
-    max_all = int(s_len.max())
-    scratch = np.empty(max(max_all if aa else 2 * max_all, 2), dtype=np.uint8)
     a = 0
     while a < nrec:
         base = cum[a - 1] if a else 0
         b = int(np.searchsorted(cum, base + flush_chars)) + 1
         b = min(b, nrec)
-        total = int(cum[b - 1] - base)
-        ridx = np.arange(a, b, dtype=np.int64)
-        if aa:
-            cnt_ids = ridx
-            cap = total
-            fn = lib.feeder_aa
-        else:
-            cnt_ids = (6 * ridx[:, None]
-                       + np.arange(6, dtype=np.int64)).reshape(-1)
-            cap = 2 * total + 6 * (b - a)
-            fn = lib.feeder_dna
-        out_v = np.empty(max(cap, 1), dtype=np.int64)
-        out_c = np.empty(max(cap, 1), dtype=np.int32)
-        out_p = np.empty(max(cap, 1), dtype=np.int32)
-        n = int(fn(blob, s_off[a:b], s_len[a:b], b - a,
-                   np.ascontiguousarray(cnt_ids), scratch, out_v, out_c,
-                   out_p))
-        store.add_batch(out_v[:n], out_c[:n].astype(np.int64), out_p[:n])
+        feed_chunk(lib, aa, blob, s_off[a:b], s_len[a:b], frames * a, store)
         a = b
     return prep

@@ -126,3 +126,18 @@ extern "C" int64_t parse_fasta(
         // current line (a '>' line) seeds the next caption seek
     }
 }
+
+// The ids of a parse's nrec records (rec as parse_fasta wrote it),
+// newline-joined into `out` (capacity: the ids' bytes plus nrec - 1; an
+// id holds no newline). Returns the bytes written.
+extern "C" int64_t join_ids(const uint8_t* buf, const int64_t* rec,
+                            int64_t nrec, uint8_t* out)
+{
+    int64_t w = 0;
+    for (int64_t r = 0; r < nrec; r++) {
+        if (r) out[w++] = '\n';
+        memcpy(out + w, buf + rec[6 * r], (size_t)rec[6 * r + 1]);
+        w += rec[6 * r + 1];
+    }
+    return w;
+}

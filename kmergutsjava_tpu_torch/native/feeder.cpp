@@ -9,13 +9,20 @@
 //     and full-window k-mers per frame row (bound i < len/3+1-K over the
 //     reference's buffer == all full windows of the len/3-long row).
 //
+// A chunk takes two calls. feeder_count counts each record's valid windows;
+// the caller sizes three int64 columns (value, container, position) at the
+// total and feeder_write fills them, each record at its exact offset, so
+// every query is written once, in its final type, into memory the caller
+// owns. Both passes share one window loop (a template), so the write pass
+// writes exactly what the count pass counted.
+//
 // Exactness is pinned by differential tests against the numpy feeder, which
 // is itself fuzzed against a scalar transcription of the Java code.
 //
 // Build: g++ -O3 -shared -fPIC -o feeder.so feeder.cpp
 
 #include <cstdint>
-#include <cstring>
+#include <memory>
 #include <vector>
 
 #include "threading.h"
@@ -63,13 +70,19 @@ struct Luts {
 };
 const Luts LUT;
 
-// Emit all valid windows over `offs[0..n)` with start < num_starts.
-// Returns records written (or stops silently at capacity; caller sizes
-// out_cap as n which is an upper bound).
+// The write pass's destination: the record's first row in each column
+// (unused by the count pass).
+struct Out {
+  int64_t* values;
+  int64_t* cnt;
+  int64_t* pos;
+};
+
+// Count (WRITE false) or write the valid windows over `offs[0..n)` with
+// start < num_starts; returns how many.
+template <bool WRITE>
 inline int64_t window_pass(const uint8_t* offs, int64_t n, int64_t num_starts,
-                           int64_t cnt_id, int64_t* out_values,
-                           int32_t* out_cnt, int32_t* out_pos,
-                           int64_t out_off) {
+                           int64_t cnt_id, const Out& out) {
   if (n < K || num_starts <= 0) return 0;
   int64_t written = 0;
   int64_t value = 0;
@@ -82,9 +95,11 @@ inline int64_t window_pass(const uint8_t* offs, int64_t n, int64_t num_starts,
   int64_t limit = num_starts < n - K + 1 ? num_starts : n - K + 1;
   for (int64_t i = 0;;) {
     if (invalid == 0) {
-      out_values[out_off + written] = value;
-      out_cnt[out_off + written] = (int32_t)cnt_id;
-      out_pos[out_off + written] = (int32_t)i;
+      if (WRITE) {
+        out.values[written] = value;
+        out.cnt[written] = cnt_id;
+        out.pos[written] = i;
+      }
       written++;
     }
     if (++i >= limit) break;
@@ -97,161 +112,168 @@ inline int64_t window_pass(const uint8_t* offs, int64_t n, int64_t num_starts,
   return written;
 }
 
-// One record range of the aa feeder; returns records written.
-int64_t feeder_aa_range(const uint8_t* seqs, const int64_t* rec_start,
-                        const int64_t* rec_len, int64_t r0, int64_t r1,
-                        const int64_t* cnt_ids, uint8_t* scratch,
-                        int64_t* out_values, int32_t* out_cnt,
-                        int32_t* out_pos) {
-  int64_t written = 0;
-  for (int64_t r = r0; r < r1; r++) {
-    const uint8_t* s = seqs + rec_start[r];
-    int64_t n = rec_len[r];
-    for (int64_t i = 0; i < n; i++) scratch[i] = LUT.aa_off[s[i]];
-    // reference quirk: strictly i < len - K
-    written += window_pass(scratch, n, n - K, cnt_ids[r], out_values,
-                           out_cnt, out_pos, written);
-  }
-  return written;
+inline Out advanced(const Out& o, int64_t by) {
+  return Out{o.values + by, o.cnt + by, o.pos + by};
 }
 
-int64_t feeder_dna_range(const uint8_t* seqs, const int64_t* rec_start,
-                         const int64_t* rec_len, int64_t r0, int64_t r1,
-                         const int64_t* cnt_ids, uint8_t* scratch,
-                         int64_t* out_values, int32_t* out_cnt,
-                         int32_t* out_pos) {
+// One record of the aa feeder, at `out`; returns its windows.
+template <bool WRITE>
+int64_t feed_aa(const uint8_t* s, int64_t n, int64_t cid, uint8_t* scratch,
+                const Out& out) {
+  for (int64_t i = 0; i < n; i++) scratch[i] = LUT.aa_off[s[i]];
+  // reference quirk: strictly i < len - K
+  return window_pass<WRITE>(scratch, n, n - K, cid, out);
+}
+
+// One record of the dna feeder, its six frame rows +0,+1,+2,-0,-1,-2
+// (containers cid .. cid+5) one after another from `out`; returns its
+// windows. scratch holds 2*n bytes.
+template <bool WRITE>
+int64_t feed_dna(const uint8_t* s, int64_t n, int64_t cid, uint8_t* scratch,
+                 const Out& out) {
   int64_t written = 0;
-  for (int64_t r = r0; r < r1; r++) {
-    const uint8_t* s = seqs + rec_start[r];
-    int64_t n = rec_len[r];
-    int64_t m = n / 3;
-    int64_t num_starts = m - K + 1;
-    uint8_t* codes = scratch;        // forward (or rc) base codes
-    uint8_t* frame = scratch + n;    // frame aa offsets (m entries)
-    for (int strand = 0; strand < 2; strand++) {
-      if (strand == 0) {
-        for (int64_t i = 0; i < n; i++) codes[i] = LUT.dna_code[s[i]];
-      } else {
-        for (int64_t i = 0; i < n; i++)
-          codes[i] = LUT.compl_code[s[n - 1 - i]];
-      }
-      for (int f = 0; f < 3; f++) {
-        int64_t cid = cnt_ids[r * 6 + strand * 3 + f];
-        if (num_starts <= 0) continue;
-        int64_t p = (n - f) >= 0 ? (n - f) / 3 : 0;
-        for (int64_t j = 0; j < m; j++) {
-          if (j < p) {
-            uint8_t c1 = codes[f + 3 * j];
-            uint8_t c2 = codes[f + 3 * j + 1];
-            uint8_t c3 = codes[f + 3 * j + 2];
-            frame[j] = (c1 < 4 && c2 < 4 && c3 < 4)
-                           ? LUT.codon_aa[c1 * 16 + c2 * 4 + c3]
-                           : 20;
-          } else {
-            frame[j] = 21;
-          }
+  int64_t m = n / 3;
+  int64_t num_starts = m - K + 1;
+  if (num_starts <= 0) return 0;
+  uint8_t* codes = scratch;        // forward (or rc) base codes
+  uint8_t* frame = scratch + n;    // frame aa offsets (m entries)
+  for (int strand = 0; strand < 2; strand++) {
+    if (strand == 0) {
+      for (int64_t i = 0; i < n; i++) codes[i] = LUT.dna_code[s[i]];
+    } else {
+      for (int64_t i = 0; i < n; i++) codes[i] = LUT.compl_code[s[n - 1 - i]];
+    }
+    for (int f = 0; f < 3; f++) {
+      int64_t p = (n - f) >= 0 ? (n - f) / 3 : 0;
+      for (int64_t j = 0; j < m; j++) {
+        if (j < p) {
+          uint8_t c1 = codes[f + 3 * j];
+          uint8_t c2 = codes[f + 3 * j + 1];
+          uint8_t c3 = codes[f + 3 * j + 2];
+          frame[j] = (c1 < 4 && c2 < 4 && c3 < 4)
+                         ? LUT.codon_aa[c1 * 16 + c2 * 4 + c3]
+                         : 20;
+        } else {
+          frame[j] = 21;
         }
-        written += window_pass(frame, m, num_starts, cid, out_values,
-                               out_cnt, out_pos, written);
       }
+      written += window_pass<WRITE>(frame, m, num_starts,
+                                    cid + strand * 3 + f,
+                                    WRITE ? advanced(out, written) : out);
     }
   }
   return written;
 }
 
-// Record ranges are independent and records emit in order, so both
-// feeders thread by contiguous record range (balanced by chars) into
-// thread-local buffers sized by the per-record output bound (aa: len;
-// dna: 2*len + 6), stitched in range order — records written in exactly
-// the sequential order and bytes. Single record / small batches stay
-// sequential (a lone multi-Mbp contig is the sequential worst case; real
-// corpora are many records).
-typedef int64_t (*range_fn)(const uint8_t*, const int64_t*, const int64_t*,
-                            int64_t, int64_t, const int64_t*, uint8_t*,
-                            int64_t*, int32_t*, int32_t*);
+// A chunk's records: the sequence bytes, each record's start and length in
+// them, and the container of record 0 (record r's first is first_cid +
+// frames * r).
+struct Chunk {
+  bool aa;
+  const uint8_t* seqs;
+  const int64_t* rec_start;
+  const int64_t* rec_len;
+  int64_t nrec;
+  int64_t first_cid;
+};
 
-int64_t feeder_mt(bool aa, range_fn fn, const uint8_t* seqs,
-                  const int64_t* rec_start, const int64_t* rec_len,
-                  int64_t nrec, const int64_t* cnt_ids, uint8_t* scratch,
-                  int64_t* out_values, int32_t* out_cnt, int32_t* out_pos) {
-  int64_t total = 0;
-  for (int64_t r = 0; r < nrec; r++) total += rec_len[r];
-  const int T0 = num_threads();
-  const int T = (total < (int64_t)1 << 20 || nrec < 2) ? 1
-      : (int)((int64_t)T0 < nrec ? T0 : nrec);
-  if (T <= 1)
-    return fn(seqs, rec_start, rec_len, 0, nrec, cnt_ids, scratch,
-              out_values, out_cnt, out_pos);
-  struct Range {
-    int64_t r0, r1, cap, max_len, written;
-    std::vector<int64_t> v;
-    std::vector<int32_t> c, p;
-    std::vector<uint8_t> scr;
-  };
-  std::vector<Range> ranges(T);
-  const int64_t want = (total + T - 1) / T;
-  int64_t r0 = 0;
-  for (int t = 0; t < T; t++) {
-    Range& rg = ranges[t];
-    rg.r0 = r0;
-    int64_t chars = 0, cap = 0, mx = 1;
-    while (r0 < nrec && (t == T - 1 || chars < want)) {
-      const int64_t n = rec_len[r0];
-      chars += n;
-      cap += aa ? n : 2 * n + 6;
-      if (n > mx) mx = n;
-      ++r0;
-    }
-    rg.r1 = r0;
-    rg.cap = cap > 0 ? cap : 1;
-    rg.max_len = mx;
-  }
-  parallel_for_threads(T, [&](int t) {
-    Range& rg = ranges[t];
-    if (rg.r0 >= rg.r1) { rg.written = 0; return; }
-    rg.v.resize(rg.cap);
-    rg.c.resize(rg.cap);
-    rg.p.resize(rg.cap);
-    rg.scr.resize((aa ? 1 : 2) * rg.max_len + 2);
-    rg.written = fn(seqs, rec_start, rec_len, rg.r0, rg.r1, cnt_ids,
-                    rg.scr.data(), rg.v.data(), rg.c.data(), rg.p.data());
-  });
+// Records [r0, r1) of the chunk. The count pass stores each record's
+// windows in rec_count; the write pass writes them from `out` on and
+// returns how many it wrote.
+template <bool WRITE>
+int64_t feed_range(const Chunk& c, int64_t r0, int64_t r1,
+                   int64_t* rec_count, const Out& out) {
+  int64_t max_len = 1;
+  for (int64_t r = r0; r < r1; r++)
+    if (c.rec_len[r] > max_len) max_len = c.rec_len[r];
+  // uninitialised: every byte is written before it is read
+  std::unique_ptr<uint8_t[]> scratch(
+      new uint8_t[(c.aa ? 1 : 2) * max_len + 2]);
+  const int64_t frames = c.aa ? 1 : 6;
   int64_t written = 0;
-  for (int t = 0; t < T; t++) {
-    const Range& rg = ranges[t];
-    if (!rg.written) continue;  // empty range: buffers were never resized
-    std::memcpy(out_values + written, rg.v.data(),
-                sizeof(int64_t) * rg.written);
-    std::memcpy(out_cnt + written, rg.c.data(),
-                sizeof(int32_t) * rg.written);
-    std::memcpy(out_pos + written, rg.p.data(),
-                sizeof(int32_t) * rg.written);
-    written += rg.written;
+  for (int64_t r = r0; r < r1; r++) {
+    const uint8_t* s = c.seqs + c.rec_start[r];
+    const int64_t cid = c.first_cid + frames * r;
+    const Out at = WRITE ? advanced(out, written) : out;
+    const int64_t got =
+        c.aa ? feed_aa<WRITE>(s, c.rec_len[r], cid, scratch.get(), at)
+             : feed_dna<WRITE>(s, c.rec_len[r], cid, scratch.get(), at);
+    if (!WRITE) rec_count[r] = got;
+    written += got;
   }
   return written;
+}
+
+// Record ranges are independent, so both passes thread by contiguous
+// record range, balanced by chars, the same split in each. The write pass
+// starts each range at the sum of the counts before it: records land in
+// exactly the sequential order and bytes at any thread count. Small
+// chunks and a lone record (a multi-Mbp contig is the sequential worst
+// case; real corpora are many records) stay on one thread.
+std::vector<int64_t> split(const Chunk& c) {
+  int64_t total = 0;
+  for (int64_t r = 0; r < c.nrec; r++) total += c.rec_len[r];
+  const int T0 = num_threads();
+  const int T = (total < (int64_t)1 << 20 || c.nrec < 2) ? 1
+      : (int)((int64_t)T0 < c.nrec ? T0 : c.nrec);
+  std::vector<int64_t> bounds{0};
+  const int64_t want = (total + T - 1) / T;
+  int64_t r = 0;
+  for (int t = 0; t < T; t++) {
+    int64_t chars = 0;
+    while (r < c.nrec && (t == T - 1 || chars < want)) chars += c.rec_len[r++];
+    bounds.push_back(r);
+  }
+  return bounds;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Protein mode. Returns total records written.
-int64_t feeder_aa(const uint8_t* seqs, const int64_t* rec_start,
-                  const int64_t* rec_len, int64_t nrec,
-                  const int64_t* cnt_ids, uint8_t* scratch,
-                  int64_t* out_values, int32_t* out_cnt, int32_t* out_pos) {
-  return feeder_mt(true, feeder_aa_range, seqs, rec_start, rec_len, nrec,
-                   cnt_ids, scratch, out_values, out_cnt, out_pos);
+// Count pass: rec_count[r] = the windows record r yields (aa != 0: protein
+// mode, one container a record; else DNA mode, six). Returns their sum.
+int64_t feeder_count(int32_t aa, const uint8_t* seqs,
+                     const int64_t* rec_start, const int64_t* rec_len,
+                     int64_t nrec, int64_t* rec_count) {
+  const Chunk c{aa != 0, seqs, rec_start, rec_len, nrec, 0};
+  const std::vector<int64_t> b = split(c);
+  const int T = (int)b.size() - 1;
+  parallel_for_threads(T, [&](int t) {
+    feed_range<false>(c, b[t], b[t + 1], rec_count, Out{});
+  });
+  int64_t total = 0;
+  for (int64_t r = 0; r < nrec; r++) total += rec_count[r];
+  return total;
 }
 
-// DNA mode: 6 containers per record in order +0,+1,+2,-0,-1,-2.
-// cnt_ids has nrec*6 entries; scratch must hold 2*max_len bytes.
-int64_t feeder_dna(const uint8_t* seqs, const int64_t* rec_start,
-                   const int64_t* rec_len, int64_t nrec,
-                   const int64_t* cnt_ids, uint8_t* scratch,
-                   int64_t* out_values, int32_t* out_cnt, int32_t* out_pos) {
-  return feeder_mt(false, feeder_dna_range, seqs, rec_start, rec_len, nrec,
-                   cnt_ids, scratch, out_values, out_cnt, out_pos);
+// Write pass: each record's windows as (value, container, position), in
+// record order, containers first_cid + frames * r + frame (DNA frames
+// +0,+1,+2,-0,-1,-2), into columns of sum(rec_count) rows. Returns the
+// rows written, or -1 where a range wrote other than its counts (the
+// columns are then not to be read).
+int64_t feeder_write(int32_t aa, const uint8_t* seqs,
+                     const int64_t* rec_start, const int64_t* rec_len,
+                     int64_t nrec, const int64_t* rec_count,
+                     int64_t first_cid, int64_t* out_values,
+                     int64_t* out_cnt, int64_t* out_pos) {
+  const Chunk c{aa != 0, seqs, rec_start, rec_len, nrec, first_cid};
+  const std::vector<int64_t> b = split(c);
+  const int T = (int)b.size() - 1;
+  std::vector<int64_t> at(T + 1, 0);
+  for (int t = 0; t < T; t++) {
+    at[t + 1] = at[t];
+    for (int64_t r = b[t]; r < b[t + 1]; r++) at[t + 1] += rec_count[r];
+  }
+  std::vector<char> ok(T, 0);
+  const Out out{out_values, out_cnt, out_pos};
+  parallel_for_threads(T, [&](int t) {
+    ok[t] = feed_range<true>(c, b[t], b[t + 1], nullptr,
+                             advanced(out, at[t])) == at[t + 1] - at[t];
+  });
+  for (int t = 0; t < T; t++)
+    if (!ok[t]) return -1;
+  return at[T];
 }
 
 }  // extern "C"

@@ -152,14 +152,19 @@ def _try_load(name: str, env_off: str, bind):
 
 
 def _bind_feeder(lib) -> None:
-    for fname in ("feeder_aa", "feeder_dna"):
-        fn = getattr(lib, fname)
-        fn.restype = ctypes.c_int64
-        fn.argtypes = [_U8P, _I64P, _I64P, ctypes.c_int64, _I64P,
-                       _U8P, _I64P, _I32P, _I32P]
+    fn = lib.feeder_count
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_int32, _U8P, _I64P, _I64P,     # aa, seqs, records
+                   ctypes.c_int64, _I64P]                  # nrec, counts out
+    fn = lib.feeder_write
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_int32, _U8P, _I64P, _I64P,     # aa, seqs, records
+                   ctypes.c_int64, _I64P, ctypes.c_int64,  # nrec, counts, cid
+                   _I64P, _I64P, _I64P]                    # columns out
 
 
 def load_feeder() -> Optional[ctypes.CDLL]:
+    """Native feeder (a chunk's count pass, then its write pass)."""
     return _load("feeder", "KMER_NO_NATIVE_FEEDER", _bind_feeder)
 
 
@@ -264,6 +269,9 @@ def _bind_fasta(lib) -> None:
     fn = lib.parse_fasta
     fn.restype = ctypes.c_int64
     fn.argtypes = [_U8P, ctypes.c_int64, _I64P, ctypes.c_int64, _U8P, _I64P]
+    fn = lib.join_ids
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [_U8P, _I64P, ctypes.c_int64, _U8P]
 
 
 def load_fasta() -> Optional[ctypes.CDLL]:

@@ -673,11 +673,77 @@ def test_cuda_streaming_stream_lookup_matches_cpu(cuda_device):
         np.testing.assert_array_equal(getattr(a, col), getattr(b, col))
     c = counters[str(cuda_device)]
     assert c["stream.bytes_up"] == 8 * c["stream.queries"] == 8 * len(values)
+    # plain host arrays are staged in page-locked memory before they go up
+    assert c["stream.staged_queries"] == len(values)
     assert c["stream.passes"] == 3
     assert {"stream.overflow_queries", "stream.fallback_queries"} <= set(c)
     # a scatter launch a chunk, a resolve launch a chunk
     assert (stream_tiles.scatter_launches - launches[0],
             stream_tiles.resolve_launches - launches[1]) == (8, 8)
+
+
+@pytest.mark.cuda
+def test_cuda_read_set_prepare_writes_into_page_locked_columns(
+        cuda_device, tmp_path, monkeypatch):
+    """A read set through the engine's stream front end on the card, in
+    five chunks: the prepare writes every query into the columns the front
+    end lends (``prepare.direct_queries`` is ``stream.queries``), their
+    values page-locked, so no query is staged before its upload
+    (``stream.staged_queries`` 0). In one pass a second run lends the first
+    run's columns again, allocating none; in several passes too, every
+    report is ``--backend parity``'s, byte for byte."""
+    import io
+    from functools import partial
+
+    from kmergutsjava_tpu_torch.config import EngineConfig
+    from kmergutsjava_tpu_torch.constants import GENETIC_CODE
+    from kmergutsjava_tpu_torch.formats.table_tools import (
+        signatures_from_proteins, write_data_dir)
+    from kmergutsjava_tpu_torch.models import pipeline, prepare
+    from kmergutsjava_tpu_torch.models.pipeline import Engine
+    from kmergutsjava_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(24)
+    alpha = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    prots = [alpha[rng.integers(0, 20, int(n))].tobytes().decode()
+             for n in rng.integers(60, 300, 300)]
+    d = str(tmp_path / "d")
+    write_data_dir(d, signatures_from_proteins(
+        [(p, i % 7, i % 11) for i, p in enumerate(prots)]),
+        [f"f{i}" for i in range(7)])
+    codon = {}
+    for i, a in enumerate(GENETIC_CODE.tobytes().decode()):
+        codon.setdefault(a, "ACGT"[i >> 4] + "ACGT"[(i >> 2) & 3]
+                         + "ACGT"[i & 3])
+    genome = "".join(codon[a] for p in prots for a in p)
+    starts = rng.integers(0, len(genome) - 150, 3000)
+    query = tmp_path / "reads.fna"
+    query.write_text("".join(f">r{i}\n{genome[a:a + 150]}\n"
+                             for i, a in enumerate(starts)))
+    monkeypatch.setattr(prepare, "try_prepare_bulk",
+                        partial(prepare.try_prepare_bulk,
+                                flush_chars=100_000))
+    monkeypatch.setattr(pipeline, "_LOOKUP_CACHE", {})
+    reports, counters = [], []
+    # one pass twice (every chunk's columns out until finish), several
+    # passes, and the parity scan
+    for backend, limit in (("stream", None), ("stream", None),
+                           ("stream", 250_000), ("parity", None)):
+        out = io.StringIO()
+        kw = {} if limit is None else {"input_size_limit": limit}
+        Engine(EngineConfig(aa=False, min_hits=2, backend=backend,
+                            **kw)).run(d, str(query), out, stdout=True)
+        reports.append(out.getvalue())
+        counters.append(timing.recent_runs()[-1]["counters"])
+    assert reports[0] == reports[1] == reports[2] == reports[3]
+    assert "CALL\t" in reports[0]
+    for c in counters[:3]:
+        assert c["prepare.direct_queries"] == c["stream.queries"] > 0
+        assert c["stream.staged_queries"] == 0
+    assert counters[0]["stream.passes"] == counters[1]["stream.passes"] == 1
+    assert counters[2]["stream.passes"] >= 3
+    assert counters[0]["stream.fresh_columns"] == 5  # a chunk each
+    assert counters[1]["stream.fresh_columns"] == 0
 
 
 @pytest.mark.cuda

@@ -9,9 +9,12 @@ decode are held against their numpy twins in the port's ``[C, S]`` layout.
 The double-buffered passes (a pass on its own thread while the worker
 scatters into the lookup's other set) keep the hits and their pass order,
 reuse the lookup's two sets and give them back zeroed, also after a failure,
-and hold no more queries than one pass and four queued chunks. Exact
+and hold no more queries than one pass and four queued chunks; the pool of
+host columns the front end lends the prepare keeps and lends its buffers
+by size. Exact
 everywhere: offsets and hits are integers, weights are copied table
 values."""
+import os
 import sys
 import threading
 import time
@@ -414,6 +417,67 @@ def test_streaming_holds_no_more_than_a_pass_and_four_chunks(monkeypatch):
     assert timing.recent_runs()[-1]["counters"][
         "stream.overlap_queries"] > 0
     assert max(decoded) + s.FEED_CHUNKS * chunk >= peak > max(decoded)
+
+
+def test_column_pool_lends_the_smallest_fit_and_keeps_the_largest():
+    """The pool's buffers are three int64 columns of a power-of-two
+    capacity; a chunk takes the smallest free buffer that holds it, else a
+    fresh one (counted); only the ``KEEP`` largest free ones are kept."""
+    pool = stream.ColumnPool(pinned=False)
+    with record("t.root"):
+        small, big = pool.take(100), pool.take(1000)
+        assert [len(c) for c in small] == [128] * 3
+        assert [c.dtype for c in big] == [np.int64] * 3
+        assert len(big[0]) == 1024 and len(pool.take(1)[0]) == 2
+        pool.give_back([big, None, small])
+        assert pool.take(50) is small and pool.take(128) is big
+        huge = pool.take(2000)
+        assert len(huge[0]) == 2048
+        tiny = [pool.take(3) for _ in range(pool.KEEP)]
+        pool.give_back([small, huge, big, *tiny])
+        assert len(pool._free) == pool.KEEP  # three of the tiny dropped
+        got = [pool.take(10) for _ in range(3)]
+        assert got[0] is small and got[1] is big and got[2] is huge
+        assert any(pool.take(3) is t for t in tiny)
+    counters = timing.recent_runs()[-1]["counters"]
+    assert counters["stream.fresh_columns"] == 4 + pool.KEEP
+
+
+def test_column_pool_never_lends_a_buffer_twice_under_contention():
+    """More threads than cores taking and giving back columns, switching
+    often: no buffer is ever out to two takers at once, and every one
+    comes back."""
+    pool = stream.ColumnPool(pinned=False)
+    out, lock, errors = set(), threading.Lock(), []
+    threads, each = 4 * (os.cpu_count() or 1), 200
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(each):
+            buf = pool.take(int(rng.integers(1, 5000)))
+            with lock:
+                if id(buf) in out:
+                    errors.append("lent twice")
+                out.add(id(buf))
+            buf[0][:1] = seed
+            with lock:
+                out.discard(id(buf))
+            pool.give_back([buf])
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=worker, args=(i,))
+              for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    assert errors == [] and out == set()
+    assert 0 < len(pool._free) <= pool.KEEP
 
 
 def _no_native(monkeypatch):

@@ -206,6 +206,9 @@ def test_profile_writes_spans_json(corpus, tmp_path, entry):
         entry]
     assert {"engine.prepare", "engine.lookup", "engine.group"} <= set(
         written["spans"])
+    # the bulk prepare's inner spans (a query file takes the bulk parse)
+    assert {"prepare.parse", "prepare.register", "prepare.encode"} <= set(
+        written["spans"])
     assert (out / "trace.json").stat().st_size > 0
 
 
